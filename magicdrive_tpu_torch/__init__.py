@@ -1,0 +1,15 @@
+"""MagicDrive in PyTorch for one NVIDIA Hopper GPU.
+
+The PyTorch counterpart of ``magicdrive_tpu``: the same 6-view generation
+path (CLIP, camera/box/map conditioning, BEVControlNet + multiview UNet with
+CFG, UniPC, VAE decode) with its four Pallas kernels rewritten as CUDA C++
+for sm_90a (``kernels/csrc``). Module layout and names follow the JAX
+package so each counterpart is easy to find; tensors are NCHW inside and the
+JAX package's layouts are kept at the public entry points.
+
+This package imports torch and never jax or flax, nor anything of
+``magicdrive_tpu``: its generation requests come from ``data`` (fixture
+scenes and their collated batches, in numpy).
+"""
+
+__version__ = "0.1.0"

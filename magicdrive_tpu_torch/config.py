@@ -1,0 +1,151 @@
+"""Model presets as plain dataclasses (counterpart of ``config/presets.py``).
+
+Only the fields the ported generation path reads are mirrored; values equal
+the JAX presets' field for field (``tests/test_torch_port_modules.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+# ring neighbours of the 6 nuScenes cameras in view order
+# (counterpart of ``models/unet.py`` NUSCENES_NEIGHBORS)
+NUSCENES_NEIGHBORS: Tuple[Tuple[int, int], ...] = (
+    (5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    num_attention_heads: int = 8
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
+    # cross-view attention ("add" mode, zero_linear connector) when set
+    neighboring_view_pair: Optional[Tuple[Tuple[int, int], ...]] = None
+
+    @property
+    def up_block_has_attn(self) -> Tuple[bool, ...]:
+        return tuple(reversed(self.down_block_has_attn))
+
+
+@dataclasses.dataclass(frozen=True)
+class BBoxEmbedderConfig:
+    n_classes: int = 10
+    class_token_dim: int = 768
+    embedder_num_freq: int = 4
+    proj_dims: Tuple[int, ...] = (768, 512, 512, 768)
+    mode: str = "all-xyz"      # all-xyz (8 corners) | cxyz (4 corners)
+
+    @property
+    def n_points(self) -> int:
+        return {"all-xyz": 8, "cxyz": 4}[self.mode]
+
+    @property
+    def pos_dim(self) -> int:
+        return 3 * (1 + 2 * self.embedder_num_freq) * self.n_points
+
+
+@dataclasses.dataclass(frozen=True)
+class BEVControlNetConfig:
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    camera_in_dim: int = 189
+    camera_out_dim: int = 768
+    cam_num_freqs: int = 4
+    uncond_cam_in_dim: Tuple[int, int] = (3, 7)
+    map_size: Tuple[int, int, int] = (8, 200, 200)  # (C, H, W)
+    map_embedder_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
+    bbox: BBoxEmbedderConfig = dataclasses.field(
+        default_factory=BBoxEmbedderConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    num_inference_steps: int = 20
+    guidance_scale: float = 2.0
+    conditioning_scale: float = 1.0
+    latent_height: int = 28
+    latent_width: int = 50
+    n_cam: int = 6
+    dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPreset:
+    name: str
+    unet: UNetConfig
+    controlnet: BEVControlNetConfig
+    vae: VAEConfig
+    clip: CLIPTextConfig
+    pipeline: PipelineConfig
+    image_size: Tuple[int, int]  # (H, W)
+    bbox_max_len: int = 160
+
+
+def sd15mv_rawbox_224x400() -> ModelPreset:
+    """The 224x400 model (ref:configs/exp/224x400.yaml)."""
+    unet = UNetConfig(neighboring_view_pair=NUSCENES_NEIGHBORS)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        map_size=(8, 200, 200),
+        map_embedder_out_channels=(16, 32, 96, 256),
+        bbox=BBoxEmbedderConfig(mode="all-xyz"),
+    )
+    return ModelPreset(
+        name="SDv1.5mv-rawbox-224x400", unet=unet, controlnet=cn,
+        vae=VAEConfig(), clip=CLIPTextConfig(),
+        pipeline=PipelineConfig(latent_height=28, latent_width=50),
+        image_size=(224, 400),
+    )
+
+
+def tiny_debug() -> ModelPreset:
+    """CPU-sized model with the 224x400 geometry, for tests."""
+    unet = UNetConfig(
+        block_out_channels=(8, 16, 16, 16), num_attention_heads=2,
+        cross_attention_dim=16, norm_num_groups=4,
+        neighboring_view_pair=NUSCENES_NEIGHBORS)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        camera_out_dim=16, map_size=(8, 200, 200),
+        map_embedder_out_channels=(4, 4, 8, 8),
+        bbox=BBoxEmbedderConfig(class_token_dim=16, proj_dims=(16, 8, 8, 16)),
+    )
+    return ModelPreset(
+        name="tiny-debug", unet=unet, controlnet=cn,
+        vae=VAEConfig(block_out_channels=(4, 4, 8, 8), layers_per_block=1,
+                      norm_num_groups=2),
+        clip=CLIPTextConfig(vocab_size=49408, hidden_size=16, num_layers=2,
+                            num_heads=2, intermediate_size=32),
+        pipeline=PipelineConfig(latent_height=28, latent_width=50,
+                                num_inference_steps=4, dtype=torch.float32),
+        image_size=(224, 400), bbox_max_len=8,
+    )

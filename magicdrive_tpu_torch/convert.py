@@ -1,0 +1,124 @@
+"""JAX parameter tree -> the port's state_dicts (the inverse of
+``magicdrive_tpu/convert/torch_weights.py``, restated without flax).
+
+Each leaf of the JAX ``init_params`` tree, given as nested dicts of numpy
+arrays, maps to one diffusers/transformers state_dict key:
+  * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+  * ``scale`` / ``kernel`` / ``embedding`` -> ``weight``;
+  * flax scope names -> torch module paths (``_PRE_RULES``, list indices,
+    ``to_out`` -> ``to_out.0``) and the special keys (``_SPECIALS``).
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+
+_PRE_RULES = (
+    (r"/LayerNorm_0", ""),
+    (r"/GroupNorm_0", ""),
+    (r"net_0_proj", "net.0.proj"),
+    (r"net_2", "net.2"),
+    (r"mlp_fc1", "mlp.fc1"),
+    (r"mlp_fc2", "mlp.fc2"),
+    (r"second_linear_(\d+)", r"second_linear.\1"),
+    (r"mid_block_resnets_(\d+)", r"mid_block.resnets.\1"),
+    (r"mid_block_attentions_(\d+)", r"mid_block.attentions.\1"),
+    (r"down_blocks_(\d+)_resnets_(\d+)", r"down_blocks.\1.resnets.\2"),
+    (r"down_blocks_(\d+)_downsamplers_0_conv",
+     r"down_blocks.\1.downsamplers.0.conv"),
+    (r"up_blocks_(\d+)_resnets_(\d+)", r"up_blocks.\1.resnets.\2"),
+    (r"up_blocks_(\d+)_upsamplers_0_conv", r"up_blocks.\1.upsamplers.0.conv"),
+)
+# names whose trailing _<digit> is part of the name, not a list index
+_KEEP_UNDERSCORE_NUM = {"linear_1", "linear_2", "norm1", "norm2", "norm3",
+                        "norm4", "layer_norm1", "layer_norm2", "mlp_fc1",
+                        "mlp_fc2"}
+_SPECIALS = {
+    "uncond_cam": "uncond_cam.weight",
+    "position_embedding": "text_model.embeddings.position_embedding.weight",
+    "bbox_embedder/class_tokens": "bbox_embedder._class_tokens",
+}
+_COLLECTIONS = ("params", "buffers")
+
+
+def _index_segment(m: "re.Match[str]") -> str:
+    name = m.group(1) + "_" + m.group(2)
+    if name in _KEEP_UNDERSCORE_NUM:
+        return m.group(0)
+    return f"{m.group(1)}.{m.group(2)}{m.group(3)}"
+
+
+def torch_key(path: Tuple[str, ...]) -> str:
+    """Flax path (collection stripped) -> torch state_dict key."""
+    joined = "/".join(path)
+    if joined in _SPECIALS:
+        return _SPECIALS[joined]
+    *mods, leaf = path
+    s = "/".join(mods)
+    for pat, rep in _PRE_RULES:
+        s = re.sub(pat, rep, s)
+    prev = None
+    while prev != s:
+        prev = s
+        s = re.sub(r"([A-Za-z0-9.]+)_(\d+)(/|$|\.)", _index_segment, s)
+    s = re.sub(r"\bto_out\b", "to_out.0", s.replace("/", "."))
+    if leaf in ("kernel", "scale", "embedding"):
+        return s + ".weight"
+    if leaf == "bias":
+        return s + ".bias"
+    return s + "." + leaf if s else leaf
+
+
+def clip_torch_key(path: Tuple[str, ...]) -> str:
+    """As :func:`torch_key`, with the transformers ``text_model`` prefixes."""
+    s = torch_key(path)
+    if s.startswith("token_embedding"):
+        return "text_model.embeddings." + s
+    if s.startswith("layers."):
+        return "text_model.encoder." + s
+    if s.startswith("final_layer_norm"):
+        return "text_model." + s
+    return s
+
+
+def _transform(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    if path[-1] == "kernel":
+        return value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+    if path == ("uncond_cam",):
+        return value.reshape(1, -1)  # Embedding(1, 21)
+    return value
+
+
+def iter_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from iter_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def module_state_dict(variables: Mapping[str, Any], clip: bool = False
+                      ) -> Dict[str, np.ndarray]:
+    """One module's flax variables ({collection: tree}) -> state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in iter_leaves(variables):
+        if path[0] not in _COLLECTIONS:
+            raise ValueError(f"unexpected collection {path[0]!r}")
+        spath = path[1:]
+        key = clip_torch_key(spath) if clip else torch_key(spath)
+        if key in out:
+            raise ValueError(f"two leaves map to {key}")
+        out[key] = np.array(_transform(value, spath), dtype=np.float32,
+                            order="C")  # a writable copy
+    return out
+
+
+def jax_params_to_state_dicts(params_np: Mapping[str, Any]
+                              ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX ``init_params`` tree ({"unet", "controlnet", "vae", "clip"},
+    each {collection: tree} of numpy arrays) -> {name: state_dict}."""
+    return {n: module_state_dict(params_np[n], clip=n == "clip")
+            for n in ("unet", "controlnet", "vae", "clip")}

@@ -1,0 +1,70 @@
+"""Conv building blocks in diffusers form, NCHW (counterpart of
+``core/resnet.py``).
+
+The JAX package's GroupNorm formulations, subpixel upsample-conv and
+split skip-concat are exact rewrites of these graphs for the TPU, so the
+plain diffusers graph is what is ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm with float32 statistics; output in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: Optional[int] = None, groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_channels, eps)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+                              if temb_channels is not None else None)
+        self.norm2 = GroupNorm(groups, out_channels, eps)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest resize (2x, or to ``out_hw`` for odd latent sizes, torch
+    'nearest' = floor(i*in/out)) followed by a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor,
+                out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        out_hw = out_hw or (2 * x.shape[2], 2 * x.shape[3])
+        return self.conv(F.interpolate(x, size=tuple(out_hw), mode="nearest"))

@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels (``kernels/csrc``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ``ctypes``. Sources that include no
+PyTorch headers compile in seconds, where a ``torch.utils.cpp_extension``
+binding file takes minutes, and every fresh machine builds anew.
+
+The library is built at first use into ``kernels/_build/`` (ignored by
+git), named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is reused. ``python -m
+magicdrive_tpu_torch.kernels.build`` builds it and prints each kernel's
+register and shared-memory use.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points and their argument types (pointers and the stream as
+# c_void_p: ctypes would otherwise pass a Python int as a 32-bit int)
+_SIGNATURES = {
+    "mdk_kv_project": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+    "mdk_kvstat_attention": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "mdk_kvstat_attention_pair": (_I, [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3
+                                  + [_P]),
+    "mdk_geglu": (_I, [_P] * 4 + [_I] * 3 + [_P]),
+    "mdk_ff": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "mdk_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cpp"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+                           "nvcc on PATH): the kernels cannot be built")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmdk_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[pathlib.Path, str]:
+    """Compile the sources if the library for their hash is missing.
+    Returns the library path and the compiler's output (empty when reused).
+    Raises with the compiler's output when nvcc fails."""
+    path = library_path()
+    if path.exists():
+        return path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library with its C signatures declared (built if needed)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+if __name__ == "__main__":
+    p, log = build()
+    print(p)
+    print(log)

@@ -1,0 +1,36 @@
+// K2: paired-neighbour kv-stationary attention (cross-view "add" mode) for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas kernels magicdrive_tpu/kernels/fused_attention.py
+// _fused_kvstat_pair_kernel / _fused_kvstat_pair_group_kernel (launcher
+// _kvstat_pair_fwd_impl, entry fused_kvstat_attention_pair with in-grid
+// ring shifts): o = softmax(q k_1^T) v_1 + softmax(q k_2^T) v_2 with q
+// projected once and neighbour i read at batch index
+// (b // n) * n + (b % n + s_i) % n. No rolled copy of the hidden states is
+// made: both neighbours are views of the same tensor, so the wrapper runs
+// K1's projection kernel (mdk_kv_project) once over all views and this
+// kernel indexes that one workspace through the ring map. The two outputs
+// come from separate softmaxes and are summed in fp32 before the one cast;
+// the caller out-projects the sum with the bias counted twice.
+// Bound: as K1, with twice the logits and PV work per q tile.
+#include "common.cuh"
+
+extern "C" {
+
+// x: (B, L, C) the views' hidden states (q source); k, v: (B, H, L, D)
+// projected from x; out: (B, L, H*D) bf16. B must be a multiple of n_views.
+int mdk_kvstat_attention_pair(const void* x, const void* wq, const void* k,
+                              const void* v, void* out, int B, int L, int C,
+                              int H, int D, float scale, int shift1,
+                              int shift2, int n_views, void* stream) {
+  using mdk::bf16;
+  if (n_views <= 0 || B % n_views != 0 || shift1 < 0 || shift2 < 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)mdk::launch_attention<2>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, L, C, L, H, D, scale, shift1, shift2,
+      n_views, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -1,0 +1,94 @@
+"""Plain PyTorch versions of the four hand-written kernels (K1-K4).
+
+Each computes the same function as its CUDA kernel with the same cast
+points (the JAX kernels' own): projections accumulate in fp32, q is scaled
+in fp32 and cast to the input dtype, k and v are cast to the input dtype,
+logits and softmax statistics are fp32, p is cast to the input dtype before
+PV, o is divided by the row sum in fp32; the GEGLU halves and biases are
+fp32 and the gated product is cast before stage 2. Weights are in
+``nn.Linear`` layout (out, in).
+
+On the CPU the port runs through these functions; the tests hold them
+against the JAX Pallas kernels in interpret mode, and ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _linear32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.float() @ w.float().t()
+
+
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    B, L, HD = t.shape
+    return t.reshape(B, L, heads, HD // heads).transpose(1, 2)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            heads: int) -> torch.Tensor:
+    """softmax(q k^T) v per head; q already scaled. (B, Lq, H*D) fp32."""
+    qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+    s = qh.float() @ kh.float().transpose(-1, -2)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (p.to(q.dtype).float() @ vh.float()) / p.sum(-1, keepdim=True)
+    B, _, Lq, D = o.shape
+    return o.transpose(1, 2).reshape(B, Lq, heads * D)
+
+
+def _project(x_q, x_kv, wq, wk, wv, scale):
+    dt = x_q.dtype
+    q = (_linear32(x_q, wq) * scale).to(dt)
+    return q, _linear32(x_kv, wk).to(dt), _linear32(x_kv, wv).to(dt)
+
+
+def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
+                     wk: torch.Tensor, wv: torch.Tensor, heads: int,
+                     scale: float) -> torch.Tensor:
+    """K1. x_q (B, Lq, C), x_kv (B, Lk, Ck) -> (B, Lq, H*D)."""
+    q, k, v = _project(x_q, x_kv, wq, wk, wv, scale)
+    return _attend(q, k, v, heads).to(x_q.dtype)
+
+
+def ring_views(t: torch.Tensor, shift: int, n: int) -> torch.Tensor:
+    """out[(b, v)] = t[(b, (v + shift) % n)] on a flattened (B*n, ...)
+    batch: the neighbour each view reads in the cross-view ring."""
+    return t.reshape(t.shape[0] // n, n, *t.shape[1:]).roll(
+        -shift, dims=1).reshape(t.shape)
+
+
+def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                          wv: torch.Tensor, heads: int, scale: float,
+                          shifts: Tuple[int, int, int]) -> torch.Tensor:
+    """K2. sum over the two ring neighbours s1, s2 of n views of separate
+    softmax attentions, summed in fp32: x (B, L, C) -> (B, L, H*D)."""
+    s1, s2, n = shifts
+    q, k, v = _project(x, x, wq, wk, wv, scale)
+    o = sum(_attend(q, ring_views(k, s, n), ring_views(v, s, n), heads)
+            for s in (s1, s2))
+    return o.to(x.dtype)
+
+
+def _gated(x: torch.Tensor, w1: torch.Tensor,
+           b1: Optional[torch.Tensor]) -> torch.Tensor:
+    h = _linear32(x, w1)
+    if b1 is not None:
+        h = h + b1.float()
+    hv, hg = h.chunk(2, dim=-1)
+    return hv * F.gelu(hg)  # exact erf GELU
+
+
+def fused_geglu(x: torch.Tensor, w1: torch.Tensor,
+                b1: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4. (x Wv + bv) * gelu(x Wg + bg): x (..., K) -> (..., N)."""
+    return _gated(x, w1, b1).to(x.dtype)
+
+
+def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
+             w2: torch.Tensor) -> torch.Tensor:
+    """K3. the FeedForward without its stage-2 bias: x (..., K) -> (..., C)."""
+    return _linear32(_gated(x, w1, b1).to(x.dtype), w2).to(x.dtype)

@@ -1,0 +1,126 @@
+"""BEV ControlNet: the conditioning branch producing additive UNet
+residuals (counterpart of ``models/controlnet.py``; ref:
+magicdrive/networks/unet_addon_rawbox.py BEVControlNetModel), NCHW.
+
+Token sequence per view: [cam(1) | text(77) | bbox(max_len)]
+(ref:unet_addon_rawbox.py:317-336, 791-793).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from magicdrive_tpu_torch.config import BEVControlNetConfig
+from magicdrive_tpu_torch.models.embedders import (
+    BEVMapEmbedder, ContinuousBBoxWithTextEmbedding, embed_camera)
+from magicdrive_tpu_torch.models.unet import (CrossAttnDownBlock,
+                                              TimestepEmbedding, UNetMidBlock,
+                                              time_embed)
+
+
+def _zero_conv(ch: int) -> nn.Conv2d:
+    conv = nn.Conv2d(ch, ch, 1)
+    nn.init.zeros_(conv.weight)
+    nn.init.zeros_(conv.bias)
+    return conv
+
+
+class BEVControlNet(nn.Module):
+    def __init__(self, cfg: BEVControlNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        ucfg = dataclasses.replace(cfg.unet, neighboring_view_pair=None)
+        self.ucfg = ucfg
+        boc = ucfg.block_out_channels
+        self.cam2token = nn.Linear(cfg.camera_in_dim, cfg.camera_out_dim)
+        # one learned "unconditional camera" row (ref:unet_addon_rawbox.py:
+        # 108-112), an Embedding(1, 21)
+        self.uncond_cam = nn.Embedding(
+            1, cfg.uncond_cam_in_dim[0] * cfg.uncond_cam_in_dim[1])
+        self.bbox_embedder = ContinuousBBoxWithTextEmbedding(cfg.bbox)
+        self.controlnet_cond_embedding = BEVMapEmbedder(
+            cfg.map_size[0], cfg.map_embedder_out_channels, boc[0])
+        self.time_embedding = TimestepEmbedding(boc[0], boc[0] * 4)
+        self.conv_in = nn.Conv2d(ucfg.in_channels, boc[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList([
+            CrossAttnDownBlock(ucfg, boc[max(i - 1, 0)], ch,
+                               ucfg.down_block_has_attn[i],
+                               add_downsample=i != len(boc) - 1)
+            for i, ch in enumerate(boc)])
+        self.mid_block = UNetMidBlock(ucfg)
+        # zero-init 1x1 convs, one per residual (ref:unet_addon_rawbox.py:
+        # 219-272) and one for the mid block
+        res_channels = [boc[0]]
+        for i, ch in enumerate(boc):
+            res_channels += [ch] * (ucfg.layers_per_block
+                                    + (i != len(boc) - 1))
+        self.controlnet_down_blocks = nn.ModuleList(
+            [_zero_conv(ch) for ch in res_channels])
+        self.controlnet_mid_block = _zero_conv(boc[-1])
+
+    def uncond_camera(self) -> torch.Tensor:
+        """The learned unconditional camera as a (3, 7) parameter."""
+        return self.uncond_cam.weight.reshape(self.cfg.uncond_cam_in_dim)
+
+    def assemble_tokens(self, camera_param: torch.Tensor,
+                        encoder_hidden_states: torch.Tensor,
+                        bboxes: torch.Tensor, classes: torch.Tensor,
+                        masks: torch.Tensor) -> torch.Tensor:
+        """camera (B, N, 3, 7), text (B, 77, d), boxes (B, N, L, P, 3),
+        classes/masks (B, N, L) -> tokens (B, N, 1 + 77 + L, d)."""
+        dt = self.cam2token.weight.dtype
+        B, N = camera_param.shape[:2]
+        cam = self.cam2token(
+            embed_camera(camera_param.float(), self.cfg.cam_num_freqs).to(dt))
+        text = encoder_hidden_states.to(dt)[:, None].expand(B, N, -1, -1)
+        box = self.bbox_embedder(bboxes, classes, masks)
+        return torch.cat([cam[:, :, None], text, box], dim=2)
+
+    def embed_map(self, controlnet_cond: torch.Tensor) -> torch.Tensor:
+        """BEV map (B, C_map, H, W) -> (B, 320, h, w)."""
+        return self.controlnet_cond_embedding(
+            controlnet_cond.to(self.conv_in.weight.dtype))
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                camera_param: Optional[torch.Tensor] = None,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                controlnet_cond: Optional[torch.Tensor] = None,
+                bboxes: Optional[torch.Tensor] = None,
+                classes: Optional[torch.Tensor] = None,
+                masks: Optional[torch.Tensor] = None,
+                conditioning_scale: float = 1.0,
+                tokens: Optional[torch.Tensor] = None,
+                cond_feat: Optional[torch.Tensor] = None
+                ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+        """sample (B, N, 4, h, w), timesteps (B,) or (B*N,). ``tokens`` and
+        ``cond_feat`` may be precomputed (they do not change across sampler
+        steps) with :meth:`assemble_tokens` / :meth:`embed_map`.
+        Returns (down residuals, mid residual, tokens)."""
+        B, N = sample.shape[:2]
+        dt = self.conv_in.weight.dtype
+        if tokens is None:
+            tokens = self.assemble_tokens(camera_param, encoder_hidden_states,
+                                          bboxes, classes, masks)
+        if cond_feat is None:
+            cond_feat = self.embed_map(controlnet_cond)
+        x = sample.reshape(B * N, *sample.shape[2:]).to(dt)
+        ctx = tokens.reshape(B * N, *tokens.shape[2:])
+        timesteps = timesteps.reshape(-1).expand(
+            B if timesteps.numel() == 1 else -1)
+        if timesteps.shape[0] == B:
+            timesteps = timesteps.repeat_interleave(N)
+        temb = time_embed(self.time_embedding, timesteps,
+                          self.ucfg.block_out_channels[0])
+        x = self.conv_in(x) + cond_feat.repeat_interleave(N, dim=0)
+        res = [x]
+        for block in self.down_blocks:
+            x, r = block(x, temb, ctx)
+            res.extend(r)
+        x = self.mid_block(x, temb, ctx)
+        down = [conv(r) * conditioning_scale
+                for conv, r in zip(self.controlnet_down_blocks, res,
+                                   strict=True)]
+        return down, self.controlnet_mid_block(x) * conditioning_scale, tokens

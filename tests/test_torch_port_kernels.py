@@ -1,0 +1,184 @@
+"""The plain versions of the port's kernels K1-K4 against the JAX Pallas
+kernels they replace, run in interpret mode as tests/test_kernels.py runs
+them, and the port's routing rules against the JAX package's.
+
+fp32 throughout, atol 1e-4 / rtol 1e-3. The JAX kernels take weights
+lane-padded to 128 per head; their outputs are sliced back to the logical
+head depth D. The port's weights are in nn.Linear (out, in) layout.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from magicdrive_tpu.kernels import fused_attention as jfa
+from magicdrive_tpu.kernels import geglu as jgg
+
+from magicdrive_tpu_torch.kernels import dispatch, reference
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 1e-4, 1e-3
+DP = 128
+
+
+def _weights(rs, cin, H, D):
+    """(C, H, D) weight -> (JAX lane-padded (C, H*DP), port (H*D, C))."""
+    w = (rs.randn(cin, H, D) * cin ** -0.5).astype(np.float32)
+    padded = np.pad(w, ((0, 0), (0, 0), (0, DP - D))).reshape(cin, H * DP)
+    return jnp.asarray(padded), torch.from_numpy(
+        np.ascontiguousarray(w.reshape(cin, H * D).T))
+
+
+def _unpad(o, B, L, H, D):
+    return np.asarray(o).reshape(B, L, H, DP)[..., :D].reshape(B, L, H * D)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D", [
+    (2, 48, 48, 32, 32, 2, 16),     # self-attention
+    (1, 64, 64, 48, 48, 2, 40),     # the level-0 head depth
+    (2, 40, 24, 32, 48, 3, 16),     # cross-attention onto wider context
+])
+def test_k1_plain_matches_pallas(B, Lq, Lk, C, Ck, H, D):
+    rs = np.random.RandomState(0)
+    xq = rs.randn(B, Lq, C).astype(np.float32)
+    xkv = xq if Lk == Lq and Ck == C else \
+        rs.randn(B, Lk, Ck).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, c, H, D)
+                                    for c in (C, Ck, Ck))
+    scale = D ** -0.5
+    want = jfa.fused_kvstat_attention(jnp.asarray(xq), jnp.asarray(xkv),
+                                      jq, jk, jv, heads=H, scale=scale,
+                                      interpret=True)
+    got = reference.kvstat_attention(torch.from_numpy(xq),
+                                     torch.from_numpy(xkv), tq, tk, tv, H,
+                                     scale)
+    np.testing.assert_allclose(got.numpy(), _unpad(want, B, Lq, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("H,D", [(3, 16), (2, 40)])
+def test_k2_plain_matches_pallas_ring_shifts(H, D):
+    """The pair with the in-kernel ring shifts (5, 1) over 6 views, as the
+    nuScenes neighbours give them, against the JAX shifts=(s1, s2, n)
+    path."""
+    rs = np.random.RandomState(1)
+    n, Bg, L, C = 6, 2, 36, 48
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, C, H, D) for _ in range(3))
+    scale = D ** -0.5
+    shifts = (5, 1, n)
+    xj = jnp.asarray(x)
+    want = jfa.fused_kvstat_attention_pair(xj, xj, xj, jq, jk, jv, heads=H,
+                                           scale=scale, interpret=True,
+                                           shifts=shifts)
+    got = reference.kvstat_attention_pair(torch.from_numpy(x), tq, tk, tv, H,
+                                          scale, shifts)
+    np.testing.assert_allclose(got.numpy(), _unpad(want, Bg * n, L, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+def _ff_weights(rs, K, N, C):
+    k1 = (rs.randn(K, 2 * N) * K ** -0.5).astype(np.float32)
+    b1 = (rs.randn(2 * N) * 0.1).astype(np.float32)
+    k2 = (rs.randn(N, C) * N ** -0.5).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (jnp.asarray(k1), jnp.asarray(b1), jnp.asarray(k2)), \
+        (t(k1.T), t(b1), t(k2.T))
+
+
+def test_k3_plain_matches_pallas():
+    rs = np.random.RandomState(2)
+    K, N, C = 48, 160, 48
+    x = rs.randn(2, 37, K).astype(np.float32)
+    (k1, b1, k2), (w1, tb1, w2) = _ff_weights(rs, K, N, C)
+    want = jgg.fused_ff(jnp.asarray(x), k1, b1, k2, interpret=True)
+    got = reference.fused_ff(torch.from_numpy(x), w1, tb1, w2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_k4_plain_matches_pallas(with_bias):
+    rs = np.random.RandomState(3)
+    K, N = 48, 160
+    x = rs.randn(2, 37, K).astype(np.float32)
+    (k1, b1, _), (w1, tb1, _) = _ff_weights(rs, K, N, K)
+    want = jgg.fused_geglu(jnp.asarray(x), k1, b1 if with_bias else None,
+                           interpret=True)
+    got = reference.fused_geglu(torch.from_numpy(x), w1,
+                                tb1 if with_bias else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+# every transformer of the 224x400 preset: (latent level L, width C, head
+# depth D); 8 heads, text context 1 + 77 + 160 tokens of width 768
+_LEVELS = [(1400, 320, 40), (350, 640, 80), (91, 1280, 160),
+           (28, 1280, 160)]
+_CTX, _CTX_DIM = 1 + 77 + 160, 768
+
+
+def _jax_kvstat(Lq, Lk, C, D):
+    from magicdrive_tpu.core import attention as jattn
+
+    return (Lq * Lk >= jattn._AUTO_PALLAS_MIN_LOGITS and D <= jattn._LANE
+            and jattn.fused_mode_for(Lq, Lk, C, D, 2) == "kvstat")
+
+
+def test_routing_matches_jax_rules_224x400():
+    chosen = set()
+    for L, C, D in _LEVELS:
+        for name, Lk, Ck in (("attn1", L, C), ("attn2", _CTX, _CTX_DIM),
+                             ("attn4", L, C)):
+            want = _jax_kvstat(L, Lk, max(C, Ck), D)
+            if name == "attn4":
+                want = want and jfa.kvstat_pair_fits(L, L, C, D, 2)
+            got = dispatch.uses_kvstat(L, Lk, D)
+            assert got == want, (name, L, C, D)
+            if got:
+                chosen.add((name, L))
+        assert dispatch.ff_full_fusion_fits(C, 4 * C, C) == \
+            jgg.ff_full_fusion_fits(C, 4 * C, C, 2), C
+    # K1 at attn1 on both upper levels and attn2 at level 0; K2 at attn4 on
+    # both upper levels; K3 at level 0 only
+    assert chosen == {("attn1", 1400), ("attn1", 350), ("attn2", 1400),
+                      ("attn4", 1400), ("attn4", 350)}
+    assert [dispatch.ff_full_fusion_fits(C, 4 * C, C)
+            for _, C, _ in _LEVELS] == [True, False, False, False]
+
+
+@pytest.mark.parametrize("C", [8, 16, 32, 512, 560, 576])
+def test_ff_rule_matches_jax_off_preset(C):
+    """Other widths (tiny presets, and near the rule's edge) too."""
+    assert dispatch.ff_full_fusion_fits(C, 4 * C, C) == \
+        jgg.ff_full_fusion_fits(C, 4 * C, C, 2)
+
+
+def test_cpu_wrappers_run_plain_versions_uncounted():
+    """On the CPU the wrappers are the plain versions and count nothing;
+    a device without a kernel raises."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(6, 20, 16).astype(np.float32))
+    w = [torch.from_numpy(rs.randn(16, 16).astype(np.float32))
+         for _ in range(4)]
+    b = torch.from_numpy(rs.randn(32).astype(np.float32))
+    dispatch.reset_launches()
+    torch.testing.assert_close(
+        dispatch.kvstat_attention(x, x, *w[:3], 2, 0.3),
+        reference.kvstat_attention(x, x, *w[:3], 2, 0.3), rtol=0, atol=0)
+    torch.testing.assert_close(
+        dispatch.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
+        reference.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
+        rtol=0, atol=0)
+    w1 = torch.cat([w[0], w[1]])
+    torch.testing.assert_close(dispatch.fused_ff(x, w1, b, w[2]),
+                               reference.fused_ff(x, w1, b, w[2]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dispatch.fused_geglu(x, w1, b),
+                               reference.fused_geglu(x, w1, b),
+                               rtol=0, atol=0)
+    assert all(v == 0 for v in dispatch.LAUNCHES.values())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        dispatch.fused_geglu(x.to("meta"), w1.to("meta"), b.to("meta"))
