@@ -9,9 +9,14 @@ no result line):
   2. build: the hand-written kernels (magicdrive_tpu_torch/kernels/csrc),
      compiled from this checkout;
   3. kernel checks: K1-K4 at every shape the 224x400 generation path gives
-     them (bf16, B=1 with CFG: 12 views) against their plain versions in
-     fp32 with TF32 off, max|kernel - ref| <= 1e-2 * max|ref|, with CUDA-
-     event times of the kernel and of the plain version on the same inputs;
+     them (bf16, B=1 with CFG: 12 views), and K5 and both launches of K6 at
+     the shapes the training path gives them (48 batch-heads), against their
+     plain versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 *
+     max|ref|, with CUDA-event times of the kernel and of the plain version
+     on the same inputs; then the autograd of K1-K4 at the training shapes:
+     every input and weight gradient through the kernel route against the
+     plain backward in fp32, at the same limit, with the plain bf16
+     backward's own error printed beside it;
   4. slice: the full-width sd15mv_rawbox_224x400 pipeline (20 UniPC steps,
      CFG 2.0, bf16, B=1) on seeded random weights with every floating
      parameter non-zero, for 2 requests; the launch counts of that run show
@@ -22,24 +27,42 @@ no result line):
      the plain versions to relative L2 <= 2e-2. The eps comparison is a smoke
      test, not a gate: bf16 noise of the whole network sits near 1.1e-2, and
      planted faults in K2 and K4 passed it while the per-call check and
-     phase 3 caught both (PERF.md).
-The line before the last is {"kernels": [...]}, one entry per kernel, at the
-shape where its error was largest, with every shape under "shapes"; the
-last line is {"ok": true, "device": {...}}.
+     phase 3 caught both (PERF.md);
+  6. training: the full-width model in bf16 over fp32 masters (the recipe's
+     AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture batch with images
+     at B=1 (6 views), N_TRAIN_STEPS steps through the port's Runner with a
+     one-step warm-up. Every loss is finite, the masters are unchanged after
+     step 1 (lr 0) and nearly all moved after the last, every frozen weight
+     is bitwise unchanged, and the launch counts of K1-K6 equal the counts
+     derived from the block structure; then one step with an all-ones drop
+     mask. Warm s/step and peak memory are printed;
+  7. training path checks: in one training step every K1-K6 call, forward
+     and backward, is held against its plain version in fp32 on the inputs
+     the path gave it (the tolerance of phase 3). The ControlNet gradient,
+     kernels against plain versions, is printed as a smoke test.
+The line before the last is {"kernels": [...]}, one entry per kernel (K6's
+two launches as two entries) at the shape where its error was largest, with
+every shape under "shapes"; "launches" is the count of the training run and
+"launches_by_path" gives both paths' counts. The last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 N_REQUESTS = 2
+N_TRAIN_STEPS = 3
 KERNEL_TOL = 1e-2   # max|kernel - ref| <= KERNEL_TOL * max|ref|
+GRAD_TOL = 1e-2     # the same for each gradient of K1-K4
 EPS_TOL = 2e-2      # relative L2 of the guided eps, kernels vs plain
 # Scale of the random weights of rank >= 2 (times 1/sqrt(fan_in)). At full
 # width with random weights the bf16 network amplifies rounding: measured
@@ -64,6 +87,7 @@ def environment() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
     log(smi)
+    torch.cuda.set_device(0)  # the autograd engine's thread finds it set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -93,7 +117,8 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-# (name, source, TPU kernel replaced)
+# kernel -> (source, TPU kernel replaced); K6's two launches are two entries
+_FA = "magicdrive_tpu/kernels/flash_attention.py"
 KERNELS = {
     "kvstat_attention": (
         "magicdrive_tpu_torch/kernels/csrc/kvstat_attention.cu",
@@ -105,18 +130,32 @@ KERNELS = {
                  "magicdrive_tpu/kernels/geglu.py:221"),
     "fused_geglu": ("magicdrive_tpu_torch/kernels/csrc/geglu.cu",
                     "magicdrive_tpu/kernels/geglu.py:70"),
+    "flash_attention_fwd": (
+        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:75"),
+    "flash_attention_bwd_dq": (
+        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:222"),
+    "flash_attention_bwd_dkv": (
+        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:252"),
 }
+# the kernel wrappers the model calls (``dispatch`` attributes); the last
+# two run only in the backward of K1 and K2
+GENERATION_CALLS = ("kvstat_attention", "kvstat_attention_pair", "fused_ff",
+                    "fused_geglu")
+TRAINING_CALLS = GENERATION_CALLS + ("flash_attention_fwd",
+                                     "flash_attention_bwd")
+
+
+def _rnd(gen: torch.Generator):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+    return rnd
 
 
 def kernel_cases(gen: torch.Generator):
     """(kernel, shape label, args) at every shape the 224x400 path gives
     each kernel: 12 views, 8 heads; text context 1 + 77 + 160 tokens."""
-    dev = "cuda"
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale
-                ).to(torch.bfloat16)
-
+    rnd = _rnd(gen)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
         x = rnd(12, L, C)
@@ -144,6 +183,35 @@ def _f32(a):
     return a.float() if torch.is_tensor(a) else a
 
 
+def _outputs(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def _worst(got, ref):
+    """(max|got - ref|, max|ref|) of the output with the largest error
+    relative to its own max|ref|."""
+    pairs = [((g.float() - r.float()).abs().max().item(),
+              r.float().abs().max().item())
+             for g, r in zip(_outputs(got), _outputs(ref))]
+    return max(pairs, key=lambda p: p[0] / max(p[1], 1e-30))
+
+
+def _gate(name, label, err, scale, tol, ms=None, plain_ms=None, note=""):
+    ok = np.isfinite(err) and err <= tol * scale
+    if ms is not None:
+        note = f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+    log(f"  {name:24s} {label:28s} max_abs_err {err:.3e} (max|ref| "
+        f"{scale:.3e}) {note} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label}: max abs err {err} > {tol} * "
+                             f"{scale}")
+
+
+def _row(rows, name, label, err, ms, plain_ms):
+    rows.setdefault(name, []).append({"shape": label, "max_abs_err": err,
+                                      "ms": ms, "plain_ms": plain_ms})
+
+
 def check_kernels():
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
@@ -151,24 +219,135 @@ def check_kernels():
     rows = {}
     for name, label, args in kernel_cases(gen):
         kern, plain = getattr(dispatch, name), getattr(reference, name)
-        got = kern(*args).float()
-        ref = plain(*map(_f32, args)).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
+        got = kern(*args)
+        err, scale = _worst(got, plain(*map(_f32, args)))
         ms = cuda_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
-        ok = np.isfinite(err) and err <= KERNEL_TOL * scale
-        log(f"  {name:22s} {label:28s} max_abs_err {err:.3e} "
-            f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f}"
-            f" ms {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} {label}: max abs err {err} > "
-                                 f"{KERNEL_TOL} * {scale}")
-        rows.setdefault(name, []).append({
-            "shape": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+        _gate(name, label, err, scale, KERNEL_TOL, ms, plain_ms)
+        _row(rows, name, label, err, ms, plain_ms)
     return rows
+
+
+# (Lq, Lk, D) of the flash kernels on the training path: the backward of
+# K1 at attn1 on levels 0 and 1 and at attn2 on level 0, and of each K2
+# branch; 6 views of 8 heads
+FLASH_SHAPES = ((1400, 1400, 40), (350, 350, 80), (1400, 238, 40))
+FLASH_BH = 48
+
+
+def check_flash_kernels():
+    """K5 and the two launches of K6 at the path shapes against their plain
+    versions in fp32 on the same inputs; K6 takes K5's o and lse. The plain
+    time of each K6 entry is that of the whole plain backward."""
+    from magicdrive_tpu_torch.kernels import dispatch, reference
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(1))
+    rows = {}
+    for Lq, Lk, D in FLASH_SHAPES:
+        label = f"BH={FLASH_BH} Lq={Lq} Lk={Lk} D={D}"
+        q = rnd(FLASH_BH, Lq, D, scale=D ** -0.5)
+        k, v = rnd(FLASH_BH, Lk, D), rnd(FLASH_BH, Lk, D)
+        do = rnd(FLASH_BH, Lq, D)
+        o, lse = dispatch.flash_attention_fwd(q, k, v)
+        bwd_args = (q, k, v, o, lse, do)
+        plain_bwd = reference.flash_attention_bwd(*map(_f32, bwd_args))
+        runs = {
+            "flash_attention_fwd": (
+                lambda: dispatch.flash_attention_fwd(q, k, v),
+                reference.flash_attention_fwd(*map(_f32, (q, k, v))),
+                lambda: reference.flash_attention_fwd(q, k, v)),
+            "flash_attention_bwd_dq": (
+                lambda: dispatch.flash_attention_bwd_dq(*bwd_args),
+                plain_bwd[0],
+                lambda: reference.flash_attention_bwd(*bwd_args)),
+            "flash_attention_bwd_dkv": (
+                lambda: dispatch.flash_attention_bwd_dkv(*bwd_args),
+                plain_bwd[1:],
+                lambda: reference.flash_attention_bwd(*bwd_args)),
+        }
+        for name, (kern, ref, plain) in runs.items():
+            err, scale = _worst(kern(), ref)
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+            _gate(name, label, err, scale, KERNEL_TOL, ms, plain_ms)
+            _row(rows, name, label, err, ms, plain_ms)
+    return rows
+
+
+def autograd_cases(gen: torch.Generator):
+    """(kernel, shape label, differentiable inputs, other arguments) at the
+    shapes the training path gives K1-K4: 6 views of 8 heads."""
+    rnd = _rnd(gen)
+    cases = []
+    for L, C in ((1400, 320), (350, 640)):
+        x = rnd(6, L, C)
+        w = [rnd(C, C, scale=C ** -0.5) for _ in range(3)]
+        sc = (C // 8) ** -0.5
+        cases.append(("kvstat_attention", f"attn1 L={L} C={C}",
+                      (x, x.clone(), *w), (8, sc)))
+        cases.append(("kvstat_attention_pair", f"attn4 L={L} C={C}",
+                      (x, *w), (8, sc, (5, 1, 6))))
+    cases.append(("kvstat_attention", "attn2 L=1400 Lk=238 C=320",
+                  (rnd(6, 1400, 320), rnd(6, 238, 768),
+                   rnd(320, 320, scale=320 ** -0.5),
+                   rnd(320, 768, scale=768 ** -0.5),
+                   rnd(320, 768, scale=768 ** -0.5)), (8, 40 ** -0.5)))
+    cases.append(("fused_ff", "ff M=6*1400 C=320",
+                  (rnd(6, 1400, 320), rnd(2560, 320, scale=320 ** -0.5),
+                   rnd(2560, scale=0.1), rnd(320, 1280, scale=1280 ** -0.5)),
+                  ()))
+    for L, C in ((350, 640), (91, 1280), (28, 1280)):
+        cases.append(("fused_geglu", f"geglu M=6*{L} C={C}",
+                      (rnd(6, L, C), rnd(8 * C, C, scale=C ** -0.5),
+                       rnd(8 * C, scale=0.1)), ()))
+    return cases
+
+
+def check_autograd():
+    """The gradients of K1-K4 through the kernel route (every input and
+    weight) against the plain backward in fp32 on the same inputs. The plain
+    backward in bf16 is printed beside it: its own distance from fp32 is
+    what bf16 costs the gradient."""
+    from magicdrive_tpu_torch.kernels import autograd, reference
+
+    def k1_bwd(ins, extra, dy, ops):
+        return autograd.kvstat_attention_bwd(*ins, *extra, dy, ops=ops)
+
+    def k2_bwd(ins, extra, dy, ops):
+        return autograd.kvstat_attention_pair_bwd(*ins, *extra, dy, ops=ops)
+
+    fns = {
+        "kvstat_attention": (autograd.kvstat_attention, k1_bwd,
+                             ("dx_q", "dx_kv", "dwq", "dwk", "dwv")),
+        "kvstat_attention_pair": (autograd.kvstat_attention_pair, k2_bwd,
+                                  ("dx", "dwq", "dwk", "dwv")),
+        "fused_ff": (autograd.fused_ff,
+                     lambda ins, extra, dy, ops: autograd.fused_ff_bwd(
+                         *ins, dy), ("dx", "dw1", "db1", "dw2")),
+        "fused_geglu": (autograd.fused_geglu,
+                        lambda ins, extra, dy, ops: autograd.fused_geglu_bwd(
+                            *ins, dy), ("dx", "dw1", "db1")),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {}
+    for name, label, inputs, extra in autograd_cases(gen):
+        fn, plain_bwd, grad_names = fns[name]
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        y = fn(*leaves, *extra)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+        y.backward(dy)
+        ref = plain_bwd([t.float() for t in inputs], extra, dy.float(),
+                        reference)
+        bf16 = plain_bwd(inputs, extra, dy, reference)
+        for g_name, leaf, r, b in zip(grad_names, leaves, ref, bf16):
+            err, scale = _worst(leaf.grad, r)
+            bf_err, _ = _worst(b, r)
+            _gate(f"{name} {g_name}", label, err, scale, GRAD_TOL,
+                  note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
+            w = worst.setdefault(name, [0.0, 0.0])
+            w[0], w[1] = max(w[0], err / scale), max(w[1], bf_err / scale)
+    log("autograd, worst gradient error / max|ref| (kernel route; plain "
+        "bf16): " + ", ".join(f"{n} {k:.3e}; {b:.3e}"
+                              for n, (k, b) in worst.items()))
 
 
 def init_weights(modules, seed: int) -> None:
@@ -195,12 +374,13 @@ def init_weights(modules, seed: int) -> None:
 
 
 @contextlib.contextmanager
-def patched_kernels(make):
-    """The model's kernel calls replaced by ``make(name, kernel, plain)``
-    for the checks of phase 5."""
+def patched_kernels(make, names=TRAINING_CALLS):
+    """The model's kernel calls ``names`` replaced by
+    ``make(name, kernel, plain)``; the autograd Functions look the wrappers
+    up at call time, so this reaches every forward and backward call."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
-    saved = {n: getattr(dispatch, n) for n in KERNELS}
+    saved = {n: getattr(dispatch, n) for n in names}
     try:
         for n, fn in saved.items():
             setattr(dispatch, n, make(n, fn, getattr(reference, n)))
@@ -210,21 +390,27 @@ def patched_kernels(make):
             setattr(dispatch, n, fn)
 
 
+def _new_modules(preset):
+    """The preset's modules on the card in fp32 with seeded weights."""
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+
+    with torch.device("cuda"):
+        modules = MagicDriveModules.create(preset)
+    init_weights(modules, seed=0)
+    return modules
+
+
 def set_up():
     """The full-width pipeline on seeded weights and N_REQUESTS fixture
     request batches."""
     from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_dataset)
-    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
-                                                        MagicDrivePipeline)
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
 
     preset = sd15mv_rawbox_224x400()
     t0 = time.perf_counter()
-    with torch.device("cuda"):
-        modules = MagicDriveModules.create(preset)
-    init_weights(modules, seed=0)
-    modules.to("cuda", preset.pipeline.dtype)
+    modules = _new_modules(preset).to("cuda", preset.pipeline.dtype)
     pipe = MagicDrivePipeline(modules, preset.pipeline)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for _, m in modules.items()
@@ -234,6 +420,20 @@ def set_up():
     ccfg = CollateConfig(bbox_max_len=preset.bbox_max_len)
     batches = [collate_fn([s], ccfg) for s in make_dataset(N_REQUESTS)]
     return pipe, batches
+
+
+def _launched(names):
+    """Launch counts of ``names`` (K6's wrapper counts its two kernels),
+    raising if any is zero."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    launches = {k: v for k, v in dispatch.LAUNCHES.items()
+                if k in names or k.startswith("flash_attention_bwd_")
+                and "flash_attention_bwd" in names}
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the path: {missing}")
+    return launches
 
 
 def run_slice(pipe, batches):
@@ -257,14 +457,41 @@ def run_slice(pipe, batches):
         log(f"  request: {seconds[-1]:.3f} s, image min {lo:.3f} max "
             f"{hi:.3f} mean {img.mean().item():.4f} std "
             f"{img.std().item():.4f}")
-    launches = dict(dispatch.LAUNCHES)
+    launches = _launched(GENERATION_CALLS)
     log(f"slice launches: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the path: {missing}")
     log(f"slice: seconds per request {seconds} (the first includes "
         f"one-time setup such as cuDNN algorithm choice)")
     return launches
+
+
+def _call_checker(stats):
+    """``make`` for ``patched_kernels``: each call runs the kernel, then
+    the plain version in fp32 on the same inputs, and raises if an output
+    is off by more than KERNEL_TOL * its max|ref|."""
+    def make(name, kern, plain):
+        def call(*args):
+            out = kern(*args)
+            err, scale = _worst(out, plain(*map(_f32, args)))
+            rel = err / max(scale, 1e-30)
+            s = stats.setdefault(name, [0, 0.0])
+            s[0], s[1] = s[0] + 1, max(s[1], rel)
+            if not (np.isfinite(rel) and rel <= KERNEL_TOL):
+                raise AssertionError(
+                    f"{name} on the path, input {tuple(args[0].shape)}: max "
+                    f"abs err {err:.3e} = {rel:.3e} * max|ref| > "
+                    f"{KERNEL_TOL}")
+            return out
+        return call
+    return make
+
+
+def _report_calls(what, stats, names):
+    log(f"path calls of {what}, kernel vs fp32 plain version: " +
+        ", ".join(f"{n} {c} calls, worst {r:.3e} * max|ref|"
+                  for n, (c, r) in stats.items()))
+    if set(stats) != set(names):
+        raise AssertionError(f"kernels not called in {what}: "
+                             f"{set(names) - set(stats)}")
 
 
 def _step_inputs(pipe, batch):
@@ -283,30 +510,9 @@ def check_path_calls(pipe, batch) -> None:
     fp32 on the inputs the path gave it."""
     x, t, cond = _step_inputs(pipe, batch)
     stats = {}  # kernel -> [calls, worst max|err| / max|ref|]
-
-    def make(name, kern, plain):
-        def call(*args):
-            out = kern(*args)
-            ref = plain(*map(_f32, args)).float()
-            err = (out.float() - ref).abs().max().item()
-            rel = err / max(ref.abs().max().item(), 1e-30)
-            s = stats.setdefault(name, [0, 0.0])
-            s[0], s[1] = s[0] + 1, max(s[1], rel)
-            if not (np.isfinite(rel) and rel <= KERNEL_TOL):
-                raise AssertionError(
-                    f"{name} on the path, x {tuple(args[0].shape)}: max abs "
-                    f"err {err:.3e} = {rel:.3e} * max|ref| > {KERNEL_TOL}")
-            return out
-        return call
-
-    with patched_kernels(make):
+    with patched_kernels(_call_checker(stats), GENERATION_CALLS):
         pipe.guided_eps(x, t, cond)
-    log("path calls of one guided step, kernel vs fp32 plain version: " +
-        ", ".join(f"{n} {c} calls, worst {r:.3e} * max|ref|"
-                  for n, (c, r) in stats.items()))
-    if set(stats) != set(KERNELS):
-        raise AssertionError(f"kernels not called in the step: "
-                             f"{set(KERNELS) - set(stats)}")
+    _report_calls("one guided step", stats, GENERATION_CALLS)
 
 
 def check_eps(pipe, batch) -> None:
@@ -314,7 +520,7 @@ def check_eps(pipe, batch) -> None:
     through the plain versions."""
     x, t, cond = _step_inputs(pipe, batch)
     eps_k = pipe.guided_eps(x, t, cond)
-    with patched_kernels(lambda name, kern, plain: plain):
+    with patched_kernels(lambda name, kern, plain: plain, GENERATION_CALLS):
         eps_p = pipe.guided_eps(x, t, cond)
         noise = torch.randn(x.shape, device=x.device,
                             generator=torch.Generator("cuda").manual_seed(8))
@@ -328,21 +534,223 @@ def check_eps(pipe, batch) -> None:
         raise AssertionError(f"eps relative L2 {rel} > {EPS_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def expected_training_launches(preset, n_steps: int):
+    """Kernel launches of ``n_steps`` train steps, derived from the block
+    structure and the routing rules: per transformer at latent length L and
+    width C, attn1 and attn2 (context 1 + 77 + boxes) take K1 where
+    ``uses_kvstat`` holds, attn4 (UNet only) takes K2, and the FF takes K3
+    where ``ff_full_fusion_fits`` holds, else K4. Every backward of a K1
+    runs K5 and K6 once, of a K2 twice; the only K1 without a backward is
+    attn1 of the UNet's first transformer, whose input comes from frozen
+    weights alone (the trainable tokens enter at its attn2)."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    u = preset.unet
+    h, w = preset.pipeline.latent_height, preset.pipeline.latent_width
+    lengths = []
+    for _ in u.block_out_channels:
+        lengths.append(h * w)
+        h, w = -(-h // 2), -(-w // 2)
+    top = len(u.block_out_channels) - 1
+    down = [i for i, a in enumerate(u.down_block_has_attn) if a
+            for _ in range(u.layers_per_block)]
+    up = [top - i for i, a in enumerate(u.up_block_has_attn) if a
+          for _ in range(u.layers_per_block + 1)]
+    ctx = 1 + 77 + preset.bbox_max_len
+    n = dict.fromkeys(("k1", "k2", "k3", "k4", "k1_first"), 0)
+    for unet, levels in ((False, down + [top]), (True, down + [top] + up)):
+        for j, lvl in enumerate(levels):
+            L, C = lengths[lvl], u.block_out_channels[lvl]
+            D = C // u.num_attention_heads
+            self_attn = dispatch.uses_kvstat(L, L, D)
+            n["k1"] += self_attn + dispatch.uses_kvstat(L, ctx, D)
+            n["k2"] += unet and self_attn
+            n["k3" if dispatch.ff_full_fusion_fits(C, 4 * C, C)
+              else "k4"] += 1
+            n["k1_first"] += unet and j == 0 and self_attn
+    flash = n["k1"] - n["k1_first"] + 2 * n["k2"]
+    per_step = {"kvstat_attention": n["k1"], "kvstat_attention_pair": n["k2"],
+                "fused_ff": n["k3"], "fused_geglu": n["k4"],
+                "flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+                "flash_attention_bwd_dkv": flash}
+    return {k: n_steps * v for k, v in per_step.items()}
+
+
+def train_set_up(batch_size: int):
+    """The full-width model in bf16 over fp32 masters of its trainable
+    partition, the recipe's optimizer with a one-step warm-up, and one
+    fixture batch with images."""
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_sample)
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+
+    preset = sd15mv_rawbox_224x400()
+    t0 = time.perf_counter()
+    modules = _new_modules(preset)
+    cfg = TrainConfig(lr_warmup_steps=1)
+    state = create_train_state(modules, cfg, device="cuda",
+                               dtype=torch.bfloat16)
+    batch = collate_fn([make_sample(i, with_images=True)
+                        for i in range(batch_size)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    torch.cuda.synchronize()
+    n_train = sum(t.numel() for t in state.masters.values())
+    log(f"training: {preset.name}, B={batch_size} ({6 * batch_size} views), "
+        f"{n_train / 1e6:.1f} M trainable parameters, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return preset, modules, cfg, state, batch
+
+
+def _frozen(modules):
+    from magicdrive_tpu_torch.train.state import is_trainable
+
+    params = {(n, k) for n, m in modules.items()
+              for k, _ in m.named_parameters()}
+    return {f"{n}.{k}": t.detach().clone() for n, m in modules.items()
+            for k, t in m.state_dict().items()
+            if not ((n, k) in params and is_trainable(n, k))}
+
+
+def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS):
+    """``steps`` optimizer steps through the port's Runner, one at a time,
+    with the checks of the training slice; returns the set-up and the
+    launch counts."""
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import Runner
+
+    preset, modules, cfg, state, batch = train_set_up(batch_size)
+    frozen = _frozen(modules)
+    masters0 = {k: t.clone() for k, t in state.masters.items()}
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    seconds = []
+    with tempfile.TemporaryDirectory() as run_dir:
+        runner = Runner(modules, cfg, run_dir, checkpointing_steps=None)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            runner.run(state, [batch], resume=False)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0 and any(not torch.equal(state.masters[k], t)
+                              for k, t in masters0.items()):
+                raise AssertionError("a master moved at step 1 (lr 0)")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    launches = _launched(TRAINING_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in records]
+    log(f"training: losses {losses}, grad norms "
+        f"{[r['grad_norm'] for r in records]}")
+    log(f"training: seconds per step {seconds} (the first includes one-time "
+        f"setup such as cuDNN algorithm choice); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses {losses}")
+    moved = sum(not torch.equal(state.masters[k], t)
+                for k, t in masters0.items())
+    log(f"training: {moved} of {len(masters0)} trainable tensors moved")
+    if moved < 0.9 * len(masters0):
+        raise AssertionError("the trainable weights did not move")
+    changed = [k for k, t in _frozen(modules).items()
+               if not torch.equal(t, frozen[k])]
+    if changed:
+        raise AssertionError(f"frozen weights changed: {changed[:5]}")
+    want = expected_training_launches(preset, steps)
+    log(f"training launches: {launches}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, derived {want}")
+    return (modules, cfg, state, batch), launches, {
+        "seconds": seconds, "peak_bytes": peak, "losses": losses}
+
+
+def _fixed_draws(cfg, batch, seed: int, drop_mask=None):
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule
+    from magicdrive_tpu_torch.train.train_step import sample_draws
+
+    B = len(batch["input_ids"])
+    draws = sample_draws(cfg, NoiseSchedule.create(), B, 6, (28, 50),
+                         torch.Generator("cuda").manual_seed(seed), "cuda")
+    if drop_mask is not None:
+        draws.drop_mask = drop_mask
+    return draws
+
+
+def check_drop_all(setup) -> None:
+    """One step whose drop mask is all ones: every view takes the uncond
+    camera and text."""
+    from magicdrive_tpu_torch.train import train_step
+
+    modules, cfg, state, batch = setup
+    draws = _fixed_draws(cfg, batch, 9, torch.ones(1, 6, device="cuda"))
+    loss = float(train_step(modules, state, batch, cfg, draws=draws)["loss"])
+    log(f"training: one step with an all-ones drop mask, loss {loss:.5f}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"drop-all step loss {loss}")
+
+
+def check_training_calls(setup) -> None:
+    """In one training step, every K1-K6 call (forward and backward) against
+    its plain version in fp32 on the inputs the path gave it; then the
+    ControlNet gradient through the kernels against the one through the
+    plain versions, as a smoke test."""
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule
+    from magicdrive_tpu_torch.train.train_step import (batch_tensors,
+                                                       loss_and_grads)
+
+    modules, cfg, state, batch = setup
+    draws = _fixed_draws(cfg, batch, 10)
+    tensors = batch_tensors(batch, "cuda")
+    schedule = NoiseSchedule.create()
+    stats = {}
+    with patched_kernels(_call_checker(stats)):
+        loss_k, grads_k = loss_and_grads(modules, state, tensors, draws, cfg,
+                                         schedule)
+    _report_calls("one training step", stats, TRAINING_CALLS)
+    with patched_kernels(lambda name, kern, plain: plain):
+        loss_p, grads_p = loss_and_grads(modules, state, tensors, draws, cfg,
+                                         schedule)
+    keys = [k for k in grads_k if k.startswith("controlnet.")]
+    gk = torch.cat([grads_k[k].flatten() for k in keys])
+    gp = torch.cat([grads_p[k].flatten() for k in keys])
+    rel = ((gk - gp).norm() / gp.norm()).item()
+    log(f"training step, kernels vs plain versions: loss {loss_k.item():.6f}"
+        f" vs {loss_p.item():.6f}; ControlNet gradient relative L2 {rel:.3e}"
+        f" (a smoke test, not a gate)")
+
+
 def main() -> None:
     environment()
     build_kernels()
     log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
     rows = check_kernels()
+    rows.update(check_flash_kernels())
+    log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
+        f"limit {GRAD_TOL} * max|ref|):")
+    check_autograd()
     pipe, batches = set_up()
-    launches = run_slice(pipe, batches)
+    gen_launches = run_slice(pipe, batches)
     check_path_calls(pipe, batches[0])
     check_eps(pipe, batches[0])
+    del pipe
+    torch.cuda.empty_cache()
+    setup, train_launches, _ = run_training()
+    check_drop_all(setup)
+    check_training_calls(setup)
     kernels = []
     for n, (src, rep) in KERNELS.items():
         worst = max(rows[n], key=lambda r: r["max_abs_err"])
-        kernels.append({"name": n, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[n], **worst,
-                        "shapes": rows[n]})
+        kernels.append({
+            "name": n, "route": "cuda", "source": src, "replaces": rep,
+            "launches": train_launches[n], **worst,
+            "launches_by_path": {"generation": gen_launches.get(n, 0),
+                                 "training": train_launches[n]},
+            "shapes": rows[n]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

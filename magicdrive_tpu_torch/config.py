@@ -1,6 +1,6 @@
 """Model presets as plain dataclasses (counterpart of ``config/presets.py``).
 
-Only the fields the ported generation path reads are mirrored; values equal
+Only the fields the ported generation and training paths read are mirrored; values equal
 the JAX presets' field for field (``tests/test_torch_port_modules.py``).
 """
 from __future__ import annotations
@@ -63,10 +63,13 @@ class BEVControlNetConfig:
     map_embedder_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
     bbox: BBoxEmbedderConfig = dataclasses.field(
         default_factory=BBoxEmbedderConfig)
+    # training: views whose conditioning is dropped lose their boxes too
+    drop_cam_with_box: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)

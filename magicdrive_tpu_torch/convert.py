@@ -7,6 +7,8 @@ arrays, maps to one diffusers/transformers state_dict key:
   * ``scale`` / ``kernel`` / ``embedding`` -> ``weight``;
   * flax scope names -> torch module paths (``_PRE_RULES``, list indices,
     ``to_out`` -> ``to_out.0``) and the special keys (``_SPECIALS``).
+The whole tree converts, the VAE's encoder included; ``trainable_keys``
+names the keys the train step updates.
 """
 from __future__ import annotations
 
@@ -113,6 +115,20 @@ def module_state_dict(variables: Mapping[str, Any], clip: bool = False
             raise ValueError(f"two leaves map to {key}")
         out[key] = np.array(_transform(value, spath), dtype=np.float32,
                             order="C")  # a writable copy
+    return out
+
+
+def trainable_keys(params_np: Mapping[str, Any]) -> Dict[str, set]:
+    """{module: the state_dict keys of its trainable parameters} for a JAX
+    ``init_params`` tree, by the port's ``train.state.is_trainable`` over
+    the converted keys; buffers are never trainable."""
+    from magicdrive_tpu_torch.train.state import is_trainable
+
+    out = {}
+    for n in ("unet", "controlnet", "vae", "clip"):
+        keys = (clip_torch_key if n == "clip" else torch_key)
+        out[n] = {keys(path[1:]) for path, _ in iter_leaves(params_np[n])
+                  if path[0] == "params" and is_trainable(n, keys(path[1:]))}
     return out
 
 

@@ -2,7 +2,8 @@
 ``core/attention.py``).
 
 Shapes with Lq*Lk >= 90 000 and a head depth of at most 128 go to the
-projection-fused kernel K1 (``kernels.dispatch.uses_kvstat``); every other
+projection-fused kernel K1 (``kernels.dispatch.uses_kvstat``), with its
+gradient from ``kernels.autograd``; every other
 attention projects q/k/v with ``nn.Linear`` and runs
 ``F.scaled_dot_product_attention``, as the JAX package left those shapes
 to XLA.
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from magicdrive_tpu_torch.kernels import dispatch
+from magicdrive_tpu_torch.kernels import autograd, dispatch
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -60,7 +61,7 @@ class Attention(nn.Module):
         context = x if context is None else context
         if self.to_q.bias is None and dispatch.uses_kvstat(
                 x.shape[-2], context.shape[-2], self.dim_head):
-            o = dispatch.kvstat_attention(
+            o = autograd.kvstat_attention(
                 x, context, self.to_q.weight, self.to_k.weight,
                 self.to_v.weight, self.heads, self.scale)
         else:

@@ -15,7 +15,7 @@ from torch import nn
 
 from magicdrive_tpu_torch.core.attention import Attention, sdpa
 from magicdrive_tpu_torch.core.resnet import GroupNorm
-from magicdrive_tpu_torch.kernels import dispatch
+from magicdrive_tpu_torch.kernels import autograd, dispatch
 from magicdrive_tpu_torch.kernels.reference import ring_views
 
 
@@ -38,7 +38,8 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: K3 (whole FF) where ``ff_full_fusion_fits``
-    holds, else K4 (stage 1) followed by the stage-2 ``nn.Linear``."""
+    holds, else K4 (stage 1) followed by the stage-2 ``nn.Linear``; their
+    gradients come from ``kernels.autograd``."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -49,9 +50,9 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
         if dispatch.ff_full_fusion_fits(self.dim, self.inner, self.dim):
-            return dispatch.fused_ff(x, proj.weight, proj.bias,
+            return autograd.fused_ff(x, proj.weight, proj.bias,
                                      out.weight) + out.bias
-        return out(dispatch.fused_geglu(x, proj.weight, proj.bias))
+        return out(autograd.fused_geglu(x, proj.weight, proj.bias))
 
 
 def ring_shift(idx: Sequence[int], n: int) -> Optional[int]:
@@ -113,7 +114,7 @@ class BasicTransformerBlock(nn.Module):
         s1, s2, n = self.shifts
         L = h.shape[-2]
         if dispatch.uses_kvstat(L, L, a.dim_head):
-            o = dispatch.kvstat_attention_pair(
+            o = autograd.kvstat_attention_pair(
                 h, a.to_q.weight, a.to_k.weight, a.to_v.weight, a.heads,
                 a.scale, self.shifts)
         else:

@@ -1,8 +1,8 @@
-"""Generation batches with static shapes (counterpart of ``data/collate.py``
-for its generation path).
+"""Batches with static shapes (counterpart of ``data/collate.py``).
 
 ``collate_fn`` turns sample dicts (``fixtures.make_sample``) into the batch
-``MagicDrivePipeline`` takes: input_ids (B, 77), uncond_ids (1, 77),
+``MagicDrivePipeline`` and the train step take: pixel_values (B, N, H, W, 3)
+where the samples hold images, input_ids (B, 77), uncond_ids (1, 77),
 camera_param (B, N, 3, 7), bev_map (B, H, W, C), bboxes (B, N, L, 8, 3),
 classes (B, N, L) (-1 padding) and masks (B, N, L). Boxes are kept per view
 where any corner lies in front of the camera, as 8 corners (the "all-xyz"
@@ -85,8 +85,12 @@ def _boxes(samples: Sequence[dict], L: int) -> Dict[str, np.ndarray]:
 
 def collate_fn(samples: Sequence[dict], cfg: CollateConfig
                ) -> Dict[str, np.ndarray]:
-    out = {"bev_map": np.stack([np.asarray(s["bev_map"], np.float32)
-                                for s in samples])}
+    out = {}
+    if "img" in samples[0]:
+        out["pixel_values"] = np.stack([np.asarray(s["img"], np.float32)
+                                        for s in samples])
+    out["bev_map"] = np.stack([np.asarray(s["bev_map"], np.float32)
+                               for s in samples])
     # camera_param = K[:3, :3] beside camera2lidar[:3, :4]
     out["camera_param"] = np.stack([np.concatenate(
         [np.asarray(s["camera_intrinsics"], np.float32)[:, :3, :3],

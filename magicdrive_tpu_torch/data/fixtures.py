@@ -3,8 +3,9 @@
 
 Six cameras on a ring in the nuScenes rig order (FL, F, FR, BR, B, BL) with
 pinhole intrinsics, labelled boxes scattered around the ego and a blocky BEV
-map. ``make_sample(seed)`` draws the same scene as the JAX package's
-``make_sample(seed, with_images=False)``: generation needs no images.
+map. ``make_sample(seed, with_images=...)`` draws the same scene as the JAX
+package's ``make_sample`` with the same flag: generation needs no images,
+training takes (N, H, W, 3) images in [-1, 1], drawn before the boxes.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ def camera_matrices(image_hw=(224, 400)):
 
 
 def make_sample(seed: int = 0, image_hw=(224, 400), map_hw=(200, 200),
-                map_channels: int = 8, n_boxes: int = 24) -> dict:
+                map_channels: int = 8, n_boxes: int = 24,
+                with_images: bool = False) -> dict:
     rng = np.random.default_rng(seed)
     cams = camera_matrices(image_hw)
     sample = {
@@ -49,6 +51,9 @@ def make_sample(seed: int = 0, image_hw=(224, 400), map_hw=(200, 200),
         "metas": {"location": "singapore-onenorth",
                   "description": "synthetic fixture scene with parked cars"},
     }
+    if with_images:
+        sample["img"] = rng.uniform(-1, 1, (len(cams), *image_hw, 3)).astype(
+            np.float32)
     # boxes [x, y, z, dx, dy, dz, yaw] on the ground plane around the ego
     xy = rng.uniform(-40, 40, (n_boxes, 2))
     z = np.full((n_boxes, 1), -1.5)

@@ -1,0 +1,238 @@
+"""Gradients of the hand-written kernels (counterpart of the custom VJPs of
+``kernels/fused_attention.py`` and ``kernels/geglu.py``).
+
+One ``torch.autograd.Function`` per JAX custom VJP:
+  * K1 (``_fused_kvstat_core``): the backward recomputes q, k and v with
+    matrix products, runs the flash forward with logsumexp (K5) on
+    ``bf16(f32(q) * scale)``, k and v, then the flash backward (K6), and
+    turns dq, dk and dv into the gradients of the hidden states and the
+    weights (``_fused_bwd``);
+  * K2 (``_kvstat_pair_core``): the K1 backward once per ring neighbour on
+    the rolled views; dx_q and the weight gradients are summed over the two
+    branches and each branch's dx_kv returns through the inverse roll;
+  * K3 (``_ff_core``) and K4 (``_geglu_core``): plain matrix products, as
+    the JAX package leaves them to XLA, with its casts (the bf16 product
+    x W1 before the bias, dhv and dhg cast to bf16 before their products,
+    exact erf).
+
+Every forward and every kernel of a backward is looked up in ``dispatch``
+when it runs, so a caller that swaps a wrapper there reaches every call. The
+backward computes only the gradients its inputs need
+(``ctx.needs_input_grad``): the frozen UNet's attentions and feed-forwards
+ask for dx alone. Weights are in ``nn.Linear`` layout (out, in).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import dispatch
+from .reference import ring_views
+
+Grads = Tuple[Optional[torch.Tensor], ...]
+
+
+def _to_bh(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B*H, L, D), contiguous."""
+    B, L, HD = t.shape
+    return t.reshape(B, L, heads, HD // heads).transpose(1, 2).reshape(
+        B * heads, L, HD // heads).contiguous()
+
+
+def _from_bh(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B*H, L, D) -> (B, L, H*D)."""
+    BH, L, D = t.shape
+    return t.reshape(BH // heads, heads, L, D).transpose(1, 2).reshape(
+        BH // heads, L, heads * D)
+
+
+def _dw(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of an ``nn.Linear`` weight: d (..., out), x (..., in) ->
+    (out, in)."""
+    return d.reshape(-1, d.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+
+
+def kvstat_attention_bwd(x_q: torch.Tensor, x_kv: torch.Tensor,
+                         wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                         heads: int, scale: float, dy: torch.Tensor,
+                         needs: Sequence[bool] = (True,) * 5,
+                         ops=dispatch) -> Grads:
+    """The backward of K1 at the JAX package's cast points: dy (B, Lq, H*D)
+    -> (dx_q, dx_kv, dwq, dwk, dwv), None where ``needs`` is False. ``ops``
+    provides ``flash_attention_fwd`` and ``flash_attention_bwd`` (the kernel
+    wrappers, or ``reference`` for the plain backward)."""
+    dt = x_q.dtype
+    q = _to_bh(F.linear(x_q, wq), heads)
+    k = _to_bh(F.linear(x_kv, wk), heads)
+    v = _to_bh(F.linear(x_kv, wv), heads)
+    qs = (q.float() * scale).to(dt)
+    o, lse = ops.flash_attention_fwd(qs, k, v)
+    dq_s, dk, dv = ops.flash_attention_bwd(qs, k, v, o, lse,
+                                           _to_bh(dy.to(dt), heads))
+    dq = _from_bh((dq_s.float() * scale).to(dt), heads)
+    dk, dv = _from_bh(dk, heads), _from_bh(dv, heads)
+    nx_q, nx_kv, nwq, nwk, nwv = needs
+    return (dq @ wq if nx_q else None,
+            dk @ wk + dv @ wv if nx_kv else None,
+            _dw(dq, x_q) if nwq else None,
+            _dw(dk, x_kv) if nwk else None,
+            _dw(dv, x_kv) if nwv else None)
+
+
+def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    return b if a is None else a + b
+
+
+def kvstat_attention_pair_bwd(x: torch.Tensor, wq: torch.Tensor,
+                              wk: torch.Tensor, wv: torch.Tensor, heads: int,
+                              scale: float, shifts: Tuple[int, int, int],
+                              dy: torch.Tensor,
+                              needs: Sequence[bool] = (True,) * 4,
+                              ops=dispatch) -> Grads:
+    """The backward of K2: (dx, dwq, dwk, dwv), None where ``needs`` is
+    False."""
+    s1, s2, n = shifts
+    nx, nwq, nwk, nwv = needs
+    dx_q = dwq = dwk = dwv = None
+    dx_kv = []
+    for s in (s1, s2):
+        g = kvstat_attention_bwd(x, ring_views(x, s, n), wq, wk, wv, heads,
+                                 scale, dy, (nx, nx, nwq, nwk, nwv), ops)
+        dx_q, dwq, dwk, dwv = (_add(a, b) for a, b in
+                               zip((dx_q, dwq, dwk, dwv), g[:1] + g[2:]))
+        dx_kv.append(g[1])
+    if nx:
+        # ring_views(., -s) rolls by +s: the inverse of the branch's view map
+        dx_q = dx_q + ring_views(dx_kv[0], -s1, n) + \
+            ring_views(dx_kv[1], -s2, n)
+    return dx_q, dwq, dwk, dwv
+
+
+def _halves(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 GEGLU halves as the JAX backward recomputes them: the
+    product in the input dtype, then the bias in fp32."""
+    h = F.linear(x, w1).float()
+    if b1 is not None:
+        h = h + b1.float()
+    return h.chunk(2, dim=-1)
+
+
+def fused_geglu_bwd(x: torch.Tensor, w1: torch.Tensor,
+                    b1: Optional[torch.Tensor], dy: torch.Tensor,
+                    needs: Sequence[bool] = (True,) * 3) -> Grads:
+    """The backward of K4: dy (..., N) -> (dx, dw1, db1)."""
+    dt = x.dtype
+    x2 = x.reshape(-1, x.shape[-1])
+    hv, hg = _halves(x2, w1, b1)
+    dy32 = dy.reshape(hv.shape).float()
+    # d gelu(z) = Phi(z) + z phi(z)
+    dgelu = 0.5 * (1.0 + torch.erf(hg * math.sqrt(0.5))) + \
+        hg * torch.exp(-0.5 * hg * hg) / math.sqrt(2 * math.pi)
+    dhv = (dy32 * F.gelu(hg)).to(dt)
+    dhg = (dy32 * hv * dgelu).to(dt)
+    wv, wg = w1.chunk(2)
+    nx, nw, nb = needs
+    dx = (dhv @ wv + dhg @ wg).reshape(x.shape) if nx else None
+    dw1 = torch.cat([dhv.t() @ x2, dhg.t() @ x2]) if nw else None
+    db1 = torch.cat([dhv.sum(0), dhg.sum(0)]) if nb and b1 is not None \
+        else None
+    return dx, dw1, db1
+
+
+def fused_ff_bwd(x: torch.Tensor, w1: torch.Tensor,
+                 b1: Optional[torch.Tensor], w2: torch.Tensor,
+                 dy: torch.Tensor, needs: Sequence[bool] = (True,) * 4
+                 ) -> Grads:
+    """The backward of K3: dy (..., C) -> (dx, dw1, db1, dw2)."""
+    dt = x.dtype
+    hv, hg = _halves(x.reshape(-1, x.shape[-1]), w1, b1)
+    dy2 = dy.reshape(-1, w2.shape[0]).to(dt)
+    dw2 = dy2.t() @ (hv * F.gelu(hg)).to(dt) if needs[3] else None
+    dx, dw1, db1 = fused_geglu_bwd(x, w1, b1, dy2 @ w2, needs[:3])
+    return dx, dw1, db1, dw2
+
+
+class KvstatAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_q, x_kv, wq, wk, wv, heads, scale):
+        ctx.save_for_backward(x_q, x_kv, wq, wk, wv)
+        ctx.heads, ctx.scale = heads, scale
+        return dispatch.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*kvstat_attention_bwd(*ctx.saved_tensors, ctx.heads,
+                                      ctx.scale, dy,
+                                      ctx.needs_input_grad[:5]),
+                None, None)
+
+
+class KvstatAttentionPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, heads, scale, shifts):
+        ctx.save_for_backward(x, wq, wk, wv)
+        ctx.heads, ctx.scale, ctx.shifts = heads, scale, shifts
+        return dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
+                                              shifts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*kvstat_attention_pair_bwd(*ctx.saved_tensors, ctx.heads,
+                                           ctx.scale, ctx.shifts, dy,
+                                           ctx.needs_input_grad[:4]),
+                None, None, None)
+
+
+class FusedGeglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1):
+        ctx.save_for_backward(x, w1, b1)
+        return dispatch.fused_geglu(x, w1, b1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_geglu_bwd(*ctx.saved_tensors, dy,
+                               ctx.needs_input_grad)
+
+
+class FusedFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return dispatch.fused_ff(x, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return fused_ff_bwd(*ctx.saved_tensors, dy, ctx.needs_input_grad)
+
+
+def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
+                     wk: torch.Tensor, wv: torch.Tensor, heads: int,
+                     scale: float) -> torch.Tensor:
+    """K1 with its gradient (``dispatch.kvstat_attention``)."""
+    return KvstatAttention.apply(x_q, x_kv, wq, wk, wv, heads, scale)
+
+
+def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor,
+                          wk: torch.Tensor, wv: torch.Tensor, heads: int,
+                          scale: float, shifts: Tuple[int, int, int]
+                          ) -> torch.Tensor:
+    """K2 with its gradient (``dispatch.kvstat_attention_pair``)."""
+    return KvstatAttentionPair.apply(x, wq, wk, wv, heads, scale, shifts)
+
+
+def fused_geglu(x: torch.Tensor, w1: torch.Tensor,
+                b1: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4 with its gradient (``dispatch.fused_geglu``)."""
+    return FusedGeglu.apply(x, w1, b1)
+
+
+def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
+             w2: torch.Tensor) -> torch.Tensor:
+    """K3 with its gradient (``dispatch.fused_ff``)."""
+    return FusedFF.apply(x, w1, b1, w2)

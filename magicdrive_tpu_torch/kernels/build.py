@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``kernels/csrc``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. Sources that include no
-PyTorch headers compile in seconds, where a ``torch.utils.cpp_extension``
-binding file takes minutes, and every fresh machine builds anew.
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. Sources that include no PyTorch headers
+compile in seconds, where a ``torch.utils.cpp_extension`` binding file takes
+minutes, and every fresh machine builds anew.
 
 The library is built at first use into ``kernels/_build/`` (ignored by
 git), named by a hash of the sources and flags, so an edited source is
@@ -24,7 +25,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
@@ -36,6 +37,9 @@ _SIGNATURES = {
                                   + [_P]),
     "mdk_geglu": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "mdk_ff": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "mdk_flash_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+    "mdk_flash_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "mdk_flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "mdk_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -62,27 +66,39 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> tuple[pathlib.Path, str]:
-    """Compile the sources if the library for their hash is missing.
-    Returns the library path and the compiler's output (empty when reused).
-    Raises with the compiler's output when nvcc fails."""
+    """Compile the sources if the library for their hash is missing: one
+    ``nvcc -c`` per source, run in parallel, then one link. Returns the
+    library path and the compilers' output (empty when reused). Raises with
+    that output when a step fails."""
     path = library_path()
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs, failed = [], False
+        for src, proc in zip(sources(), procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            failed |= proc.returncode != 0
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "".join(logs))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, path)  # atomic: a reader never sees a partial file
+    return path, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,7 +7,8 @@ hand-written kernel, or raises for what the kernel does not take. There is
 no fallback from one to the other.
 
 ``LAUNCHES`` counts, per kernel, the launches made through its wrapper
-(``chip_smoke.py`` reads it to show the main path ran every kernel).
+(``chip_smoke.py`` reads it to show the main path ran every kernel); K6's
+wrapper launches two kernels and counts each.
 
 The routing rules restate the JAX package's decisions as pure functions:
 K1/K2 take an attention when Lq*Lk >= 90 000 and the head depth is at most
@@ -24,7 +25,8 @@ import torch
 from . import reference
 
 LAUNCHES = {"kvstat_attention": 0, "kvstat_attention_pair": 0,
-            "fused_ff": 0, "fused_geglu": 0}
+            "fused_ff": 0, "fused_geglu": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 KVSTAT_MIN_LOGITS = 90_000
 KVSTAT_MAX_HEAD_DIM = 128
@@ -205,3 +207,83 @@ def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
          M, K, N, C, _stream())
     LAUNCHES["fused_ff"] += 1
     return out
+
+
+def _flash_shapes(name, q, k, kv_len):
+    BH, Lq, D = q.shape
+    Lk = k.shape[1]
+    kv_len = Lk if kv_len is None else kv_len
+    if k.shape != (BH, Lk, D) or not 0 < kv_len <= Lk or D > 128:
+        raise ValueError(f"{name}: shapes do not agree")
+    return BH, Lq, Lk, D, kv_len
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: o = softmax(q k^T) v with keys >= kv_len masked, q already
+    scaled; q (BH, Lq, D), k/v (BH, Lk, D) -> o (BH, Lq, D) and the fp32
+    row logsumexp lse (BH, Lq)."""
+    if _on_cpu(q):
+        return reference.flash_attention_fwd(q, k, v, kv_len)
+    from . import build
+
+    _check("flash_attention_fwd", q, k, v)
+    BH, Lq, Lk, D, kv_len = _flash_shapes("flash_attention_fwd", q, k,
+                                          kv_len)
+    if v.shape != k.shape:
+        raise ValueError("flash_attention_fwd: shapes do not agree")
+    o = torch.empty_like(q)
+    lse = torch.empty(BH, Lq, dtype=torch.float32, device=q.device)
+    _run(build.load().mdk_flash_fwd, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+         _ptr(lse), BH, Lq, Lk, D, kv_len, _stream())
+    LAUNCHES["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def _flash_bwd_args(name, q, k, v, o, lse, do, kv_len):
+    _check(name, q, k, v, o, do)
+    BH, Lq, Lk, D, kv_len = _flash_shapes(name, q, k, kv_len)
+    if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (BH, Lq) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{name}: shapes do not agree")
+    return (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(do)), \
+        (BH, Lq, Lk, D, kv_len, _stream())
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len=None) -> torch.Tensor:
+    """K6, first launch: dq (BH, Lq, D). CUDA tensors only."""
+    from . import build
+
+    ptrs, dims = _flash_bwd_args("flash_attention_bwd_dq", q, k, v, o, lse,
+                                 do, kv_len)
+    dq = torch.empty_like(q)
+    _run(build.load().mdk_flash_bwd_dq, *ptrs, _ptr(dq), *dims)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, o, lse, do, kv_len=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6, second launch: dk and dv (BH, Lk, D). CUDA tensors only."""
+    from . import build
+
+    ptrs, dims = _flash_bwd_args("flash_attention_bwd_dkv", q, k, v, o, lse,
+                                 do, kv_len)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _run(build.load().mdk_flash_bwd_dkv, *ptrs, _ptr(dk), _ptr(dv), *dims)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        kv_len: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6: the gradients of K5 given do, from its o and lse, as two
+    launches (dq; dk and dv) -> dq (BH, Lq, D), dk and dv (BH, Lk, D)."""
+    if _on_cpu(q):
+        return reference.flash_attention_bwd(q, k, v, o, lse, do, kv_len)
+    dq = flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, o, lse, do, kv_len))

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the four hand-written kernels (K1-K4).
+"""Plain PyTorch versions of the hand-written kernels (K1-K6).
 
 Each computes the same function as its CUDA kernel with the same cast
 points (the JAX kernels' own): projections accumulate in fp32, q is scaled
 in fp32 and cast to the input dtype, k and v are cast to the input dtype,
 logits and softmax statistics are fp32, p is cast to the input dtype before
 PV, o is divided by the row sum in fp32; the GEGLU halves and biases are
-fp32 and the gated product is cast before stage 2. Weights are in
-``nn.Linear`` layout (out, in).
+fp32 and the gated product is cast before stage 2. The flash forward (K5)
+and backward (K6) take (BH, L, D) tensors with q already scaled, mask keys at
+positions >= kv_len, and cast p and ds to the input dtype before their
+products; lse and every accumulation are fp32. Weights are in ``nn.Linear``
+layout (out, in).
 
 On the CPU the port runs through these functions; the tests hold them
 against the JAX Pallas kernels in interpret mode, and ``chip_smoke.py``
@@ -92,3 +95,45 @@ def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
              w2: torch.Tensor) -> torch.Tensor:
     """K3. the FeedForward without its stage-2 bias: x (..., K) -> (..., C)."""
     return _linear32(_gated(x, w1, b1).to(x.dtype), w2).to(x.dtype)
+
+
+NEG_INF = -1e30  # the masked logit of the JAX kernels
+
+
+def _masked_logits(q: torch.Tensor, k: torch.Tensor,
+                   kv_len: Optional[int]) -> torch.Tensor:
+    s = q.float() @ k.float().transpose(-1, -2)
+    if kv_len is not None and kv_len < k.shape[-2]:
+        s[..., kv_len:] = NEG_INF
+    return s
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5. q (BH, Lq, D) pre-scaled, k/v (BH, Lk, D) -> o (BH, Lq, D) in
+    q's dtype and lse (BH, Lq) fp32."""
+    s = _masked_logits(q, k, kv_len)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    o = (p.to(v.dtype).float() @ v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        kv_len: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6. The gradients of K5's o with respect to (q, k, v) given do,
+    from o and lse: dq (BH, Lq, D), dk and dv (BH, Lk, D) in q's dtype."""
+    dt = q.dtype
+    p = torch.exp(_masked_logits(q, k, kv_len) - lse[..., None])
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta)
+    ds16 = ds.to(dt).float()
+    dq = ds16 @ k.float()
+    dk = ds16.transpose(-1, -2) @ q.float()
+    dv = p.to(dt).float().transpose(-1, -2) @ do.float()
+    return dq.to(dt), dk.to(dt), dv.to(dt)

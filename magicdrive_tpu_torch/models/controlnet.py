@@ -65,19 +65,44 @@ class BEVControlNet(nn.Module):
         """The learned unconditional camera as a (3, 7) parameter."""
         return self.uncond_cam.weight.reshape(self.cfg.uncond_cam_in_dim)
 
+    def uncond_cam_token(self) -> torch.Tensor:
+        """The token of the learned unconditional camera, (d,)."""
+        return self.cam2token(embed_camera(
+            self.uncond_camera().float(), self.cfg.cam_num_freqs).to(
+                self.cam2token.weight.dtype))
+
     def assemble_tokens(self, camera_param: torch.Tensor,
                         encoder_hidden_states: torch.Tensor,
                         bboxes: torch.Tensor, classes: torch.Tensor,
-                        masks: torch.Tensor) -> torch.Tensor:
-        """camera (B, N, 3, 7), text (B, 77, d), boxes (B, N, L, P, 3),
-        classes/masks (B, N, L) -> tokens (B, N, 1 + 77 + L, d)."""
+                        masks: torch.Tensor,
+                        encoder_hidden_states_uncond: Optional[
+                            torch.Tensor] = None,
+                        drop_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """camera (B, N, 3, 7), text (B, 77, d), boxes (B, N or 1, L, P, 3),
+        classes/masks (B, N or 1, L) -> tokens (B, N, 1 + 77 + L, d).
+
+        Training's condition drop: where ``drop_mask`` (B, N) is 1, the
+        view's camera and text tokens become the unconditional camera token
+        and ``encoder_hidden_states_uncond`` (1, 77, d), and with
+        ``drop_cam_with_box`` its boxes are masked out too."""
         dt = self.cam2token.weight.dtype
         B, N = camera_param.shape[:2]
         cam = self.cam2token(
             embed_camera(camera_param.float(), self.cfg.cam_num_freqs).to(dt))
         text = encoder_hidden_states.to(dt)[:, None].expand(B, N, -1, -1)
+        tokens = torch.cat([cam[:, :, None], text], dim=2)
+        if drop_mask is not None:
+            uncond = torch.cat([self.uncond_cam_token()[None],
+                                encoder_hidden_states_uncond[0].to(dt)])
+            m = drop_mask.to(dt)[:, :, None, None]
+            tokens = tokens * (1 - m) + uncond * m
+            if self.cfg.drop_cam_with_box:
+                bboxes, classes, masks = (t.expand(B, N, *t.shape[2:])
+                                          for t in (bboxes, classes, masks))
+                masks = masks * (1 - drop_mask[:, :, None].to(masks.dtype))
         box = self.bbox_embedder(bboxes, classes, masks)
-        return torch.cat([cam[:, :, None], text, box], dim=2)
+        return torch.cat([tokens, box.expand(B, N, *box.shape[2:])], dim=2)
 
     def embed_map(self, controlnet_cond: torch.Tensor) -> torch.Tensor:
         """BEV map (B, C_map, H, W) -> (B, 320, h, w)."""
@@ -93,17 +118,21 @@ class BEVControlNet(nn.Module):
                 masks: Optional[torch.Tensor] = None,
                 conditioning_scale: float = 1.0,
                 tokens: Optional[torch.Tensor] = None,
-                cond_feat: Optional[torch.Tensor] = None
+                cond_feat: Optional[torch.Tensor] = None,
+                encoder_hidden_states_uncond: Optional[torch.Tensor] = None,
+                drop_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
         """sample (B, N, 4, h, w), timesteps (B,) or (B*N,). ``tokens`` and
         ``cond_feat`` may be precomputed (they do not change across sampler
-        steps) with :meth:`assemble_tokens` / :meth:`embed_map`.
+        steps) with :meth:`assemble_tokens` / :meth:`embed_map`; otherwise
+        the tokens take the condition drop of ``drop_mask``.
         Returns (down residuals, mid residual, tokens)."""
         B, N = sample.shape[:2]
         dt = self.conv_in.weight.dtype
         if tokens is None:
-            tokens = self.assemble_tokens(camera_param, encoder_hidden_states,
-                                          bboxes, classes, masks)
+            tokens = self.assemble_tokens(
+                camera_param, encoder_hidden_states, bboxes, classes, masks,
+                encoder_hidden_states_uncond, drop_mask)
         if cond_feat is None:
             cond_feat = self.embed_map(controlnet_cond)
         x = sample.reshape(B * N, *sample.shape[2:]).to(dt)

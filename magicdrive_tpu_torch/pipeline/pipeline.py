@@ -24,10 +24,6 @@ from magicdrive_tpu_torch.models.controlnet import BEVControlNet
 from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 from magicdrive_tpu_torch.models.vae import AutoencoderKL
 
-# state_dict keys of the JAX tree that belong to the VAE's encoder side,
-# which the port does not carry yet
-_VAE_ENCODER_PREFIXES = ("encoder.", "quant_conv.")
-
 
 @dataclasses.dataclass
 class MagicDriveModules:
@@ -52,10 +48,8 @@ class MagicDriveModules:
                          ) -> "MagicDriveModules":
         """Load ``convert.jax_params_to_state_dicts`` output (strict)."""
         for name, mod in self.items():
-            sd = {k: torch.as_tensor(v) for k, v in sds[name].items()
-                  if not (name == "vae"
-                          and k.startswith(_VAE_ENCODER_PREFIXES))}
-            mod.load_state_dict(sd, strict=True)
+            mod.load_state_dict({k: torch.as_tensor(v)
+                                 for k, v in sds[name].items()}, strict=True)
         return self
 
     def to(self, device, dtype: torch.dtype) -> "MagicDriveModules":

@@ -6,6 +6,9 @@ fp32 throughout, atol 1e-4 / rtol 1e-3. The JAX kernels take weights
 lane-padded to 128 per head; their outputs are sliced back to the logical
 head depth D. The port's weights are in nn.Linear (out, in) layout.
 """
+import importlib
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -182,3 +185,194 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
     assert all(v == 0 for v in dispatch.LAUNCHES.values())
     with pytest.raises(ValueError, match="no kernel for device"):
         dispatch.fused_geglu(x.to("meta"), w1.to("meta"), b.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 (the flash forward and backward), and the autograd of K1-K4
+# ---------------------------------------------------------------------------
+
+# the module (the package re-exports its function under the same name)
+jfl = importlib.import_module("magicdrive_tpu.kernels.flash_attention")
+
+from magicdrive_tpu_torch.kernels import autograd  # noqa: E402
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _flash_inputs(rs, BH, Lq, Lk, D):
+    q = (rs.randn(BH, Lq, D) * D ** -0.5).astype(np.float32)
+    k, v = (rs.randn(BH, Lk, D).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+# (BH, Lq, Lk, D, kv_len, block_q, block_k): the level-0 head depth with
+# several k blocks (the online rescaling), a ragged Lk with keys masked past
+# kv_len, and one block covering everything
+_FLASH_CASES = [(3, 80, 96, 40, 96, 32, 32), (2, 48, 72, 16, 61, 16, 32),
+                (2, 40, 24, 80, 24, 64, 64)]
+
+
+@pytest.mark.parametrize("BH,Lq,Lk,D,kv_len,bq,bk", _FLASH_CASES)
+def test_k5_plain_matches_pallas(BH, Lq, Lk, D, kv_len, bq, bk):
+    q, k, v = _flash_inputs(np.random.RandomState(5), BH, Lq, Lk, D)
+    o, lse = jfl._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            1.0, kv_len, bq, bk, True, with_lse=True)
+    got_o, got_lse = reference.flash_attention_fwd(_t(q), _t(k), _t(v),
+                                                   kv_len)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(o), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[..., 0],
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("BH,Lq,Lk,D,kv_len,bq,bk", _FLASH_CASES)
+def test_k6_plain_matches_pallas(BH, Lq, Lk, D, kv_len, bq, bk, monkeypatch):
+    """The backward picks its own blocks; they are forced small here so
+    that the dq pass streams several k blocks and the dk/dv pass several q
+    blocks."""
+    monkeypatch.setattr(jfl, "_auto_blocks_bwd", lambda *a: (bq, bk))
+    rs = np.random.RandomState(6)
+    q, k, v = _flash_inputs(rs, BH, Lq, Lk, D)
+    do = rs.randn(BH, Lq, D).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o, lse = jfl._flash_fwd(jq, jk, jv, 1.0, kv_len, bq, bk, True)
+    want = jfl._flash_bwd(jq, jk, jv, o, lse, jnp.asarray(do), 1.0, kv_len,
+                          bq, bk, True)
+    got = reference.flash_attention_bwd(
+        _t(q), _t(k), _t(v), _t(np.asarray(o)), _t(np.asarray(lse)[..., 0]),
+        _t(do), kv_len)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL, err_msg=name)
+
+
+def _grads_of(fn, inputs, dy):
+    ts = [_t(a).requires_grad_() for a in inputs]
+    fn(*ts).backward(_t(dy))
+    return [t.grad.numpy() for t in ts]
+
+
+def _pad_rows(w, H, D):
+    """A JAX weight gradient (C, H*DP) -> the port's layout (H*D, C)."""
+    w = np.asarray(w)
+    return w.reshape(w.shape[0], H, DP)[..., :D].reshape(-1, H * D).T
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D", [
+    (2, 48, 48, 32, 32, 2, 16),     # self-attention
+    (1, 40, 24, 32, 48, 2, 40),     # cross-attention onto wider context
+])
+def test_k1_autograd_matches_jax_vjp(B, Lq, Lk, C, Ck, H, D):
+    """The K1 Function's gradients against jax.vjp of the Pallas entry
+    (whose backward is _fused_bwd: the flash forward and backward in
+    interpret mode)."""
+    rs = np.random.RandomState(7)
+    xq = rs.randn(B, Lq, C).astype(np.float32)
+    xkv = rs.randn(B, Lk, Ck).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, c, H, D)
+                                    for c in (C, Ck, Ck))
+    dy = rs.randn(B, Lq, H * D).astype(np.float32)
+    scale = D ** -0.5
+    dy_pad = np.pad(dy.reshape(B, Lq, H, D),
+                    ((0, 0),) * 3 + ((0, DP - D),)).reshape(B, Lq, H, DP)
+    _, vjp = jax.vjp(lambda *a: jfa.fused_kvstat_attention(
+        *a, heads=H, scale=scale, interpret=True), jnp.asarray(xq),
+        jnp.asarray(xkv), jq, jk, jv)
+    want = vjp(jnp.asarray(dy_pad))
+    got = _grads_of(lambda *a: autograd.kvstat_attention(*a, H, scale),
+                    (xq, xkv, tq.numpy(), tk.numpy(), tv.numpy()), dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got[1], np.asarray(want[1]), atol=ATOL,
+                               rtol=RTOL)
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g, _pad_rows(w, H, D), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
+def test_k2_autograd_matches_jax_vjp_ring_shifts(shifts):
+    """The K2 Function's gradients against jax.vjp of the JAX pair with
+    in-grid ring shifts. (1, 2) is not symmetric: a sign error in the
+    inverse roll of dx_kv would show there even where (5, 1) hid it."""
+    rs = np.random.RandomState(8)
+    n, Bg, L, C, H, D = 6, 1, 36, 32, 2, 16
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, C, H, D) for _ in range(3))
+    dy = rs.randn(Bg * n, L, H * D).astype(np.float32)
+    scale = D ** -0.5
+    dy_pad = np.pad(dy.reshape(-1, L, H, D), ((0, 0),) * 3 + ((0, DP - D),))
+
+    def pair(x, wq, wk, wv):
+        return jfa.fused_kvstat_attention_pair(
+            x, x, x, wq, wk, wv, heads=H, scale=scale, interpret=True,
+            shifts=shifts)
+
+    _, vjp = jax.vjp(pair, jnp.asarray(x), jq, jk, jv)
+    want = vjp(jnp.asarray(dy_pad))
+    got = _grads_of(lambda *a: autograd.kvstat_attention_pair(
+        *a, H, scale, shifts), (x, tq.numpy(), tk.numpy(), tv.numpy()), dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, _pad_rows(w, H, D), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_k4_autograd_matches_jax_vjp(with_bias):
+    rs = np.random.RandomState(9)
+    K, N = 48, 160
+    x = rs.randn(2, 37, K).astype(np.float32)
+    (k1, b1, _), (w1, tb1, _) = _ff_weights(rs, K, N, K)
+    dy = rs.randn(2, 37, N).astype(np.float32)
+    args = (jnp.asarray(x), k1) + ((b1,) if with_bias else ())
+    _, vjp = jax.vjp(lambda x, k, *b: jgg.fused_geglu(
+        x, k, b[0] if b else None, interpret=True), *args)
+    want = vjp(jnp.asarray(dy))
+    inputs = (x, w1.numpy()) + ((tb1.numpy(),) if with_bias else ())
+    got = _grads_of(lambda x, w, *b: autograd.fused_geglu(
+        x, w, b[0] if b else None), inputs, dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got[1], np.asarray(want[1]).T, atol=ATOL,
+                               rtol=RTOL)
+    if with_bias:
+        np.testing.assert_allclose(got[2], np.asarray(want[2]), atol=ATOL,
+                                   rtol=RTOL)
+
+
+def test_k3_autograd_matches_jax_vjp():
+    rs = np.random.RandomState(10)
+    K, N, C = 48, 160, 48
+    x = rs.randn(2, 37, K).astype(np.float32)
+    (k1, b1, k2), (w1, tb1, w2) = _ff_weights(rs, K, N, C)
+    dy = rs.randn(2, 37, C).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jgg.fused_ff(*a, interpret=True),
+                     jnp.asarray(x), k1, b1, k2)
+    want = vjp(jnp.asarray(dy))
+    got = _grads_of(autograd.fused_ff,
+                    (x, w1.numpy(), tb1.numpy(), w2.numpy()), dy)
+    for g, w, transpose in zip(got, want, (False, True, False, True)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w.T if transpose else w, atol=ATOL,
+                                   rtol=RTOL)
+
+
+def test_autograd_skips_gradients_not_needed():
+    """Frozen weights get no gradient and cost no product; the forward is
+    the dispatch wrapper's output exactly."""
+    rs = np.random.RandomState(11)
+    x = _t(rs.randn(2, 20, 16).astype(np.float32)).requires_grad_()
+    w = [_t(rs.randn(16, 16).astype(np.float32)) for _ in range(3)]
+    y = autograd.kvstat_attention(x, x, *w, 2, 0.3)
+    torch.testing.assert_close(
+        y, dispatch.kvstat_attention(x, x, *w, 2, 0.3), rtol=0, atol=0)
+    y.sum().backward()
+    assert x.grad is not None and all(t.grad is None for t in w)
+    g = autograd.kvstat_attention_bwd(x.detach(), x.detach(), *w, 2, 0.3,
+                                      torch.ones_like(y),
+                                      (True, False, False, True, False))
+    assert [t is None for t in g] == [False, True, True, False, True]

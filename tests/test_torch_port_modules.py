@@ -336,13 +336,123 @@ def test_vae_decoder():
     z = rs.randn(2, 8, 12, 4).astype(np.float32)
     jm = J(jtiny().vae)
     v = init_random(jm, 17, jnp.zeros((1, 64, 96, 3)))
-    enc = ("encoder", "quant_conv")
-    tv = {c: {k: x for k, x in tree.items() if k not in enc}
-          for c, tree in v.items()}
-    tm = load(T(tiny_debug().vae), tv)
+    tm = load(T(tiny_debug().vae), v)  # the encoder side loads too
     with torch.no_grad():
         got = tm.decode(nchw(z))
     close(to_nhwc(got), jm.apply(v, jnp.asarray(z), method=J.decode))
+
+
+def test_vae_encode_with_explicit_noise():
+    """The posterior moments (logvar clipped to [-30, 20]), a scaled sample
+    with given noise, and the scaled mean without."""
+    from magicdrive_tpu.config.presets import tiny_debug as jtiny
+    from magicdrive_tpu.models.vae import AutoencoderKL as J
+
+    from magicdrive_tpu_torch.config import tiny_debug
+    from magicdrive_tpu_torch.models.vae import AutoencoderKL as T
+
+    rs = np.random.RandomState(18)
+    x = rs.uniform(-1, 1, (2, 64, 96, 3)).astype(np.float32)
+    noise = rs.randn(2, 8, 12, 4).astype(np.float32)
+    jm = J(jtiny().vae)
+    v = init_random(jm, 19, jnp.zeros((1, 64, 96, 3)))
+    tm = load(T(tiny_debug().vae), v)
+    jx = jnp.asarray(x)
+    with torch.no_grad():
+        mean, logvar = tm.encode_moments(nchw(x))
+        sample = tm.encode(nchw(x), nchw(noise))
+        scaled_mean = tm.encode(nchw(x))
+    j_mean, j_logvar = jm.apply(v, jx, method=J.encode_moments)
+    close(to_nhwc(mean), j_mean)
+    close(to_nhwc(logvar), j_logvar)
+    close(to_nhwc(sample), jm.apply(v, jx, jnp.asarray(noise),
+                                    method=J.encode))
+    close(to_nhwc(scaled_mean), jm.apply(v, jx, method=J.encode))
+    assert float(np.abs(to_nhwc(sample) - to_nhwc(scaled_mean)).max()) > 0.01
+
+
+@pytest.mark.parametrize("drop_cam_with_box", [False, True])
+def test_controlnet_tokens_with_drop_mask(drop_cam_with_box):
+    """The training condition drop: dropped views take the uncond camera
+    token and the uncond text (and, with drop_cam_with_box, lose their
+    boxes); kept views are unchanged."""
+    from magicdrive_tpu.config.presets import tiny_debug as jtiny
+    from magicdrive_tpu.models.controlnet import BEVControlNet as J
+
+    from magicdrive_tpu_torch.config import tiny_debug
+    from magicdrive_tpu_torch.models.controlnet import BEVControlNet as T
+
+    rs = np.random.RandomState(20)
+    d = _tiny_inputs(rs)
+    uncond = rs.randn(1, 77, 16).astype(np.float32)
+    drop = np.array([[1, 0, 0, 1, 1, 0]], np.float32)
+    jcfg = dataclasses.replace(jtiny().controlnet,
+                               drop_cam_with_box=drop_cam_with_box)
+    tcfg = dataclasses.replace(tiny_debug().controlnet,
+                               drop_cam_with_box=drop_cam_with_box)
+    jargs = tuple(jnp.asarray(d[k]) for k in (
+        "x", "t", "cam", "text", "bev", "boxes", "classes", "masks"))
+    jm = J(jcfg)
+    v = init_random(jm, 21, *jargs)
+    tm = load(T(tcfg), v)
+    targs = [torch.from_numpy(d[k]) for k in ("cam", "text", "boxes",
+                                                "classes", "masks")]
+    with torch.no_grad():
+        got = tm.assemble_tokens(*targs, torch.from_numpy(uncond),
+                                 torch.from_numpy(drop))
+        kept = tm.assemble_tokens(*targs)
+    want = jm.apply(v, *(jnp.asarray(d[k]) for k in (
+        "cam", "text", "boxes", "classes", "masks")), jnp.asarray(uncond),
+        jnp.asarray(drop), method=J.assemble_tokens)
+    close(got, want)
+    keep = drop[0] == 0
+    np.testing.assert_array_equal(got.numpy()[0, keep], kept.numpy()[0, keep])
+    assert not np.allclose(got.numpy()[0, ~keep, :78],
+                           kept.numpy()[0, ~keep, :78])
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction"])
+def test_ddpm_noise_and_targets(prediction_type):
+    from magicdrive_tpu.diffusion import ddpm as jd
+    from magicdrive_tpu.diffusion.schedules import NoiseSchedule as JS
+
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule, ddpm
+
+    rs = np.random.RandomState(22)
+    x0 = rs.randn(2, 6, 8, 12, 4).astype(np.float32)
+    noise = rs.randn(2, 6, 8, 12, 4).astype(np.float32)
+    t = np.array([[0, 999, 3, 500, 77, 250], [1, 2, 998, 640, 10, 400]])
+    js, ts = JS.create(), NoiseSchedule.create()
+    nchw5 = lambda a: torch.from_numpy(a.transpose(0, 1, 4, 2, 3).copy())
+    back = lambda t_: t_.numpy().transpose(0, 1, 3, 4, 2)
+    close(back(ddpm.add_noise(ts, nchw5(x0), nchw5(noise),
+                              torch.from_numpy(t))),
+          jd.add_noise(js, jnp.asarray(x0), jnp.asarray(noise),
+                       jnp.asarray(t)), atol=1e-5, rtol=1e-5)
+    close(back(ddpm.prediction_target(ts, nchw5(x0), nchw5(noise),
+                                      torch.from_numpy(t), prediction_type)),
+          jd.prediction_target(js, jnp.asarray(x0), jnp.asarray(noise),
+                               jnp.asarray(t), prediction_type),
+          atol=1e-5, rtol=1e-5)
+
+
+def test_ddpm_draws_shapes_and_offset():
+    """The port's own draws: timesteps in range, and the noise offset is
+    one value per (sample, view, channel), shared over space."""
+    from magicdrive_tpu_torch.diffusion import ddpm
+
+    g = torch.Generator().manual_seed(0)
+    t = ddpm.sample_timesteps(g, 4096, 1000)
+    assert t.dtype == torch.long and 0 <= int(t.min()) and \
+        int(t.max()) < 1000 and len(t.unique()) > 900
+    base = ddpm.noise_with_offset(torch.Generator().manual_seed(1),
+                                  (2, 6, 4, 8, 12))
+    off = ddpm.noise_with_offset(torch.Generator().manual_seed(1),
+                                 (2, 6, 4, 8, 12), noise_offset=0.5)
+    d = (off - base).numpy()
+    np.testing.assert_allclose(d, np.broadcast_to(d[..., :1, :1], d.shape),
+                               atol=1e-6)
+    assert np.abs(d).max() > 0.1
 
 
 def test_unipc_20_steps_fixed_eps():

@@ -141,6 +141,27 @@ def test_port_batches_match_jax_collate(seed):
     assert not np.isin(got["input_ids"][~frame], (49406, 49407)).any()
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_port_fixture_images_match_jax(seed):
+    """The training fixture: images in [-1, 1] drawn before the boxes, as
+    the JAX fixture draws them, so the scene after them is the same too;
+    collate_fn stacks them into pixel_values."""
+    from magicdrive_tpu.data.fixtures import make_sample
+
+    from magicdrive_tpu_torch import data
+
+    want = make_sample(seed)
+    got = data.make_sample(seed, with_images=True)
+    assert got["img"].dtype == np.float32 and got["img"].shape == \
+        (6, 224, 400, 3)
+    np.testing.assert_array_equal(got["img"], want["img"])
+    for k in ("boxes", "labels", "bev_map"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert "img" not in data.make_sample(seed)
+    batch = data.collate_fn([got], data.CollateConfig(bbox_max_len=8))
+    np.testing.assert_array_equal(batch["pixel_values"][0], want["img"])
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py imports nothing of jax, flax or the JAX package."""
     import ast
@@ -158,8 +179,10 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_imports_no_jax():
-    """A process that imports the port, makes a request batch and runs a
-    tiny forward never loads jax, flax or the JAX package."""
+    """A process that imports the port (its training modules included),
+    makes a request batch, runs a tiny forward and the backward of a
+    transformer block through the kernels' autograd never loads jax, flax
+    or the JAX package."""
     code = textwrap.dedent("""
         import sys
         import torch
@@ -170,9 +193,13 @@ def test_port_imports_no_jax():
             BasicTransformerBlock)
         from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                                make_dataset)
-        from magicdrive_tpu_torch.kernels import build, dispatch
+        from magicdrive_tpu_torch.diffusion import ddpm
+        from magicdrive_tpu_torch.kernels import autograd, build, dispatch
         from magicdrive_tpu_torch.pipeline.pipeline import (
             MagicDriveModules, MagicDrivePipeline)
+        from magicdrive_tpu_torch.train import (Runner, TrainConfig,
+                                                create_train_state,
+                                                train_step)
         torch.set_num_threads(1)
         batch = collate_fn(make_dataset(1), CollateConfig(bbox_max_len=8))
         assert batch["bboxes"].shape == (1, 6, 8, 8, 3)
@@ -181,7 +208,12 @@ def test_port_imports_no_jax():
         with torch.no_grad():
             y = blk(torch.randn(6, 320, 16), torch.randn(6, 7, 16))
         assert y.shape == (6, 320, 16)
-        MagicDriveModules.create(tiny_debug())
+        x = torch.randn(6, 320, 16, requires_grad=True)
+        blk(x, torch.randn(6, 7, 16)).square().mean().backward()
+        assert x.grad.abs().max() > 0
+        state = create_train_state(MagicDriveModules.create(tiny_debug()),
+                                   TrainConfig())
+        assert len(state.masters) > 100
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "magicdrive_tpu"))
         assert not bad, bad
