@@ -8,43 +8,53 @@ no result line):
      and power limit from nvidia-smi;
   2. build: the hand-written kernels (magicdrive_tpu_torch/kernels/csrc),
      compiled from this checkout;
-  3. kernel checks: K1-K4 at every shape the 224x400 generation path gives
-     them (bf16, B=1 with CFG: 12 views), and K5 and both launches of K6 at
-     the shapes the training path gives them (48 batch-heads), against their
-     plain versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 *
-     max|ref|, with CUDA-event times of the kernel and of the plain version
-     on the same inputs; then the autograd of K1-K4 at the training shapes:
-     every input and weight gradient through the kernel route against the
-     plain backward in fp32, at the same limit, with the plain bf16
-     backward's own error printed beside it;
-  4. slice: the full-width sd15mv_rawbox_224x400 pipeline (20 UniPC steps,
-     CFG 2.0, bf16, B=1) on seeded random weights with every floating
-     parameter non-zero, for 2 requests; the launch counts of that run show
-     K1-K4 on the path;
-  5. path checks: in one guided UNet+ControlNet step, every kernel call is
-     held against its plain version in fp32 on the same inputs (the tolerance
-     of phase 3), and the guided eps with kernels agrees with the eps through
-     the plain versions to relative L2 <= 2e-2. The eps comparison is a smoke
-     test, not a gate: bf16 noise of the whole network sits near 1.1e-2, and
-     planted faults in K2 and K4 passed it while the per-call check and
-     phase 3 caught both (PERF.md);
-  6. training: the full-width model in bf16 over fp32 masters (the recipe's
-     AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture batch with images
-     at B=1 (6 views), N_TRAIN_STEPS steps through the port's Runner with a
-     one-step warm-up. Every loss is finite, the masters are unchanged after
-     step 1 (lr 0) and nearly all moved after the last, every frozen weight
-     is bitwise unchanged, and the launch counts of K1-K6 equal the counts
-     derived from the block structure; then one step with an all-ones drop
-     mask. Warm s/step and peak memory are printed;
-  7. training path checks: in one training step every K1-K6 call, forward
-     and backward, is held against its plain version in fp32 on the inputs
-     the path gave it (the tolerance of phase 3). The ControlNet gradient,
-     kernels against plain versions, is printed as a smoke test.
+  3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
+     generation path gives them in either fused mode (bf16, B=1 with CFG:
+     12 views), and K5, both launches of K6 and K7 at the shapes the
+     training path gives them (6 views of 8 heads), against their plain
+     versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 * max|ref|,
+     with CUDA-event times of the kernel, of the plain version on the same
+     inputs and, where one PyTorch call computes the same function (the
+     flash SDPA forward for K5, its backward for K6), of that call, beside
+     the kernel's bound (the larger of its operations at the bf16 tensor
+     peak and its bytes at the memory rate); then the autograd of K1-K4, K8
+     and the K8 pair at the training shapes: every input and weight
+     gradient through the kernel route against the plain backward in fp32,
+     within 1e-2 * max|ref| or the plain bf16 backward's own error, which
+     is printed beside it (GRAD_TOL);
+  4. generation, once per fused mode ("kvstat", then "auto", which routes
+     every kernel attention to K8 and its pair): the full-width
+     sd15mv_rawbox_224x400 pipeline (20 UniPC steps, CFG 2.0, bf16, B=1) on
+     seeded random weights with every floating parameter non-zero, for 2
+     requests; the launch counts of that run equal the counts derived from
+     the block structure and the routing rules;
+  5. path checks, per mode: in one guided UNet+ControlNet step, every kernel
+     call is held against its plain version in fp32 on the same inputs (the
+     tolerance of phase 3), and the guided eps with kernels agrees with the
+     eps through the plain versions to relative L2 <= 2e-2. The eps
+     comparison is a smoke test, not a gate: bf16 noise of the whole network
+     sits near 1.1e-2, and planted faults in K2 and K4 passed it while the
+     per-call check and phase 3 caught both (PERF.md); then one guided step
+     under torch.profiler prints its kernels' device time beside its host
+     clock time;
+  6. training, per mode: the full-width model in bf16 over fp32 masters
+     (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
+     batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
+     port's Runner with a one-step warm-up. Every loss is finite, the
+     masters are unchanged after step 1 (lr 0) and nearly all moved after
+     the last, every frozen weight is bitwise unchanged, and the launch
+     counts equal the derived ones; under "kvstat" one step with an
+     all-ones drop mask follows. Warm s/step and peak memory are printed;
+  7. training path checks, per mode: in one training step every kernel
+     call, forward and backward, is held against its plain version in fp32
+     on the inputs the path gave it (the tolerance of phase 3). The
+     ControlNet gradient, kernels against plain versions, is printed as a
+     smoke test.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
-two launches as two entries) at the shape where its error was largest, with
-every shape under "shapes"; "launches" is the count of the training run and
-"launches_by_path" gives both paths' counts. The last line is
-{"ok": true, "device": {...}}.
+two launches as two entries, K8 and its pair as two) at the shape where its
+error was largest, with every shape under "shapes"; "launches" sums the
+four path runs of phases 4 and 6 and "launches_by_path" gives each. The
+last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -62,7 +72,13 @@ import torch
 N_REQUESTS = 2
 N_TRAIN_STEPS = 3
 KERNEL_TOL = 1e-2   # max|kernel - ref| <= KERNEL_TOL * max|ref|
-GRAD_TOL = 1e-2     # the same for each gradient of K1-K4
+# Each gradient of K1-K4, K8 and the K8 pair through the kernels is within
+# GRAD_TOL * max|ref| of fp32, or no farther from fp32 than the plain bf16
+# backward on the same inputs (the kernels then add nothing to what bf16
+# costs): measured on an H100, the plain bf16 backward of K8's dx_kv at
+# L=1400 is itself 1.012e-2 * max|ref| from fp32, from the bf16 products
+# and casts the kernel route shares with it (PERF.md).
+GRAD_TOL = 1e-2
 EPS_TOL = 2e-2      # relative L2 of the guided eps, kernels vs plain
 # Scale of the random weights of rank >= 2 (times 1/sqrt(fan_in)). At full
 # width with random weights the bf16 network amplifies rounding: measured
@@ -117,15 +133,17 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-# kernel -> (source, TPU kernel replaced); K6's two launches are two entries
+# kernel -> (source, TPU kernel replaced); K6's two launches and K8's single
+# and pair forms are separate entries
 _FA = "magicdrive_tpu/kernels/flash_attention.py"
+_FU = "magicdrive_tpu/kernels/fused_attention.py"
+_OUT_CU = "magicdrive_tpu_torch/kernels/csrc/fused_out_attention.cu"
 KERNELS = {
     "kvstat_attention": (
-        "magicdrive_tpu_torch/kernels/csrc/kvstat_attention.cu",
-        "magicdrive_tpu/kernels/fused_attention.py:211"),
+        "magicdrive_tpu_torch/kernels/csrc/kvstat_attention.cu", f"{_FU}:211"),
     "kvstat_attention_pair": (
         "magicdrive_tpu_torch/kernels/csrc/kvstat_pair_attention.cu",
-        "magicdrive_tpu/kernels/fused_attention.py:467"),
+        f"{_FU}:467"),
     "fused_ff": ("magicdrive_tpu_torch/kernels/csrc/geglu.cu",
                  "magicdrive_tpu/kernels/geglu.py:221"),
     "fused_geglu": ("magicdrive_tpu_torch/kernels/csrc/geglu.cu",
@@ -136,13 +154,25 @@ KERNELS = {
         "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:222"),
     "flash_attention_bwd_dkv": (
         "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:252"),
+    "fused_qkv_attention": (_OUT_CU, f"{_FU}:77"),
+    "fused_qkv_out_attention": (_OUT_CU, f"{_FU}:83"),
+    "fused_qkv_out_attention_pair": (_OUT_CU, f"{_FU}:104"),
 }
-# the kernel wrappers the model calls (``dispatch`` attributes); the last
-# two run only in the backward of K1 and K2
-GENERATION_CALLS = ("kvstat_attention", "kvstat_attention_pair", "fused_ff",
-                    "fused_geglu")
-TRAINING_CALLS = GENERATION_CALLS + ("flash_attention_fwd",
-                                     "flash_attention_bwd")
+# the kernel wrappers the model calls (``dispatch`` attributes), per fused
+# mode; K7 and the flash pair run only in backwards
+_ATTENTION_CALLS = {
+    "kvstat": ("kvstat_attention", "kvstat_attention_pair"),
+    "auto": ("fused_qkv_out_attention", "fused_qkv_out_attention_pair")}
+
+
+def generation_calls(mode: str):
+    return _ATTENTION_CALLS[mode] + ("fused_ff", "fused_geglu")
+
+
+def training_calls(mode: str):
+    k7 = ("fused_qkv_attention",) if mode == "auto" else ()
+    return generation_calls(mode) + k7 + ("flash_attention_fwd",
+                                           "flash_attention_bwd")
 
 
 def _rnd(gen: torch.Generator):
@@ -153,8 +183,9 @@ def _rnd(gen: torch.Generator):
 
 
 def kernel_cases(gen: torch.Generator):
-    """(kernel, shape label, args) at every shape the 224x400 path gives
-    each kernel: 12 views, 8 heads; text context 1 + 77 + 160 tokens."""
+    """(kernel, shape label, args) at every shape the 224x400 paths give
+    each kernel: 12 views (generation) or 6 (K7, which runs only in the
+    training backward), 8 heads; text context 1 + 77 + 160 tokens."""
     rnd = _rnd(gen)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
@@ -176,7 +207,38 @@ def kernel_cases(gen: torch.Generator):
         cases.append(("fused_geglu", f"geglu M=12*{L} C={C}",
                       (rnd(12 * L, C), rnd(8 * C, C, scale=C ** -0.5),
                        rnd(8 * C, scale=0.1))))
-    return cases
+    return cases + _out_cases(rnd)
+
+
+def _attention_weights(rnd, C, Ck=None):
+    """wq (C, C), wk and wv (C, Ck), wout (C, C): 8 heads of C / 8."""
+    Ck = Ck or C
+    return (rnd(C, C, scale=C ** -0.5), rnd(C, Ck, scale=Ck ** -0.5),
+            rnd(C, Ck, scale=Ck ** -0.5), rnd(C, C, scale=C ** -0.5))
+
+
+def _out_cases(rnd):
+    """K8 and its pair at the generation shapes (12 views), K7 at the
+    training shapes (6 views)."""
+    cases = []
+    for L, C in ((1400, 320), (350, 640)):
+        x = rnd(12, L, C)
+        *w, wo = _attention_weights(rnd, C)
+        sc = (C // 8) ** -0.5
+        cases += [
+            ("fused_qkv_out_attention", f"attn1 L={L} C={C}",
+             (x, x, *w, wo, 8, sc)),
+            ("fused_qkv_out_attention_pair", f"attn4 L={L} C={C}",
+             (x, *w, wo, 8, sc, (5, 1, 6))),
+            ("fused_qkv_attention", f"6 views attn1 L={L} C={C}",
+             (x[:6], x[:6], *w, 8, sc))]
+    x, ctx = rnd(12, 1400, 320), rnd(12, 238, 768)
+    *w, wo = _attention_weights(rnd, 320, 768)
+    return cases + [
+        ("fused_qkv_out_attention", "attn2 L=1400 Lk=238 C=320",
+         (x, ctx, *w, wo, 8, 40 ** -0.5)),
+        ("fused_qkv_attention", "6 views attn2 L=1400 Lk=238 C=320",
+         (x[:6], ctx[:6], *w, 8, 40 ** -0.5))]
 
 
 def _f32(a):
@@ -196,20 +258,86 @@ def _worst(got, ref):
     return max(pairs, key=lambda p: p[0] / max(p[1], 1e-30))
 
 
-def _gate(name, label, err, scale, tol, ms=None, plain_ms=None, note=""):
+# Published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
+# operations and HBM3 bandwidth, at the full 700 W power limit
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+_FLASH_FLOPS_PER_LQ_LK_D = {"flash_attention_fwd": 4,  # q k^T, p v
+                            "flash_attention_bwd_dq": 6,  # s, dp, dq
+                            "flash_attention_bwd_dkv": 8}  # s, dp, dv, dk
+
+
+def _flops(name, args) -> int:
+    """The matrix-product operations the function needs on these inputs
+    (the softmax's elementwise work is left out)."""
+    if name in ("fused_ff", "fused_geglu"):
+        x, w1 = args[0], args[1]
+        M, K = x.numel() // x.shape[-1], x.shape[-1]
+        f = 2 * M * K * w1.shape[0]
+        if name == "fused_ff":
+            f += 2 * M * (w1.shape[0] // 2) * args[3].shape[0]
+        return f
+    if name.startswith("flash"):
+        q, k = args[0], args[1]
+        BH, Lq, D = q.shape
+        return _FLASH_FLOPS_PER_LQ_LK_D[name] * BH * Lq * k.shape[1] * D
+    pair = name.endswith("_pair")
+    x_q, x_kv = args[0], args[0] if pair else args[1]
+    wq = args[1] if pair else args[2]
+    B, Lq, C = x_q.shape
+    Lk, Ck = x_kv.shape[1:]
+    HD = wq.shape[0]
+    # q, k and v projected once (the pair's two neighbours share k and v),
+    # q k^T and p v per neighbour, the out-projection for K8
+    f = 2 * B * (Lq * C + 2 * Lk * Ck) * HD + \
+        (2 if pair else 1) * 4 * B * Lq * Lk * HD
+    if "_out_" in name:
+        f += 2 * B * Lq * HD * args[4 if pair else 5].shape[0]
+    return f
+
+
+def _bytes(args, out) -> int:
+    """Each distinct input tensor read once, each output written once."""
+    seen = {}
+    for t in (*args, *_outputs(out)):
+        if torch.is_tensor(t):
+            seen[t.data_ptr(), t.numel()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def bound(name, args, out):
+    """(bound_ms, bound_by): the least time the card could take for the
+    same work, from this call's shapes."""
+    by_ops = _flops(name, args) / PEAK_BF16_FLOPS * 1e3
+    by_bytes = _bytes(args, out) / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else \
+        (by_bytes, "bytes")
+
+
+def _gate(name, label, err, scale, tol, row=None, note=""):
     ok = np.isfinite(err) and err <= tol * scale
-    if ms is not None:
-        note = f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-    log(f"  {name:24s} {label:28s} max_abs_err {err:.3e} (max|ref| "
+    if row is not None:
+        lib = row["library_ms"]
+        note = (f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})" +
+                ("" if lib is None else f" library {lib:.4f} ms"))
+    log(f"  {name:28s} {label:34s} max_abs_err {err:.3e} (max|ref| "
         f"{scale:.3e}) {note} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {label}: max abs err {err} > {tol} * "
                              f"{scale}")
 
 
-def _row(rows, name, label, err, ms, plain_ms):
-    rows.setdefault(name, []).append({"shape": label, "max_abs_err": err,
-                                      "ms": ms, "plain_ms": plain_ms})
+def _row(rows, name, label, args, out, err, kern, plain, library=None):
+    """Time the kernel, its plain version and the library call, and file
+    the row under the kernel's name."""
+    bound_ms, bound_by = bound(name, args, out)
+    row = {"shape": label, "max_abs_err": err, "ms": cuda_ms(kern),
+           "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "library_ms": None if library is None else cuda_ms(library)}
+    rows.setdefault(name, []).append(row)
+    return row
 
 
 def check_kernels():
@@ -221,24 +349,43 @@ def check_kernels():
         kern, plain = getattr(dispatch, name), getattr(reference, name)
         got = kern(*args)
         err, scale = _worst(got, plain(*map(_f32, args)))
-        ms = cuda_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-        _gate(name, label, err, scale, KERNEL_TOL, ms, plain_ms)
-        _row(rows, name, label, err, ms, plain_ms)
+        row = _row(rows, name, label, args, got, err, lambda: kern(*args),
+                   lambda: plain(*args))
+        _gate(name, label, err, scale, KERNEL_TOL, row)
     return rows
 
 
 # (Lq, Lk, D) of the flash kernels on the training path: the backward of
-# K1 at attn1 on levels 0 and 1 and at attn2 on level 0, and of each K2
-# branch; 6 views of 8 heads
+# K1/K8 at attn1 on levels 0 and 1 and at attn2 on level 0, and of each
+# K2/K8-pair branch; 6 views of 8 heads
 FLASH_SHAPES = ((1400, 1400, 40), (350, 350, 80), (1400, 238, 40))
 FLASH_BH = 48
+
+
+def _sdpa_calls(q, k, v, do):
+    """The flash SDPA forward, and its backward as one autograd call, on
+    (BH, L, D) inputs viewed as BH batches of one head; q is pre-scaled."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = (t.unsqueeze(1).detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+
+    def fwd():
+        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+
+    def bwd():
+        torch.autograd.grad(o4, (q4, k4, v4), do.unsqueeze(1),
+                            retain_graph=True)
+    return fwd, bwd
 
 
 def check_flash_kernels():
     """K5 and the two launches of K6 at the path shapes against their plain
     versions in fp32 on the same inputs; K6 takes K5's o and lse. The plain
-    time of each K6 entry is that of the whole plain backward."""
+    and library times of each K6 entry are those of the whole backward."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(1))
@@ -251,31 +398,33 @@ def check_flash_kernels():
         o, lse = dispatch.flash_attention_fwd(q, k, v)
         bwd_args = (q, k, v, o, lse, do)
         plain_bwd = reference.flash_attention_bwd(*map(_f32, bwd_args))
+        lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do)
         runs = {
             "flash_attention_fwd": (
-                lambda: dispatch.flash_attention_fwd(q, k, v),
+                (q, k, v), lambda: dispatch.flash_attention_fwd(q, k, v),
                 reference.flash_attention_fwd(*map(_f32, (q, k, v))),
-                lambda: reference.flash_attention_fwd(q, k, v)),
+                lambda: reference.flash_attention_fwd(q, k, v), lib_fwd),
             "flash_attention_bwd_dq": (
-                lambda: dispatch.flash_attention_bwd_dq(*bwd_args),
+                bwd_args, lambda: dispatch.flash_attention_bwd_dq(*bwd_args),
                 plain_bwd[0],
-                lambda: reference.flash_attention_bwd(*bwd_args)),
+                lambda: reference.flash_attention_bwd(*bwd_args), lib_bwd),
             "flash_attention_bwd_dkv": (
-                lambda: dispatch.flash_attention_bwd_dkv(*bwd_args),
+                bwd_args, lambda: dispatch.flash_attention_bwd_dkv(*bwd_args),
                 plain_bwd[1:],
-                lambda: reference.flash_attention_bwd(*bwd_args)),
+                lambda: reference.flash_attention_bwd(*bwd_args), lib_bwd),
         }
-        for name, (kern, ref, plain) in runs.items():
-            err, scale = _worst(kern(), ref)
-            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-            _gate(name, label, err, scale, KERNEL_TOL, ms, plain_ms)
-            _row(rows, name, label, err, ms, plain_ms)
+        for name, (args, kern, ref, plain, lib) in runs.items():
+            got = kern()
+            err, scale = _worst(got, ref)
+            row = _row(rows, name, label, args, got, err, kern, plain, lib)
+            _gate(name, label, err, scale, KERNEL_TOL, row)
     return rows
 
 
 def autograd_cases(gen: torch.Generator):
     """(kernel, shape label, differentiable inputs, other arguments) at the
-    shapes the training path gives K1-K4: 6 views of 8 heads."""
+    shapes the training path gives K1-K4, K8 and the K8 pair: 6 views of 8
+    heads."""
     rnd = _rnd(gen)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
@@ -299,33 +448,53 @@ def autograd_cases(gen: torch.Generator):
         cases.append(("fused_geglu", f"geglu M=6*{L} C={C}",
                       (rnd(6, L, C), rnd(8 * C, C, scale=C ** -0.5),
                        rnd(8 * C, scale=0.1)), ()))
+    for L, C in ((1400, 320), (350, 640)):
+        x = rnd(6, L, C)
+        w = _attention_weights(rnd, C)
+        sc = (C // 8) ** -0.5
+        cases.append(("fused_qkv_out_attention", f"attn1 L={L} C={C}",
+                      (x, x.clone(), *w), (8, sc)))
+        cases.append(("fused_qkv_out_attention_pair", f"attn4 L={L} C={C}",
+                      (x, *w), (8, sc, (5, 1, 6))))
+    cases.append(("fused_qkv_out_attention", "attn2 L=1400 Lk=238 C=320",
+                  (rnd(6, 1400, 320), rnd(6, 238, 768),
+                   *_attention_weights(rnd, 320, 768)), (8, 40 ** -0.5)))
     return cases
 
 
 def check_autograd():
-    """The gradients of K1-K4 through the kernel route (every input and
-    weight) against the plain backward in fp32 on the same inputs. The plain
-    backward in bf16 is printed beside it: its own distance from fp32 is
-    what bf16 costs the gradient."""
+    """The gradients of K1-K4, K8 and the K8 pair through the kernel route
+    (every input and weight) against the plain backward in fp32 on the same
+    inputs. The plain backward in bf16 is printed beside it: its own
+    distance from fp32 is what bf16 costs the gradient."""
     from magicdrive_tpu_torch.kernels import autograd, reference
 
-    def k1_bwd(ins, extra, dy, ops):
-        return autograd.kvstat_attention_bwd(*ins, *extra, dy, ops=ops)
+    def bwd(fn):
+        return lambda ins, extra, dy, ops: fn(*ins, *extra, dy, ops=ops)
 
-    def k2_bwd(ins, extra, dy, ops):
-        return autograd.kvstat_attention_pair_bwd(*ins, *extra, dy, ops=ops)
+    def ff_bwd(fn):
+        return lambda ins, extra, dy, ops: fn(*ins, dy)
 
     fns = {
-        "kvstat_attention": (autograd.kvstat_attention, k1_bwd,
+        "kvstat_attention": (autograd.kvstat_attention,
+                             bwd(autograd.kvstat_attention_bwd),
                              ("dx_q", "dx_kv", "dwq", "dwk", "dwv")),
-        "kvstat_attention_pair": (autograd.kvstat_attention_pair, k2_bwd,
+        "kvstat_attention_pair": (autograd.kvstat_attention_pair,
+                                  bwd(autograd.kvstat_attention_pair_bwd),
                                   ("dx", "dwq", "dwk", "dwv")),
-        "fused_ff": (autograd.fused_ff,
-                     lambda ins, extra, dy, ops: autograd.fused_ff_bwd(
-                         *ins, dy), ("dx", "dw1", "db1", "dw2")),
+        "fused_qkv_out_attention": (
+            autograd.fused_qkv_out_attention,
+            bwd(autograd.fused_qkv_out_attention_bwd),
+            ("dx_q", "dx_kv", "dwq", "dwk", "dwv", "dwout")),
+        "fused_qkv_out_attention_pair": (
+            autograd.fused_qkv_out_attention_pair,
+            bwd(autograd.fused_qkv_out_attention_pair_bwd),
+            ("dx", "dwq", "dwk", "dwv", "dwout")),
+        "fused_ff": (autograd.fused_ff, ff_bwd(autograd.fused_ff_bwd),
+                     ("dx", "dw1", "db1", "dw2")),
         "fused_geglu": (autograd.fused_geglu,
-                        lambda ins, extra, dy, ops: autograd.fused_geglu_bwd(
-                            *ins, dy), ("dx", "dw1", "db1")),
+                        ff_bwd(autograd.fused_geglu_bwd),
+                        ("dx", "dw1", "db1")),
     }
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
@@ -341,7 +510,8 @@ def check_autograd():
         for g_name, leaf, r, b in zip(grad_names, leaves, ref, bf16):
             err, scale = _worst(leaf.grad, r)
             bf_err, _ = _worst(b, r)
-            _gate(f"{name} {g_name}", label, err, scale, GRAD_TOL,
+            _gate(f"{name} {g_name}", label, err, scale,
+                  max(GRAD_TOL, bf_err / scale),
                   note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
             w = worst.setdefault(name, [0.0, 0.0])
             w[0], w[1] = max(w[0], err / scale), max(w[1], bf_err / scale)
@@ -374,7 +544,7 @@ def init_weights(modules, seed: int) -> None:
 
 
 @contextlib.contextmanager
-def patched_kernels(make, names=TRAINING_CALLS):
+def patched_kernels(make, names):
     """The model's kernel calls ``names`` replaced by
     ``make(name, kernel, plain)``; the autograd Functions look the wrappers
     up at call time, so this reaches every forward and backward call."""
@@ -419,24 +589,93 @@ def set_up():
         f"in {time.perf_counter() - t0:.1f} s")
     ccfg = CollateConfig(bbox_max_len=preset.bbox_max_len)
     batches = [collate_fn([s], ccfg) for s in make_dataset(N_REQUESTS)]
-    return pipe, batches
+    return preset, pipe, batches
 
 
-def _launched(names):
-    """Launch counts of ``names`` (K6's wrapper counts its two kernels),
-    raising if any is zero."""
+def _transformers(preset):
+    """(in the UNet, index in its model, L, C, D) of every transformer of
+    the ControlNet, then of the UNet, mid blocks included."""
+    u = preset.unet
+    h, w = preset.pipeline.latent_height, preset.pipeline.latent_width
+    lengths = []
+    for _ in u.block_out_channels:
+        lengths.append(h * w)
+        h, w = -(-h // 2), -(-w // 2)
+    top = len(u.block_out_channels) - 1
+    down = [i for i, a in enumerate(u.down_block_has_attn) if a
+            for _ in range(u.layers_per_block)]
+    up = [top - i for i, a in enumerate(u.up_block_has_attn) if a
+          for _ in range(u.layers_per_block + 1)]
+    for unet, levels in ((False, down + [top]), (True, down + [top] + up)):
+        for j, lvl in enumerate(levels):
+            C = u.block_out_channels[lvl]
+            yield unet, j, lengths[lvl], C, C // u.num_attention_heads
+
+
+_KERNEL_OF = {"kvstat": "kvstat_attention", "out": "fused_qkv_out_attention"}
+_PAIR_KERNEL_OF = {"kvstat": "kvstat_attention_pair",
+                   "out": "fused_qkv_out_attention_pair"}
+
+
+def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
+                      esize: int = 2):
+    """Kernel launches (``dispatch.LAUNCHES``' keys) of ``forwards`` guided
+    ControlNet+UNet evaluations and ``steps`` train steps under the fused
+    ``mode``, derived from the block structure and the routing rules: per
+    transformer at latent length L and width C, attn1 and attn2 (context
+    1 + 77 + boxes, width max(C, 768)) take ``attention_route``'s kernel,
+    attn4 (UNet only) ``pair_route``'s, and the FF takes K3 where
+    ``ff_full_fusion_fits`` holds, else K4. In a train step every backward
+    of a K1 or K8 runs K5 and K6 once, of a pair twice, and K7 once per
+    branch of a K8 whose Wout trains (the ControlNet's and attn4's). The
+    only attention without a backward is attn1 of the UNet's first
+    transformer, whose input comes from frozen weights alone (the
+    trainable tokens enter at its attn2)."""
     from magicdrive_tpu_torch.kernels import dispatch
 
-    launches = {k: v for k, v in dispatch.LAUNCHES.items()
-                if k in names or k.startswith("flash_attention_bwd_")
-                and "flash_attention_bwd" in names}
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the path: {missing}")
+    n = dict.fromkeys(dispatch.LAUNCHES, 0)
+    ctx = 1 + 77 + preset.bbox_max_len
+    ctx_dim = preset.unet.cross_attention_dim
+    with dispatch.fused_mode(mode):
+        for unet, j, L, C, D in _transformers(preset):
+            calls = [(dispatch.attention_route(L, L, C, D, esize), 1,
+                      unet and j == 0),
+                     (dispatch.attention_route(L, ctx, max(C, ctx_dim), D,
+                                               esize), 1, False)]
+            if unet:
+                calls.append((dispatch.pair_route(L, C, D, esize), 2, False))
+            for route, branches, no_backward in calls:
+                if route is None:
+                    continue
+                kernel = (_KERNEL_OF if branches == 1 else
+                          _PAIR_KERNEL_OF)[route]
+                n[kernel] += forwards + steps
+                if no_backward:
+                    continue
+                n["flash_attention_fwd"] += steps * branches
+                if route == "out" and (branches == 2 or not unet):
+                    n["fused_qkv_attention"] += steps * branches
+            ff = "fused_ff" if dispatch.ff_full_fusion_fits(C, 4 * C, C) \
+                else "fused_geglu"
+            n[ff] += forwards + steps
+    n["flash_attention_bwd_dq"] = n["flash_attention_bwd_dkv"] = \
+        n["flash_attention_fwd"]
+    return n
+
+
+def _check_launches(what, want):
+    """The launch counts since the last reset, which must equal ``want``
+    (every kernel of the path launched, every other one not)."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    launches = dict(dispatch.LAUNCHES)
+    log(f"{what} launches: { {k: v for k, v in launches.items() if v} }")
+    if launches != want or not any(launches.values()):
+        raise AssertionError(f"{what} launches {launches}, derived {want}")
     return launches
 
 
-def run_slice(pipe, batches):
+def run_slice(preset, pipe, batches, mode):
     from magicdrive_tpu_torch.kernels import dispatch
 
     dispatch.reset_launches()
@@ -457,11 +696,11 @@ def run_slice(pipe, batches):
         log(f"  request: {seconds[-1]:.3f} s, image min {lo:.3f} max "
             f"{hi:.3f} mean {img.mean().item():.4f} std "
             f"{img.std().item():.4f}")
-    launches = _launched(GENERATION_CALLS)
-    log(f"slice launches: {launches}")
-    log(f"slice: seconds per request {seconds} (the first includes "
-        f"one-time setup such as cuDNN algorithm choice)")
-    return launches
+    launches = _check_launches(f"generation ({mode})", expected_launches(
+        preset, mode, forwards=len(batches) * pipe.cfg.num_inference_steps))
+    log(f"generation ({mode}): seconds per request {seconds} (the first "
+        f"includes one-time setup such as cuDNN algorithm choice)")
+    return launches, seconds
 
 
 def _call_checker(stats):
@@ -505,31 +744,57 @@ def _step_inputs(pipe, batch):
     return x, int(pipe.coeffs.timesteps[0]), pipe.conditioning(batch)
 
 
-def check_path_calls(pipe, batch) -> None:
+def check_path_calls(pipe, batch, mode) -> None:
     """Every kernel call of one guided step against its plain version in
     fp32 on the inputs the path gave it."""
     x, t, cond = _step_inputs(pipe, batch)
     stats = {}  # kernel -> [calls, worst max|err| / max|ref|]
-    with patched_kernels(_call_checker(stats), GENERATION_CALLS):
+    with patched_kernels(_call_checker(stats), generation_calls(mode)):
         pipe.guided_eps(x, t, cond)
-    _report_calls("one guided step", stats, GENERATION_CALLS)
+    _report_calls(f"one guided step ({mode})", stats, generation_calls(mode))
 
 
-def check_eps(pipe, batch) -> None:
+def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
+    """One guided step under torch.profiler: its host-clock time, the sum of
+    its kernels' device times (one stream, so the sum is the busy time) and
+    the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, t, cond = _step_inputs(pipe, batch)
+    pipe.guided_eps(x, t, cond)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.guided_eps(x, t, cond)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and not e.key.startswith("aten::")), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
+        f"clock, kernels {busy:.1f} ms (device idle "
+        f"{100 * (1 - busy / wall):.1f} %); top kernels: " +
+        "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
+
+
+def check_eps(pipe, batch, mode) -> None:
     """The guided eps of one step through the kernels against the same step
     through the plain versions."""
     x, t, cond = _step_inputs(pipe, batch)
     eps_k = pipe.guided_eps(x, t, cond)
-    with patched_kernels(lambda name, kern, plain: plain, GENERATION_CALLS):
+    with patched_kernels(lambda name, kern, plain: plain,
+                         generation_calls(mode)):
         eps_p = pipe.guided_eps(x, t, cond)
         noise = torch.randn(x.shape, device=x.device,
                             generator=torch.Generator("cuda").manual_seed(8))
         eps_n = pipe.guided_eps(x * (1 + 1e-3 * noise), t, cond)
     rel = ((eps_k - eps_p).norm() / eps_p.norm()).item()
     sens = ((eps_n - eps_p).norm() / eps_p.norm()).item()
-    log(f"guided eps, kernels vs plain versions: relative L2 {rel:.3e} "
-        f"(|eps| rms {eps_p.pow(2).mean().sqrt().item():.3e}; plain vs "
-        f"plain on a latent perturbed by 1e-3: {sens:.3e})")
+    log(f"guided eps ({mode}), kernels vs plain versions: relative L2 "
+        f"{rel:.3e} (|eps| rms {eps_p.pow(2).mean().sqrt().item():.3e}; "
+        f"plain vs plain on a latent perturbed by 1e-3: {sens:.3e})")
     if not (np.isfinite(rel) and rel <= EPS_TOL):
         raise AssertionError(f"eps relative L2 {rel} > {EPS_TOL}")
 
@@ -537,48 +802,6 @@ def check_eps(pipe, batch) -> None:
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
-
-
-def expected_training_launches(preset, n_steps: int):
-    """Kernel launches of ``n_steps`` train steps, derived from the block
-    structure and the routing rules: per transformer at latent length L and
-    width C, attn1 and attn2 (context 1 + 77 + boxes) take K1 where
-    ``uses_kvstat`` holds, attn4 (UNet only) takes K2, and the FF takes K3
-    where ``ff_full_fusion_fits`` holds, else K4. Every backward of a K1
-    runs K5 and K6 once, of a K2 twice; the only K1 without a backward is
-    attn1 of the UNet's first transformer, whose input comes from frozen
-    weights alone (the trainable tokens enter at its attn2)."""
-    from magicdrive_tpu_torch.kernels import dispatch
-
-    u = preset.unet
-    h, w = preset.pipeline.latent_height, preset.pipeline.latent_width
-    lengths = []
-    for _ in u.block_out_channels:
-        lengths.append(h * w)
-        h, w = -(-h // 2), -(-w // 2)
-    top = len(u.block_out_channels) - 1
-    down = [i for i, a in enumerate(u.down_block_has_attn) if a
-            for _ in range(u.layers_per_block)]
-    up = [top - i for i, a in enumerate(u.up_block_has_attn) if a
-          for _ in range(u.layers_per_block + 1)]
-    ctx = 1 + 77 + preset.bbox_max_len
-    n = dict.fromkeys(("k1", "k2", "k3", "k4", "k1_first"), 0)
-    for unet, levels in ((False, down + [top]), (True, down + [top] + up)):
-        for j, lvl in enumerate(levels):
-            L, C = lengths[lvl], u.block_out_channels[lvl]
-            D = C // u.num_attention_heads
-            self_attn = dispatch.uses_kvstat(L, L, D)
-            n["k1"] += self_attn + dispatch.uses_kvstat(L, ctx, D)
-            n["k2"] += unet and self_attn
-            n["k3" if dispatch.ff_full_fusion_fits(C, 4 * C, C)
-              else "k4"] += 1
-            n["k1_first"] += unet and j == 0 and self_attn
-    flash = n["k1"] - n["k1_first"] + 2 * n["k2"]
-    per_step = {"kvstat_attention": n["k1"], "kvstat_attention_pair": n["k2"],
-                "fused_ff": n["k3"], "fused_geglu": n["k4"],
-                "flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
-                "flash_attention_bwd_dkv": flash}
-    return {k: n_steps * v for k, v in per_step.items()}
 
 
 def train_set_up(batch_size: int):
@@ -617,10 +840,11 @@ def _frozen(modules):
             if not ((n, k) in params and is_trainable(n, k))}
 
 
-def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS):
+def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
+                 mode: str = "kvstat"):
     """``steps`` optimizer steps through the port's Runner, one at a time,
-    with the checks of the training slice; returns the set-up and the
-    launch counts."""
+    with the checks of the training slice; returns the set-up, the launch
+    counts and the run's numbers."""
     from magicdrive_tpu_torch.kernels import dispatch
     from magicdrive_tpu_torch.train import Runner
 
@@ -642,13 +866,14 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS):
                 raise AssertionError("a master moved at step 1 (lr 0)")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
-    launches = _launched(TRAINING_CALLS)
+    launches = _check_launches(f"training ({mode})", expected_launches(
+        preset, mode, steps=steps))
     peak = torch.cuda.max_memory_allocated()
     losses = [r["loss"] for r in records]
-    log(f"training: losses {losses}, grad norms "
+    log(f"training ({mode}): losses {losses}, grad norms "
         f"{[r['grad_norm'] for r in records]}")
-    log(f"training: seconds per step {seconds} (the first includes one-time "
-        f"setup such as cuDNN algorithm choice); peak memory "
+    log(f"training ({mode}): seconds per step {seconds} (the first includes "
+        f"one-time setup such as cuDNN algorithm choice); peak memory "
         f"{peak / 2**30:.2f} GiB")
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"training losses {losses}")
@@ -661,10 +886,6 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS):
                if not torch.equal(t, frozen[k])]
     if changed:
         raise AssertionError(f"frozen weights changed: {changed[:5]}")
-    want = expected_training_launches(preset, steps)
-    log(f"training launches: {launches}")
-    if launches != want:
-        raise AssertionError(f"training launches {launches}, derived {want}")
     return (modules, cfg, state, batch), launches, {
         "seconds": seconds, "peak_bytes": peak, "losses": losses}
 
@@ -694,10 +915,10 @@ def check_drop_all(setup) -> None:
         raise AssertionError(f"drop-all step loss {loss}")
 
 
-def check_training_calls(setup) -> None:
-    """In one training step, every K1-K6 call (forward and backward) against
-    its plain version in fp32 on the inputs the path gave it; then the
-    ControlNet gradient through the kernels against the one through the
+def check_training_calls(setup, mode) -> None:
+    """In one training step, every kernel call (forward and backward)
+    against its plain version in fp32 on the inputs the path gave it; then
+    the ControlNet gradient through the kernels against the one through the
     plain versions, as a smoke test."""
     from magicdrive_tpu_torch.diffusion import NoiseSchedule
     from magicdrive_tpu_torch.train.train_step import (batch_tensors,
@@ -707,50 +928,67 @@ def check_training_calls(setup) -> None:
     draws = _fixed_draws(cfg, batch, 10)
     tensors = batch_tensors(batch, "cuda")
     schedule = NoiseSchedule.create()
+    names = training_calls(mode)
     stats = {}
-    with patched_kernels(_call_checker(stats)):
+    with patched_kernels(_call_checker(stats), names):
         loss_k, grads_k = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
-    _report_calls("one training step", stats, TRAINING_CALLS)
-    with patched_kernels(lambda name, kern, plain: plain):
+    _report_calls(f"one training step ({mode})", stats, names)
+    with patched_kernels(lambda name, kern, plain: plain, names):
         loss_p, grads_p = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
     keys = [k for k in grads_k if k.startswith("controlnet.")]
     gk = torch.cat([grads_k[k].flatten() for k in keys])
     gp = torch.cat([grads_p[k].flatten() for k in keys])
     rel = ((gk - gp).norm() / gp.norm()).item()
-    log(f"training step, kernels vs plain versions: loss {loss_k.item():.6f}"
-        f" vs {loss_p.item():.6f}; ControlNet gradient relative L2 {rel:.3e}"
-        f" (a smoke test, not a gate)")
+    log(f"training step ({mode}), kernels vs plain versions: loss "
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; ControlNet gradient "
+        f"relative L2 {rel:.3e} (a smoke test, not a gate)")
 
 
 def main() -> None:
+    from magicdrive_tpu_torch.kernels import dispatch
+
     environment()
     build_kernels()
     log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
     rows = check_kernels()
     rows.update(check_flash_kernels())
     log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
-        f"limit {GRAD_TOL} * max|ref|):")
+        f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
     check_autograd()
-    pipe, batches = set_up()
-    gen_launches = run_slice(pipe, batches)
-    check_path_calls(pipe, batches[0])
-    check_eps(pipe, batches[0])
+    by_path, timing = {}, {}
+    preset, pipe, batches = set_up()
+    for mode in dispatch.FUSED_MODES:
+        with dispatch.fused_mode(mode):
+            by_path[f"generation_{mode}"], timing[f"s/request {mode}"] = \
+                run_slice(preset, pipe, batches, mode)
+            check_path_calls(pipe, batches[0], mode)
+            check_eps(pipe, batches[0], mode)
+            profile_guided_step(pipe, batches[0], mode)
     del pipe
     torch.cuda.empty_cache()
-    setup, train_launches, _ = run_training()
-    check_drop_all(setup)
-    check_training_calls(setup)
+    for mode in dispatch.FUSED_MODES:
+        with dispatch.fused_mode(mode):
+            setup, by_path[f"training_{mode}"], run = run_training(mode=mode)
+            timing[f"s/step {mode}"] = run["seconds"]
+            if mode == "kvstat":
+                check_drop_all(setup)
+            check_training_calls(setup, mode)
+        del setup
+        torch.cuda.empty_cache()
+    log(f"path times (the first of each includes one-time setup): {timing}")
     kernels = []
     for n, (src, rep) in KERNELS.items():
         worst = max(rows[n], key=lambda r: r["max_abs_err"])
+        launches = {path: counts[n] for path, counts in by_path.items()}
         kernels.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
-            "launches": train_launches[n], **worst,
-            "launches_by_path": {"generation": gen_launches.get(n, 0),
-                                 "training": train_launches[n]},
-            "shapes": rows[n]})
+            "launches": sum(launches.values()), **worst,
+            "launches_by_path": launches, "shapes": rows[n]})
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels launched on no path: {missing}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Attention with diffusers ``Attention`` semantics (counterpart of
 ``core/attention.py``).
 
-Shapes with Lq*Lk >= 90 000 and a head depth of at most 128 go to the
-projection-fused kernel K1 (``kernels.dispatch.uses_kvstat``), with its
-gradient from ``kernels.autograd``; every other
+Shapes with Lq*Lk >= 90 000 and a head depth of at most 128 go to a
+projection-fused kernel (``kernels.dispatch.attention_route``): K1, whose
+output is out-projected here, or K8 under ``MAGICDRIVE_FUSED_MODE=auto``
+where it fits, which out-projects in the kernel and leaves the bias to this
+module; their gradients come from ``kernels.autograd``. Every other
 attention projects q/k/v with ``nn.Linear`` and runs
 ``F.scaled_dot_product_attention``, as the JAX package left those shapes
 to XLA.
@@ -59,11 +61,20 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
-        if self.to_q.bias is None and dispatch.uses_kvstat(
-                x.shape[-2], context.shape[-2], self.dim_head):
-            o = autograd.kvstat_attention(
-                x, context, self.to_q.weight, self.to_k.weight,
-                self.to_v.weight, self.heads, self.scale)
+        route = None if self.to_q.bias is not None else \
+            dispatch.attention_route(
+                x.shape[-2], context.shape[-2],
+                max(x.shape[-1], context.shape[-1]), self.dim_head,
+                x.element_size())
+        w = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
+        if route == "out":
+            lin = self.to_out[0]
+            y = autograd.fused_qkv_out_attention(x, context, *w, lin.weight,
+                                                 self.heads, self.scale)
+            return y if lin.bias is None else y + lin.bias
+        if route == "kvstat":
+            o = autograd.kvstat_attention(x, context, *w, self.heads,
+                                          self.scale)
         else:
             o = sdpa(self.to_q(x), self.to_k(context), self.to_v(context),
                      self.heads, self.scale)

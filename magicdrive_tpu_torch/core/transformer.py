@@ -109,14 +109,22 @@ class BasicTransformerBlock(nn.Module):
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
         """Sum over the two ring neighbours of separate attentions, out-
-        projected once with the bias counted twice (ref:blocks.py:213-217)."""
+        projected once with the bias counted twice (ref:blocks.py:213-217):
+        by K2 and ``project_out``, by the K8 pair, or by SDPA."""
         a = self.attn4
         s1, s2, n = self.shifts
         L = h.shape[-2]
-        if dispatch.uses_kvstat(L, L, a.dim_head):
-            o = autograd.kvstat_attention_pair(
-                h, a.to_q.weight, a.to_k.weight, a.to_v.weight, a.heads,
-                a.scale, self.shifts)
+        route = dispatch.pair_route(L, h.shape[-1], a.dim_head,
+                                    h.element_size())
+        w = (a.to_q.weight, a.to_k.weight, a.to_v.weight)
+        if route == "out":
+            lin = a.to_out[0]
+            y = autograd.fused_qkv_out_attention_pair(
+                h, *w, lin.weight, a.heads, a.scale, self.shifts)
+            return y if lin.bias is None else y + 2 * lin.bias
+        if route == "kvstat":
+            o = autograd.kvstat_attention_pair(h, *w, a.heads, a.scale,
+                                               self.shifts)
         else:
             q, k, v = a.to_q(h), a.to_k(h), a.to_v(h)
             o = sum(sdpa(q, ring_views(k, s, n), ring_views(v, s, n),

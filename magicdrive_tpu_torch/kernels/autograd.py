@@ -10,6 +10,11 @@ One ``torch.autograd.Function`` per JAX custom VJP:
   * K2 (``_kvstat_pair_core``): the K1 backward once per ring neighbour on
     the rolled views; dx_q and the weight gradients are summed over the two
     branches and each branch's dx_kv returns through the inverse roll;
+  * K8 (``_fused_core_out``): dy_heads = bf16(dy Wout) goes through the K1
+    backward, and dWout = dy^T o_heads with o_heads recomputed by K7, which
+    runs only when dWout is asked for (``_fused_out_bwd``); the K8 pair
+    (``_pair_core_out``) runs that once per ring neighbour, as K2, and sums
+    the two dWout; it computes no K8 primal;
   * K3 (``_ff_core``) and K4 (``_geglu_core``): plain matrix products, as
     the JAX package leaves them to XLA, with its casts (the bf16 product
     x W1 before the bias, dhv and dhg cast to bf16 before their products,
@@ -112,6 +117,44 @@ def kvstat_attention_pair_bwd(x: torch.Tensor, wq: torch.Tensor,
     return dx_q, dwq, dwk, dwv
 
 
+def fused_qkv_out_attention_bwd(x_q: torch.Tensor, x_kv: torch.Tensor,
+                                wq: torch.Tensor, wk: torch.Tensor,
+                                wv: torch.Tensor, wout: torch.Tensor,
+                                heads: int, scale: float, dy: torch.Tensor,
+                                needs: Sequence[bool] = (True,) * 6,
+                                ops=dispatch) -> Grads:
+    """The backward of K8: dy (B, Lq, C_out) -> (dx_q, dx_kv, dwq, dwk, dwv,
+    dwout). ``ops`` also provides ``fused_qkv_attention`` (K7)."""
+    dy_heads = (dy @ wout).to(x_q.dtype)
+    g = kvstat_attention_bwd(x_q, x_kv, wq, wk, wv, heads, scale, dy_heads,
+                             needs[:5], ops)
+    dwout = _dw(dy, ops.fused_qkv_attention(x_q, x_kv, wq, wk, wv, heads,
+                                            scale)) if needs[5] else None
+    return (*g, dwout)
+
+
+def fused_qkv_out_attention_pair_bwd(x: torch.Tensor, wq: torch.Tensor,
+                                     wk: torch.Tensor, wv: torch.Tensor,
+                                     wout: torch.Tensor, heads: int,
+                                     scale: float,
+                                     shifts: Tuple[int, int, int],
+                                     dy: torch.Tensor,
+                                     needs: Sequence[bool] = (True,) * 5,
+                                     ops=dispatch) -> Grads:
+    """The backward of the K8 pair: (dx, dwq, dwk, dwv, dwout)."""
+    s1, s2, n = shifts
+    dy_heads = (dy @ wout).to(x.dtype)
+    g = kvstat_attention_pair_bwd(x, wq, wk, wv, heads, scale, shifts,
+                                  dy_heads, needs[:4], ops)
+    dwout = None
+    if needs[4]:
+        for s in (s1, s2):
+            o = ops.fused_qkv_attention(x, ring_views(x, s, n), wq, wk, wv,
+                                        heads, scale)
+            dwout = _add(dwout, _dw(dy, o))
+    return (*g, dwout)
+
+
 def _halves(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fp32 GEGLU halves as the JAX backward recomputes them: the
@@ -188,6 +231,37 @@ class KvstatAttentionPair(torch.autograd.Function):
                 None, None, None)
 
 
+class FusedQkvOutAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_q, x_kv, wq, wk, wv, wout, heads, scale):
+        ctx.save_for_backward(x_q, x_kv, wq, wk, wv, wout)
+        ctx.heads, ctx.scale = heads, scale
+        return dispatch.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
+                                                heads, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*fused_qkv_out_attention_bwd(*ctx.saved_tensors, ctx.heads,
+                                             ctx.scale, dy,
+                                             ctx.needs_input_grad[:6]),
+                None, None)
+
+
+class FusedQkvOutAttentionPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wq, wk, wv, wout, heads, scale, shifts):
+        ctx.save_for_backward(x, wq, wk, wv, wout)
+        ctx.heads, ctx.scale, ctx.shifts = heads, scale, shifts
+        return dispatch.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
+                                                     heads, scale, shifts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*fused_qkv_out_attention_pair_bwd(
+            *ctx.saved_tensors, ctx.heads, ctx.scale, ctx.shifts, dy,
+            ctx.needs_input_grad[:5]), None, None, None)
+
+
 class FusedGeglu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1):
@@ -236,3 +310,22 @@ def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
              w2: torch.Tensor) -> torch.Tensor:
     """K3 with its gradient (``dispatch.fused_ff``)."""
     return FusedFF.apply(x, w1, b1, w2)
+
+
+def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
+                            wq: torch.Tensor, wk: torch.Tensor,
+                            wv: torch.Tensor, wout: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """K8 with its gradient (``dispatch.fused_qkv_out_attention``)."""
+    return FusedQkvOutAttention.apply(x_q, x_kv, wq, wk, wv, wout, heads,
+                                      scale)
+
+
+def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
+                                 wk: torch.Tensor, wv: torch.Tensor,
+                                 wout: torch.Tensor, heads: int, scale: float,
+                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
+    """The K8 pair with its gradient
+    (``dispatch.fused_qkv_out_attention_pair``)."""
+    return FusedQkvOutAttentionPair.apply(x, wq, wk, wv, wout, heads, scale,
+                                          shifts)

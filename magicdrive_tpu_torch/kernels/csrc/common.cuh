@@ -81,9 +81,11 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Projection-fused attention core shared by K1 and K2.
+// Projection-fused attention core shared by K1, K2, K7 and K8.
 //
-// One block = one (batch, head, 64-row q tile), four warps of 16 q rows.
+// attend_tile: one (batch, head, 64-row q tile) on four warps of 16 q rows.
+// K1/K2 run one per block; K7/K8 (fused_out_attention.cu) loop it over the
+// heads of a block.
 //  1. q = (x_q tile . Wq_h^T) in fp32 over 32-wide chunks of C, times the
 //     softmax scale, cast to bf16 (the Pallas kernel's cast points).
 //  2. For each of NBR key/value sources: stream 64-row k/v tiles of the
@@ -124,14 +126,16 @@ struct AttnLayout {
 
 // NBR == 2: source i reads kv batch (b // n) * n + (b % n + shift_i) % n,
 // the ring map over n views. NBR == 1: source 0 is batch b itself.
+// Returns the normalised fp32 output tile in shared memory (leading
+// dimension AttnLayout::LDO); each warp owns, and may read after it
+// returns, its own 16 rows. Called by all ATT_THREADS threads of the block.
 template <int DP, int NBR>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
-                 const bf16* __restrict__ kws, const bf16* __restrict__ vws,
-                 bf16* __restrict__ out, int Lq, int C, int Lk, int H, int D,
-                 float scale, int shift0, int shift1, int n_views) {
+__device__ const float* attend_tile(
+    unsigned char* smem, const bf16* __restrict__ xq,
+    const bf16* __restrict__ wq, const bf16* __restrict__ kws,
+    const bf16* __restrict__ vws, int Lq, int C, int Lk, int H, int D,
+    float scale, int shift0, int shift1, int n_views, int q0, int h, int b) {
   using Lay = AttnLayout<DP, NBR>;
-  extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem + Lay::XS);
   bf16* ws = reinterpret_cast<bf16*>(smem + Lay::WS);
   bf16* qs = reinterpret_cast<bf16*>(smem + Lay::QS);
@@ -142,9 +146,6 @@ attention_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
   float* os = reinterpret_cast<float*>(smem + Lay::OS);
   float* ot = reinterpret_cast<float*>(smem + Lay::OT);  // NBR == 2 only
 
-  const int q0 = blockIdx.x * ATT_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's rows within the tile
@@ -283,14 +284,29 @@ attention_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
     }
     __syncwarp();
   }
+  return NBR == 2 ? ot : os;
+}
 
-  const float* fin = NBR == 2 ? ot : os;
+// K1 (NBR == 1) and K2 (NBR == 2): grid (q tiles, H, B); the tile goes to
+// out (B, Lq, H*D) at the head's columns.
+template <int DP, int NBR>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
+                 const bf16* __restrict__ kws, const bf16* __restrict__ vws,
+                 bf16* __restrict__ out, int Lq, int C, int Lk, int H, int D,
+                 float scale, int shift0, int shift1, int n_views) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
+  const float* fin = attend_tile<DP, NBR>(smem, xq, wq, kws, vws, Lq, C, Lk,
+                                          H, D, scale, shift0, shift1,
+                                          n_views, q0, h, b);
+  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
   const long HD = (long)H * D;
   for (int i = lane; i < 16 * D; i += 32) {
     const int r = r0 + i / D, c = i % D;
     if (q0 + r < Lq)
       out[((long)b * Lq + q0 + r) * HD + (long)h * D + c] =
-          __float2bfloat16(fin[r * Lay::LDO + c]);
+          __float2bfloat16(fin[r * AttnLayout<DP, NBR>::LDO + c]);
   }
 }
 

@@ -10,15 +10,22 @@ no fallback from one to the other.
 (``chip_smoke.py`` reads it to show the main path ran every kernel); K6's
 wrapper launches two kernels and counts each.
 
-The routing rules restate the JAX package's decisions as pure functions:
-K1/K2 take an attention when Lq*Lk >= 90 000 and the head depth is at most
-128 (``core/attention.py`` ``_pallas_route``, ``core/transformer.py``); K3
-takes the FeedForward where ``ff_full_fusion_fits`` holds at bf16, K4 every
-other one (``core/transformer.py`` ``FeedForward``).
+The routing rules restate the JAX package's decisions as pure functions of
+ints, so both packages send each shape to the same kernel:
+  * an attention is a kernel's when Lq*Lk >= 90 000 and the head depth is
+    at most 128 (``core/attention.py`` ``_pallas_route``), else SDPA;
+  * ``fused_mode_for`` then picks K1 ("kvstat") or K8 ("out") by the JAX
+    package's VMEM fit rules under ``FUSED_MODE`` (``core/attention.py``
+    ``fused_mode_for``); the cross-view pair takes K2 or the K8 pair where
+    its own rule holds (``core/transformer.py`` ``_cross_view``);
+  * K3 takes the FeedForward where ``ff_full_fusion_fits`` holds, K4 every
+    other one (``core/transformer.py`` ``FeedForward``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import os
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -26,10 +33,41 @@ from . import reference
 
 LAUNCHES = {"kvstat_attention": 0, "kvstat_attention_pair": 0,
             "fused_ff": 0, "fused_geglu": 0, "flash_attention_fwd": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "fused_qkv_attention": 0, "fused_qkv_out_attention": 0,
+            "fused_qkv_out_attention_pair": 0}
 
-KVSTAT_MIN_LOGITS = 90_000
-KVSTAT_MAX_HEAD_DIM = 128
+MIN_LOGITS = 90_000
+MAX_HEAD_DIM = 128
+
+FUSED_MODES = ("kvstat", "auto")
+
+
+def _mode_from_env() -> str:
+    mode = os.environ.get("MAGICDRIVE_FUSED_MODE", "kvstat")
+    if mode not in FUSED_MODES:
+        raise ValueError(f"MAGICDRIVE_FUSED_MODE={mode!r}: takes one of "
+                         f"{FUSED_MODES}")
+    return mode
+
+
+# "kvstat": K1/K2 wherever they fit; "auto": K8 (and its pair) where the
+# q-block count is at most 2, K1/K2 beyond. Read once, as the JAX package
+# reads its _FUSED_MODE.
+FUSED_MODE = _mode_from_env()
+
+
+@contextlib.contextmanager
+def fused_mode(mode: str) -> Iterator[None]:
+    """Route under ``mode`` inside the block, then restore the mode."""
+    global FUSED_MODE
+    if mode not in FUSED_MODES:
+        raise ValueError(f"fused mode {mode!r}: takes one of {FUSED_MODES}")
+    saved, FUSED_MODE = FUSED_MODE, mode
+    try:
+        yield
+    finally:
+        FUSED_MODE = saved
 
 
 def reset_launches() -> None:
@@ -37,10 +75,124 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def uses_kvstat(Lq: int, Lk: int, dim_head: int) -> bool:
-    """Whether an attention of this shape goes to K1 (or K2, for the
-    cross-view pair)."""
-    return Lq * Lk >= KVSTAT_MIN_LOGITS and dim_head <= KVSTAT_MAX_HEAD_DIM
+# The JAX package's VMEM byte rules (kernels/fused_attention.py _auto_bq,
+# _auto_bq_kvstat; budget kernels/flash_attention.py _VMEM_BUDGET) with
+# their constants. They belong to the routing only: the CUDA kernels size
+# their own shared-memory plans (csrc/common.cuh AttnLayout).
+_ATTN_RULE_BUDGET = 11 << 20
+_KV_CHUNK = 512
+_BQ_CANDIDATES = (1024, 768, 512, 384, 256, 128)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _d_pad(dim_head: int) -> int:
+    return _ceil_to(max(dim_head, 128), 128)
+
+
+def _q_blocks(Lq: int):
+    top = _ceil_to(Lq, 16)
+    return (top,) + tuple(b for b in _BQ_CANDIDATES if b <= top)
+
+
+def _auto_bq(Lq: int, Lk: int, C: int, d_pad: int, esize: int,
+             n_kv: int = 1) -> int:
+    """The out-fused kernel's q block: logits, x_q, q/acc and the
+    out-projection scratch beside the resident x_kv, k/v and weights."""
+    lk_pad = _ceil_to(Lk, 128)
+    fixed = n_kv * Lk * C * esize + 2 * lk_pad * d_pad * 4 + \
+        3 * C * d_pad * esize
+    for bq in _q_blocks(Lq):
+        var = bq * lk_pad * 4 + bq * C * esize + 2 * bq * d_pad * 4 + \
+            bq * C * 4
+        if fixed + var <= _ATTN_RULE_BUDGET:
+            return bq
+    return 128
+
+
+def _auto_bq_kvstat(Lq: int, Lk: int, C: int, d_pad: int, esize: int,
+                    n_kv: int = 1) -> Optional[int]:
+    """The kv-stationary kernel's q block, None if even 128 rows do not
+    fit beside the resident k/v."""
+    lk_pad = _ceil_to(Lk, 16)
+    ck = min(lk_pad, _KV_CHUNK)
+    fixed = n_kv * Lk * C * esize + n_kv * 2 * lk_pad * d_pad * esize + \
+        2 * ck * d_pad * 4 + 3 * C * d_pad * esize
+    for bq in _q_blocks(Lq):
+        var = bq * lk_pad * (4 + esize) + bq * C * esize + 2 * bq * d_pad * 4
+        if fixed + var <= _ATTN_RULE_BUDGET:
+            return bq
+    return None
+
+
+def kvstat_is_efficient(Lq: int, Lk: int, C: int, dim_head: int,
+                        esize: int = 2) -> bool:
+    return _auto_bq_kvstat(Lq, Lk, C, _d_pad(dim_head), esize) is not None
+
+
+def kvstat_pair_fits(Lq: int, Lk: int, C: int, dim_head: int,
+                     esize: int = 2) -> bool:
+    return _auto_bq_kvstat(Lq, Lk, C, _d_pad(dim_head), esize,
+                           n_kv=2) is not None
+
+
+def fused_is_efficient(Lq: int, Lk: int, C: int, dim_head: int,
+                       esize: int = 2) -> bool:
+    """At most 2 q blocks: the out-fused kernel's economics."""
+    return -(-Lq // _auto_bq(Lq, Lk, C, _d_pad(dim_head), esize)) <= 2
+
+
+def pair_is_efficient(Lq: int, Lk: int, C: int, dim_head: int,
+                      esize: int = 2) -> bool:
+    return -(-Lq // _auto_bq(Lq, Lk, C, _d_pad(dim_head), esize,
+                             n_kv=2)) <= 2
+
+
+def fused_mode_for(Lq: int, Lk: int, C: int, dim_head: int,
+                   esize: int) -> Optional[str]:
+    """The fused kernel of a gated attention under ``FUSED_MODE``: "kvstat"
+    (K1), "out" (K8) or None (the projected route). C is max(C, Ck), esize
+    the input's element size."""
+    args = (Lq, Lk, C, dim_head, esize)
+    if FUSED_MODE == "kvstat" and kvstat_is_efficient(*args):
+        return "kvstat"
+    if fused_is_efficient(*args):
+        return "out"
+    if kvstat_is_efficient(*args):
+        return "kvstat"
+    return None
+
+
+def attention_route(Lq: int, Lk: int, C: int, dim_head: int,
+                    esize: int) -> Optional[str]:
+    """The kernel of an attention: None (SDPA), "kvstat" (K1) or "out"
+    (K8). Raises for the projected route, which is not ported."""
+    if Lq * Lk < MIN_LOGITS or dim_head > MAX_HEAD_DIM:
+        return None
+    mode = fused_mode_for(Lq, Lk, C, dim_head, esize)
+    if mode is None:
+        raise NotImplementedError(
+            f"attention Lq={Lq} Lk={Lk} C={C} D={dim_head} esize={esize} "
+            "takes the projected route (lane-padded projections with the "
+            "flash kernel), not ported yet: ROADMAP Queue A, "
+            "'the projected attention route'")
+    return mode
+
+
+def pair_route(L: int, C: int, dim_head: int, esize: int) -> Optional[str]:
+    """The kernel of the cross-view pair ("add" mode, two ring neighbours):
+    None (SDPA), "kvstat" (K2) or "out" (the K8 pair). Raises where JAX
+    runs one attention per neighbour, which is not ported."""
+    mode = attention_route(L, L, C, dim_head, esize)
+    fits = {"kvstat": kvstat_pair_fits, "out": pair_is_efficient}
+    if mode is not None and not fits[mode](L, L, C, dim_head, esize):
+        raise NotImplementedError(
+            f"cross-view pair L={L} C={C} D={dim_head} esize={esize} in mode "
+            f"{mode!r} takes the per-neighbour loop, not ported yet: ROADMAP "
+            "Queue A, 'the per-neighbour cross-view loops'")
+    return mode
 
 
 # The JAX package's whole-FF routing rule (kernels/geglu.py
@@ -112,6 +264,39 @@ def _project_kv(lib, x_kv, wk, wv, heads):
     return k, v
 
 
+def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, shifts=None):
+    """Launch one projection-fused attention kernel, ``mdk_<name>``: k and
+    v projected once by K1's projection kernel, then K1, K2, K7, K8 or the
+    K8 pair (``wout`` given: out-projected; ``shifts`` given: the ring
+    pair, x_kv being x_q itself). -> (B, Lq, H*D) or (B, Lq, C_out)."""
+    from . import build
+
+    _check(name, x_q, x_kv, wq, wk, wv, wout)
+    B, Lq, C = x_q.shape
+    D = wq.shape[0] // heads
+    bad = x_kv.shape[0] != B or wq.shape != (heads * D, C) or \
+        wk.shape != (heads * D, x_kv.shape[2]) or wv.shape != wk.shape or \
+        (wout is not None and (wout.dim() != 2 or
+                               wout.shape[1] != heads * D))
+    if shifts is not None:
+        s1, s2, n = shifts
+        bad |= B % n != 0 or not (0 <= s1 < n and 0 <= s2 < n)
+    if bad:
+        raise ValueError(f"{name}: shapes do not agree")
+    lib = build.load()
+    k, v = _project_kv(lib, x_kv, wk, wv, heads)  # once for every view
+    C_out = () if wout is None else (wout.shape[0],)
+    out = torch.empty(B, Lq, *(C_out or (heads * D,)), dtype=x_q.dtype,
+                      device=x_q.device)
+    ptrs = [_ptr(t) for t in (x_q, wq, k, v, wout, out) if t is not None]
+    # the pair's kernels take one length: x_kv is x_q
+    dims = (B, Lq, C) + (() if shifts else (x_kv.shape[1],)) + (heads, D)
+    _run(getattr(lib, f"mdk_{name}"), *ptrs, *dims, *C_out, float(scale),
+         *(shifts or ()), _stream())
+    LAUNCHES[name] += 1
+    return out
+
+
 def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
                      wk: torch.Tensor, wv: torch.Tensor, heads: int,
                      scale: float) -> torch.Tensor:
@@ -120,22 +305,8 @@ def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
     (B, Lq, H*D) at the logical head depth."""
     if _on_cpu(x_q):
         return reference.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
-    from . import build
-
-    _check("kvstat_attention", x_q, x_kv, wq, wk, wv)
-    B, Lq, C = x_q.shape
-    D = wq.shape[0] // heads
-    if x_kv.shape[0] != B or wq.shape != (heads * D, C) or \
-            wk.shape != (heads * D, x_kv.shape[2]) or wv.shape != wk.shape:
-        raise ValueError("kvstat_attention: shapes do not agree")
-    lib = build.load()
-    k, v = _project_kv(lib, x_kv, wk, wv, heads)
-    out = torch.empty(B, Lq, heads * D, dtype=x_q.dtype, device=x_q.device)
-    _run(lib.mdk_kvstat_attention, _ptr(x_q), _ptr(wq), _ptr(k), _ptr(v),
-         _ptr(out), B, Lq, C, x_kv.shape[1], heads, D, float(scale),
-         _stream())
-    LAUNCHES["kvstat_attention"] += 1
-    return out
+    return _attention("kvstat_attention", x_q, x_kv, wq, wk, wv, None, heads,
+                      scale)
 
 
 def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -147,22 +318,48 @@ def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     if _on_cpu(x):
         return reference.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
                                                shifts)
-    from . import build
+    return _attention("kvstat_attention_pair", x, x, wq, wk, wv, None, heads,
+                      scale, shifts)
 
-    _check("kvstat_attention_pair", x, wq, wk, wv)
-    s1, s2, n = shifts
-    B, L, C = x.shape
-    D = wq.shape[0] // heads
-    if B % n or not (0 <= s1 < n and 0 <= s2 < n) or \
-            not wq.shape == wk.shape == wv.shape == (heads * D, C):
-        raise ValueError("kvstat_attention_pair: shapes do not agree")
-    lib = build.load()
-    k, v = _project_kv(lib, x, wk, wv, heads)  # once for every view
-    out = torch.empty(B, L, heads * D, dtype=x.dtype, device=x.device)
-    _run(lib.mdk_kvstat_attention_pair, _ptr(x), _ptr(wq), _ptr(k), _ptr(v),
-         _ptr(out), B, L, C, heads, D, float(scale), s1, s2, n, _stream())
-    LAUNCHES["kvstat_attention_pair"] += 1
-    return out
+
+def fused_qkv_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
+                        wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                        heads: int, scale: float) -> torch.Tensor:
+    """K7: K1's function from the out-fused kernel's template without its
+    epilogue (one block per 64 q rows looping over the heads). Shapes as
+    ``kvstat_attention``."""
+    if _on_cpu(x_q):
+        return reference.fused_qkv_attention(x_q, x_kv, wq, wk, wv, heads,
+                                             scale)
+    return _attention("fused_qkv_attention", x_q, x_kv, wq, wk, wv, None,
+                      heads, scale)
+
+
+def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
+                            wq: torch.Tensor, wk: torch.Tensor,
+                            wv: torch.Tensor, wout: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """K8: K1's attention out-projected in the kernel, without the out
+    bias: bf16(o) Wout^T with wout (C_out, H*D) -> (B, Lq, C_out). The
+    (B, Lq, H*D) attention output never reaches device memory."""
+    if _on_cpu(x_q):
+        return reference.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
+                                                 heads, scale)
+    return _attention("fused_qkv_out_attention", x_q, x_kv, wq, wk, wv, wout,
+                      heads, scale)
+
+
+def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
+                                 wk: torch.Tensor, wv: torch.Tensor,
+                                 wout: torch.Tensor, heads: int, scale: float,
+                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
+    """The K8 pair: K2's two ring-neighbour attentions summed in fp32, then
+    out-projected in the kernel without the bias -> (B, L, C_out)."""
+    if _on_cpu(x):
+        return reference.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
+                                                      heads, scale, shifts)
+    return _attention("fused_qkv_out_attention_pair", x, x, wq, wk, wv, wout,
+                      heads, scale, shifts)
 
 
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the hand-written kernels (K1-K6).
+"""Plain PyTorch versions of the hand-written kernels (K1-K8).
 
 Each computes the same function as its CUDA kernel with the same cast
 points (the JAX kernels' own): projections accumulate in fp32, q is scaled
@@ -8,8 +8,10 @@ PV, o is divided by the row sum in fp32; the GEGLU halves and biases are
 fp32 and the gated product is cast before stage 2. The flash forward (K5)
 and backward (K6) take (BH, L, D) tensors with q already scaled, mask keys at
 positions >= kv_len, and cast p and ds to the input dtype before their
-products; lse and every accumulation are fp32. Weights are in ``nn.Linear``
-layout (out, in).
+products; lse and every accumulation are fp32. K7 computes K1's function;
+K8 casts each head's normalised o (the pair: the fp32 sum of its two) to the
+input dtype and out-projects it with fp32 accumulation, cast once, without
+the bias. Weights are in ``nn.Linear`` layout (out, in).
 
 On the CPU the port runs through these functions; the tests hold them
 against the JAX Pallas kernels in interpret mode, and ``chip_smoke.py``
@@ -74,6 +76,30 @@ def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     o = sum(_attend(q, ring_views(k, s, n), ring_views(v, s, n), heads)
             for s in (s1, s2))
     return o.to(x.dtype)
+
+
+# K7 computes K1's function (the JAX kernels share their cast points); only
+# the kernel's plan differs
+fused_qkv_attention = kvstat_attention
+
+
+def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
+                            wq: torch.Tensor, wk: torch.Tensor,
+                            wv: torch.Tensor, wout: torch.Tensor, heads: int,
+                            scale: float) -> torch.Tensor:
+    """K8. bf16(o) Wout^T, wout (C_out, H*D): -> (B, Lq, C_out)."""
+    q, k, v = _project(x_q, x_kv, wq, wk, wv, scale)
+    o = _attend(q, k, v, heads).to(x_q.dtype)
+    return _linear32(o, wout).to(x_q.dtype)
+
+
+def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
+                                 wk: torch.Tensor, wv: torch.Tensor,
+                                 wout: torch.Tensor, heads: int, scale: float,
+                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
+    """The K8 pair. K2's fp32 sum, cast, then out-projected as K8."""
+    o = kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts)
+    return _linear32(o, wout).to(x.dtype)
 
 
 def _gated(x: torch.Tensor, w1: torch.Tensor,

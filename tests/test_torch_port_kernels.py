@@ -123,33 +123,164 @@ _LEVELS = [(1400, 320, 40), (350, 640, 80), (91, 1280, 160),
 _CTX, _CTX_DIM = 1 + 77 + 160, 768
 
 
-def _jax_kvstat(Lq, Lk, C, D):
+def _jax_route(monkeypatch, mode, Lq, Lk, C, D, esize):
+    """The JAX package's kernel for an attention: None (XLA), "kvstat",
+    "out" or "projected", with its _FUSED_MODE patched to ``mode``."""
     from magicdrive_tpu.core import attention as jattn
 
-    return (Lq * Lk >= jattn._AUTO_PALLAS_MIN_LOGITS and D <= jattn._LANE
-            and jattn.fused_mode_for(Lq, Lk, C, D, 2) == "kvstat")
+    if Lq * Lk < jattn._AUTO_PALLAS_MIN_LOGITS or D > jattn._LANE:
+        return None
+    monkeypatch.setattr(jattn, "_FUSED_MODE", mode)
+    return jattn.fused_mode_for(Lq, Lk, C, D, esize) or "projected"
 
 
-def test_routing_matches_jax_rules_224x400():
-    chosen = set()
-    for L, C, D in _LEVELS:
-        for name, Lk, Ck in (("attn1", L, C), ("attn2", _CTX, _CTX_DIM),
-                             ("attn4", L, C)):
-            want = _jax_kvstat(L, Lk, max(C, Ck), D)
-            if name == "attn4":
-                want = want and jfa.kvstat_pair_fits(L, L, C, D, 2)
-            got = dispatch.uses_kvstat(L, Lk, D)
-            assert got == want, (name, L, C, D)
-            if got:
-                chosen.add((name, L))
-        assert dispatch.ff_full_fusion_fits(C, 4 * C, C) == \
-            jgg.ff_full_fusion_fits(C, 4 * C, C, 2), C
-    # K1 at attn1 on both upper levels and attn2 at level 0; K2 at attn4 on
-    # both upper levels; K3 at level 0 only
-    assert chosen == {("attn1", 1400), ("attn1", 350), ("attn2", 1400),
-                      ("attn4", 1400), ("attn4", 350)}
+def _jax_pair_route(monkeypatch, mode, L, C, D, esize):
+    """As _jax_route for the cross-view pair (core/transformer.py
+    _cross_view): "loops" where it runs one attention per neighbour."""
+    route = _jax_route(monkeypatch, mode, L, L, C, D, esize)
+    fits = {"out": jfa.pair_is_efficient, "kvstat": jfa.kvstat_pair_fits}
+    if route in fits and not fits[route](L, L, C, D, esize):
+        return "loops"
+    return route
+
+
+def _port_route(fn, *args):
+    """The port's route, with its NotImplementedError for the unported
+    branches named as _jax_route names them."""
+    try:
+        return fn(*args)
+    except NotImplementedError as e:
+        return "projected" if "projected route" in str(e) else "loops"
+
+
+def test_routing_matches_jax_rules_224x400(monkeypatch):
+    """In either fused mode each 224x400 shape goes to the JAX package's
+    kernel: under "kvstat" K1 at attn1 on both upper levels and attn2 at
+    level 0, K2 at attn4 on both; under "auto" K8 and its pair at the same
+    shapes. K3 takes the FF at level 0 only."""
+    for mode, single, pair in (("kvstat", "kvstat", "kvstat"),
+                               ("auto", "out", "out")):
+        chosen = set()
+        with dispatch.fused_mode(mode):
+            for L, C, D in _LEVELS:
+                for name, Lk, Ck in (("attn1", L, C),
+                                     ("attn2", _CTX, _CTX_DIM)):
+                    want = _jax_route(monkeypatch, mode, L, Lk, max(C, Ck),
+                                      D, 2)
+                    got = dispatch.attention_route(L, Lk, max(C, Ck), D, 2)
+                    assert got == want, (mode, name, L, C, D)
+                    if got:
+                        chosen.add((name, L, got))
+                want = _jax_pair_route(monkeypatch, mode, L, C, D, 2)
+                got = dispatch.pair_route(L, C, D, 2)
+                assert got == want, (mode, "attn4", L, C, D)
+                if got:
+                    chosen.add(("attn4", L, got))
+                assert dispatch.ff_full_fusion_fits(C, 4 * C, C) == \
+                    jgg.ff_full_fusion_fits(C, 4 * C, C, 2), C
+        assert chosen == {("attn1", 1400, single), ("attn1", 350, single),
+                          ("attn2", 1400, single), ("attn4", 1400, pair),
+                          ("attn4", 350, pair)}, mode
     assert [dispatch.ff_full_fusion_fits(C, 4 * C, C)
             for _, C, _ in _LEVELS] == [True, False, False, False]
+
+
+_JAX_PRESETS = ("sd15mv_rawbox_224x400", "sd15mv_rawbox_272x736",
+                "sd15mv_rawbox_424x800", "sd15mv_rawbox_video_16f",
+                "tiny_debug", "micro_debug", "small_parity")
+
+
+def _attention_shapes(preset):
+    """Every attention of a preset's UNet and ControlNet as (kind, Lq, Lk,
+    C, D): attn1, attn2 (C = max(C, Ck)), attn4 (the cross-view pair, Lk =
+    Lq) and the temporal attention over frames, at every latent level."""
+    u = preset.unet
+    h, w = preset.pipeline.latent_height, preset.pipeline.latent_width
+    ctx = 1 + 77 + preset.bbox_max_len
+    shapes = []
+    for C in u.block_out_channels:
+        L, D = h * w, C // u.num_attention_heads
+        shapes += [("attn1", L, L, C, D),
+                   ("attn2", L, ctx, max(C, u.cross_attention_dim), D)]
+        if u.neighboring_view_pair is not None:
+            shapes.append(("attn4", L, L, C, D))
+        F = getattr(u, "temporal_frames", None)  # the port has no video
+        if F:
+            shapes.append(("temporal", F, F, C, D))
+        h, w = -(-h // 2), -(-w // 2)
+    return shapes
+
+
+@pytest.mark.parametrize("name", _JAX_PRESETS)
+def test_routing_matches_jax_every_preset(name, monkeypatch):
+    """Both fused modes, bf16 and fp32 elements: the port picks the JAX
+    package's kernel at every attention shape, and raises exactly where JAX
+    takes a branch the port has not ported."""
+    from magicdrive_tpu.config import presets as jp
+
+    preset = getattr(jp, name)()
+    routes = set()
+    for mode in dispatch.FUSED_MODES:
+        with dispatch.fused_mode(mode):
+            for esize in (2, 4):
+                for kind, Lq, Lk, C, D in _attention_shapes(preset):
+                    if kind == "attn4":
+                        want = _jax_pair_route(monkeypatch, mode, Lq, C, D,
+                                               esize)
+                        got = _port_route(dispatch.pair_route, Lq, C, D,
+                                          esize)
+                    else:
+                        want = _jax_route(monkeypatch, mode, Lq, Lk, C, D,
+                                          esize)
+                        got = _port_route(dispatch.attention_route, Lq, Lk,
+                                          C, D, esize)
+                    assert got == want, (mode, esize, kind, Lq, Lk, C, D)
+                    routes.add((mode, esize, kind, Lq, got))
+    if name == "sd15mv_rawbox_424x800":
+        # the level-0 pair does not fit K2's rule: JAX runs one K1 per
+        # neighbour, which the port does not port yet
+        assert ("kvstat", 2, "attn4", 5300, "loops") in routes
+
+
+def test_port_presets_reach_no_unported_route():
+    """The port's presets route every attention to SDPA or a ported kernel
+    in both modes: 224x400 in bf16, the type it runs in on the card (in
+    fp32 its level-0 pair would take the per-neighbour loop), tiny_debug in
+    bf16 and in fp32, the CPU tests' type."""
+    from magicdrive_tpu_torch import config
+
+    for preset, esizes in ((config.sd15mv_rawbox_224x400(), (2,)),
+                           (config.tiny_debug(), (2, 4))):
+        for mode in dispatch.FUSED_MODES:
+            with dispatch.fused_mode(mode):
+                for esize in esizes:
+                    for kind, Lq, Lk, C, D in _attention_shapes(preset):
+                        if kind == "attn4":
+                            dispatch.pair_route(Lq, C, D, esize)
+                        else:
+                            dispatch.attention_route(Lq, Lk, C, D, esize)
+
+
+def test_fused_mode_is_read_once_and_switchable(monkeypatch):
+    """MAGICDRIVE_FUSED_MODE takes "kvstat" (the default) or "auto";
+    anything else raises, from the environment and from the context
+    manager, which restores the mode it found."""
+    monkeypatch.delenv("MAGICDRIVE_FUSED_MODE", raising=False)
+    assert dispatch._mode_from_env() == "kvstat"
+    monkeypatch.setenv("MAGICDRIVE_FUSED_MODE", "auto")
+    assert dispatch._mode_from_env() == "auto"
+    monkeypatch.setenv("MAGICDRIVE_FUSED_MODE", "out")
+    with pytest.raises(ValueError, match="MAGICDRIVE_FUSED_MODE"):
+        dispatch._mode_from_env()
+    before = dispatch.FUSED_MODE
+    with dispatch.fused_mode("auto"):
+        assert dispatch.FUSED_MODE == "auto"
+        assert dispatch.attention_route(1400, 1400, 320, 40, 2) == "out"
+    assert dispatch.FUSED_MODE == before
+    with pytest.raises(ValueError):
+        with dispatch.fused_mode("kvstat-only"):
+            pass
+    assert dispatch.FUSED_MODE == before
 
 
 @pytest.mark.parametrize("C", [8, 16, 32, 512, 560, 576])
@@ -175,6 +306,13 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
         dispatch.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
         reference.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
         rtol=0, atol=0)
+    for name, args in (("fused_qkv_attention", (x, x, *w[:3], 2, 0.3)),
+                       ("fused_qkv_out_attention", (x, x, *w, 2, 0.3)),
+                       ("fused_qkv_out_attention_pair",
+                        (x, *w, 2, 0.3, (5, 1, 6)))):
+        torch.testing.assert_close(getattr(dispatch, name)(*args),
+                                   getattr(reference, name)(*args),
+                                   rtol=0, atol=0)
     w1 = torch.cat([w[0], w[1]])
     torch.testing.assert_close(dispatch.fused_ff(x, w1, b, w[2]),
                                reference.fused_ff(x, w1, b, w[2]),

@@ -7,8 +7,9 @@ with ``magicdrive_tpu_torch.convert`` and loaded strictly into the port's
 module. Both run in float32 on the CPU on inputs made with numpy; outputs
 agree to atol 2e-4 / rtol 2e-3, the repo's harness tolerance
 (tests/test_torch_parity.py). Shapes at or above the kernel threshold
-(Lq*Lk >= 90 000) take the port's K1/K2 routes, which on the CPU run the
-kernels' plain versions.
+(Lq*Lk >= 90 000) take the port's K1/K2 routes, or K8 and its pair under
+MAGICDRIVE_FUSED_MODE=auto, which on the CPU run the kernels' plain
+versions.
 """
 import dataclasses
 from collections.abc import Mapping
@@ -176,6 +177,57 @@ def test_transformer_block_with_cross_view(L):
     v = init_random(jm, 6, jnp.asarray(x), jnp.asarray(ctx))
     tm = load(T(C, H, D, Cc, NUSCENES_NEIGHBORS), v)
     with torch.no_grad():
+        got = tm(torch.from_numpy(x), torch.from_numpy(ctx))
+    close(got, jm.apply(v, jnp.asarray(x), jnp.asarray(ctx)))
+
+
+@pytest.mark.parametrize("Lk", [320, 300])
+def test_attention_auto(Lk):
+    """Under MAGICDRIVE_FUSED_MODE=auto: self- and cross-attention above the
+    kernel threshold take K8, out-projected in the kernel, bias added
+    outside."""
+    from magicdrive_tpu.core.attention import Attention as J
+
+    from magicdrive_tpu_torch.core.attention import Attention as T
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    rs = np.random.RandomState(7)
+    L, C, Ck, H, D = 320, 32, 24, 2, 16
+    x = rs.randn(3, L, C).astype(np.float32)
+    ctx = x if Lk == L else rs.randn(3, Lk, Ck).astype(np.float32)
+    cross = None if Lk == L else Ck
+    jm = J(C, H, D, cross_attention_dim=cross)
+    jargs = (jnp.asarray(x),) + (() if cross is None else (jnp.asarray(ctx),))
+    v = init_random(jm, 8, *jargs)
+    tm = load(T(C, H, D, cross_attention_dim=cross), v)
+    with dispatch.fused_mode("auto"), torch.no_grad():
+        assert dispatch.attention_route(L, Lk, C, D, 4) == "out"
+        got = tm(torch.from_numpy(x),
+                 None if cross is None else torch.from_numpy(ctx))
+    close(got, jm.apply(v, *jargs))
+
+
+def test_transformer_block_with_cross_view_auto():
+    """The block of test_transformer_block_with_cross_view at L=320 under
+    MAGICDRIVE_FUSED_MODE=auto: attn1 and the cross-view pair take K8 and
+    the K8 pair (bias counted twice), attn2 (L*7 logits) SDPA."""
+    from magicdrive_tpu.core.transformer import BasicTransformerBlock as J
+    from magicdrive_tpu.models.unet import NUSCENES_NEIGHBORS
+
+    from magicdrive_tpu_torch.core.transformer import (
+        BasicTransformerBlock as T)
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    rs = np.random.RandomState(9)
+    L, C, H, D, Cc = 320, 32, 2, 16, 24
+    x = rs.randn(12, L, C).astype(np.float32)
+    ctx = rs.randn(12, 7, Cc).astype(np.float32)
+    jm = J(C, H, D, cross_attention_dim=Cc,
+           neighboring_view_pair=NUSCENES_NEIGHBORS)
+    v = init_random(jm, 10, jnp.asarray(x), jnp.asarray(ctx))
+    tm = load(T(C, H, D, Cc, NUSCENES_NEIGHBORS), v)
+    with dispatch.fused_mode("auto"), torch.no_grad():
+        assert dispatch.pair_route(L, C, D, 4) == "out"
         got = tm(torch.from_numpy(x), torch.from_numpy(ctx))
     close(got, jm.apply(v, jnp.asarray(x), jnp.asarray(ctx)))
 

@@ -1,0 +1,194 @@
+"""The port's K7, K8 and K8 pair against the JAX Pallas kernels they replace,
+run in interpret mode as tests/test_kernels.py runs them: the plain versions
+against the forward entries, the autograd Functions against jax.vjp of the
+entries (whose backward is _fused_out_bwd / _pair_out_bwd: K7, the flash
+forward and backward, in interpret mode).
+
+fp32 throughout, atol 1e-4 / rtol 1e-3, as the K1-K6 tests. The JAX kernels
+take weights lane-padded to 128 per head (Wout padded in its rows); their
+per-head outputs and weight gradients are sliced back to the logical depth.
+The port's weights are in nn.Linear (out, in) layout, Wout (C_out, H*D).
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from magicdrive_tpu.kernels import fused_attention as jfa
+
+from magicdrive_tpu_torch.kernels import autograd, dispatch, reference
+from test_torch_port_kernels import (ATOL, DP, RTOL, _grads_of, _pad_rows,
+                                     _unpad, _weights)
+
+torch.set_num_threads(1)
+
+
+def _wout(rs, H, D, C_out):
+    """(H*D, C_out) weight -> (JAX row-padded (H*DP, C_out), port
+    (C_out, H*D))."""
+    w = (rs.randn(H, D, C_out) * (H * D) ** -0.5).astype(np.float32)
+    padded = np.pad(w, ((0, 0), (0, DP - D), (0, 0))).reshape(H * DP, C_out)
+    return jnp.asarray(padded), torch.from_numpy(
+        np.ascontiguousarray(w.reshape(H * D, C_out).T))
+
+
+def _unpad_wout(g, H, D):
+    """A JAX Wout gradient (H*DP, C_out) -> the port's layout (C_out, H*D)."""
+    g = np.asarray(g)
+    return g.reshape(H, DP, -1)[:, :D].reshape(H * D, -1).T
+
+
+def _inputs(rs, B, Lq, Lk, C, Ck, H, D):
+    xq = rs.randn(B, Lq, C).astype(np.float32)
+    xkv = xq if Lk == Lq and Ck == C else \
+        rs.randn(B, Lk, Ck).astype(np.float32)
+    return xq, xkv, [_weights(rs, c, H, D) for c in (C, Ck, Ck)]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D", [
+    (2, 48, 48, 32, 32, 2, 16),     # self-attention
+    (1, 64, 64, 48, 48, 2, 40),     # the level-0 head depth
+    (2, 40, 24, 32, 48, 3, 16),     # cross-attention onto wider context
+])
+def test_k7_plain_matches_pallas(B, Lq, Lk, C, Ck, H, D):
+    """K7's plain version is K1's: held to the recomputing Pallas kernel."""
+    rs = np.random.RandomState(20)
+    xq, xkv, w = _inputs(rs, B, Lq, Lk, C, Ck, H, D)
+    scale = D ** -0.5
+    want = jfa.fused_qkv_attention(jnp.asarray(xq), jnp.asarray(xkv),
+                                   *(j for j, _ in w), heads=H, scale=scale,
+                                   interpret=True)
+    got = reference.fused_qkv_attention(torch.from_numpy(xq),
+                                        torch.from_numpy(xkv),
+                                        *(t for _, t in w), H, scale)
+    np.testing.assert_allclose(got.numpy(), _unpad(want, B, Lq, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+# the last case has C_out != C, so a transposed Wout cannot pass
+_K8_CASES = [(2, 48, 48, 32, 32, 2, 16, 32), (1, 64, 64, 48, 48, 2, 40, 48),
+             (2, 40, 24, 32, 48, 3, 16, 24)]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D,C_out", _K8_CASES)
+def test_k8_plain_matches_pallas(B, Lq, Lk, C, Ck, H, D, C_out):
+    rs = np.random.RandomState(21)
+    xq, xkv, w = _inputs(rs, B, Lq, Lk, C, Ck, H, D)
+    jo, to = _wout(rs, H, D, C_out)
+    scale = D ** -0.5
+    want = jfa.fused_qkv_out_attention(jnp.asarray(xq), jnp.asarray(xkv),
+                                       *(j for j, _ in w), jo, heads=H,
+                                       scale=scale, interpret=True)
+    got = reference.fused_qkv_out_attention(torch.from_numpy(xq),
+                                            torch.from_numpy(xkv),
+                                            *(t for _, t in w), to, H, scale)
+    assert got.shape == (B, Lq, C_out)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+# (1, 2) is not symmetric: a branch that reads the wrong neighbour, or an
+# inverse roll with the wrong sign, shows there even where (5, 1) hides it
+_PAIR_CASES = [((5, 1, 6), 3, 16, 48), ((1, 2, 6), 2, 40, 24),
+               ((5, 1, 6), 2, 40, 48), ((1, 2, 6), 3, 16, 24)]
+
+
+@pytest.mark.parametrize("shifts,H,D,C_out", _PAIR_CASES)
+def test_k8_pair_plain_matches_pallas_ring_shifts(shifts, H, D, C_out):
+    rs = np.random.RandomState(22)
+    n, Bg, L, C = 6, 2, 36, 48
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    w = [_weights(rs, C, H, D) for _ in range(3)]
+    jo, to = _wout(rs, H, D, C_out)
+    scale = D ** -0.5
+    xj = jnp.asarray(x)
+    want = jfa.fused_qkv_out_attention_pair(
+        xj, xj, xj, *(j for j, _ in w), jo, heads=H, scale=scale,
+        interpret=True, shifts=shifts)
+    got = reference.fused_qkv_out_attention_pair(
+        torch.from_numpy(x), *(t for _, t in w), to, H, scale, shifts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D,C_out",
+                         [_K8_CASES[0], _K8_CASES[2]])
+def test_k8_autograd_matches_jax_vjp(B, Lq, Lk, C, Ck, H, D, C_out):
+    """Every gradient of the K8 Function, dWout included, against jax.vjp of
+    the Pallas entry."""
+    rs = np.random.RandomState(23)
+    xq = rs.randn(B, Lq, C).astype(np.float32)
+    xkv = rs.randn(B, Lk, Ck).astype(np.float32)
+    w = [_weights(rs, c, H, D) for c in (C, Ck, Ck)]
+    jo, to = _wout(rs, H, D, C_out)
+    dy = rs.randn(B, Lq, C_out).astype(np.float32)
+    scale = D ** -0.5
+    _, vjp = jax.vjp(lambda *a: jfa.fused_qkv_out_attention(
+        *a, heads=H, scale=scale, interpret=True), jnp.asarray(xq),
+        jnp.asarray(xkv), *(j for j, _ in w), jo)
+    want = vjp(jnp.asarray(dy))
+    got = _grads_of(lambda *a: autograd.fused_qkv_out_attention(*a, H, scale),
+                    (xq, xkv, *(t.numpy() for _, t in w), to.numpy()), dy)
+    for g, wt in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g, np.asarray(wt), atol=ATOL, rtol=RTOL)
+    for g, wt in zip(got[2:5], want[2:5]):
+        np.testing.assert_allclose(g, _pad_rows(wt, H, D), atol=ATOL,
+                                   rtol=RTOL)
+    np.testing.assert_allclose(got[5], _unpad_wout(want[5], H, D), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
+def test_k8_pair_autograd_matches_jax_vjp_ring_shifts(shifts):
+    """Every gradient of the K8 pair Function, dWout summed over both
+    branches, against jax.vjp of the JAX pair with in-grid ring shifts."""
+    rs = np.random.RandomState(24)
+    n, Bg, L, C, H, D, C_out = 6, 1, 36, 32, 2, 16, 24
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    w = [_weights(rs, C, H, D) for _ in range(3)]
+    jo, to = _wout(rs, H, D, C_out)
+    dy = rs.randn(Bg * n, L, C_out).astype(np.float32)
+    scale = D ** -0.5
+
+    def pair(x, wq, wk, wv, wo):
+        return jfa.fused_qkv_out_attention_pair(
+            x, x, x, wq, wk, wv, wo, heads=H, scale=scale, interpret=True,
+            shifts=shifts)
+
+    _, vjp = jax.vjp(pair, jnp.asarray(x), *(j for j, _ in w), jo)
+    want = vjp(jnp.asarray(dy))
+    got = _grads_of(lambda *a: autograd.fused_qkv_out_attention_pair(
+        *a, H, scale, shifts), (x, *(t.numpy() for _, t in w), to.numpy()),
+        dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    for g, wt in zip(got[1:4], want[1:4]):
+        np.testing.assert_allclose(g, _pad_rows(wt, H, D), atol=ATOL,
+                                   rtol=RTOL)
+    np.testing.assert_allclose(got[4], _unpad_wout(want[4], H, D), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_k7_runs_only_for_dwout(pair, monkeypatch):
+    """K7 recomputes o only when Wout needs its gradient (once per branch
+    of the pair); a frozen Wout costs no K7 call and gets no gradient."""
+    calls = []
+    k7 = dispatch.fused_qkv_attention
+    monkeypatch.setattr(dispatch, "fused_qkv_attention",
+                        lambda *a: calls.append(1) or k7(*a))
+    rs = np.random.RandomState(25)
+    x = torch.from_numpy(rs.randn(6, 20, 16).astype(np.float32))
+    w = [torch.from_numpy(rs.randn(16, 16).astype(np.float32))
+         for _ in range(4)]
+    fn = (lambda *a: autograd.fused_qkv_out_attention_pair(
+        *a, 2, 0.3, (5, 1, 6))) if pair else \
+        (lambda x, *ws: autograd.fused_qkv_out_attention(x, x, *ws, 2, 0.3))
+    xg = x.clone().requires_grad_()
+    fn(xg, *w).sum().backward()
+    assert calls == [] and xg.grad is not None
+    wo = w[3].clone().requires_grad_()
+    fn(x, *w[:3], wo).sum().backward()
+    assert len(calls) == (2 if pair else 1) and wo.grad is not None

@@ -50,33 +50,56 @@ def _batch(preset):
     return batch
 
 
-def test_tiny_pipeline_matches_jax(tiny_jax):
+@pytest.fixture(scope="module")
+def tiny_images(tiny_jax):
+    """The JAX pipeline's images on randomized weights from numpy latents,
+    with what the port needs to repeat the run."""
     from magicdrive_tpu.pipeline.pipeline import MagicDrivePipeline as JPipe
-
-    from magicdrive_tpu_torch.config import tiny_debug
-    from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
-    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
-                                                        MagicDrivePipeline)
 
     preset, modules, params = tiny_jax
     rs = np.random.RandomState(0)
     params = randomized(params, rs)
     batch = _batch(preset)
     lat = np.repeat(rs.randn(1, 1, 28, 50, 4).astype(np.float32), 6, axis=1)
-
     want = np.asarray(JPipe(modules, params, preset.pipeline)(
         {k: jnp.asarray(v) for k, v in batch.items()},
         latents=jnp.asarray(lat)))
+    return params, batch, lat, want
+
+
+def _port_images(params, batch, lat):
+    from magicdrive_tpu_torch.config import tiny_debug
+    from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
+    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
+                                                        MagicDrivePipeline)
 
     tp = tiny_debug()
     mods = MagicDriveModules.create(tp).load_state_dicts(
         jax_params_to_state_dicts(params)).to("cpu", torch.float32)
     pipe = MagicDrivePipeline(mods, dataclasses.replace(
         tp.pipeline, num_inference_steps=2))
-    got = pipe(batch, latents=torch.from_numpy(lat)).numpy()
+    return pipe(batch, latents=torch.from_numpy(lat)).numpy()
 
+
+def test_tiny_pipeline_matches_jax(tiny_images):
+    params, batch, lat, want = tiny_images
+    got = _port_images(params, batch, lat)
     assert got.shape == want.shape == (1, 6, 224, 400, 3)
     assert 0.1 < want.std()  # the weights give the images real structure
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def test_tiny_pipeline_matches_jax_auto(tiny_images):
+    """The same under MAGICDRIVE_FUSED_MODE=auto, where the port's 28x50 and
+    14x25 attentions take K8 and the K8 pair (their plain versions here)
+    instead of K1 and K2."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    params, batch, lat, want = tiny_images
+    with dispatch.fused_mode("auto"):
+        assert dispatch.attention_route(1400, 1400, 8, 4, 4) == "out"
+        assert dispatch.pair_route(350, 16, 8, 4) == "out"
+        got = _port_images(params, batch, lat)
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 

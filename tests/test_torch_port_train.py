@@ -214,18 +214,19 @@ def test_runner_checkpoint_and_resume(tmp_path):
     assert [s for s, _ in runner.checkpoints()] == [2, 3]
 
 
-def test_training_calls_match_derived_counts():
-    """The kernel calls of one tiny_debug train step on the CPU equal the
-    launch counts chip_smoke.py derives from the block structure for one
-    step (K6 is one call here for its two launches): every K1 but the
-    UNet's first attn1 runs a backward, and every K2 runs two."""
+def _step_calls(mode):
+    """The kernel calls of one tiny_debug train step under the fused
+    ``mode``, counted at every wrapper the model can reach (K6 is one call
+    here for its two launches), against chip_smoke.py's derivation."""
     import chip_smoke
     from magicdrive_tpu_torch.config import tiny_debug
     from magicdrive_tpu_torch.kernels import dispatch
     from magicdrive_tpu_torch.train import train_step
 
     modules, cfg, state, batch = _tiny_setup()
-    calls = dict.fromkeys(chip_smoke.TRAINING_CALLS, 0)
+    names = set(chip_smoke.training_calls("kvstat")) | \
+        set(chip_smoke.training_calls("auto"))
+    calls = dict.fromkeys(names, 0)
     saved = {n: getattr(dispatch, n) for n in calls}
 
     def counted(name):
@@ -237,14 +238,37 @@ def test_training_calls_match_derived_counts():
     try:
         for n in calls:
             setattr(dispatch, n, counted(n))
-        train_step(modules, state, batch, cfg,
-                   generator=torch.Generator().manual_seed(0))
+        with dispatch.fused_mode(mode):
+            train_step(modules, state, batch, cfg,
+                       generator=torch.Generator().manual_seed(0))
     finally:
         for n, fn in saved.items():
             setattr(dispatch, n, fn)
-    want = chip_smoke.expected_training_launches(tiny_debug(), 1)
-    got = {**calls, "flash_attention_bwd_dq": calls["flash_attention_bwd"],
-           "flash_attention_bwd_dkv": calls["flash_attention_bwd"]}
-    del got["flash_attention_bwd"]
+    bwd = calls.pop("flash_attention_bwd")
+    got = {**dict.fromkeys(dispatch.LAUNCHES, 0), **calls,
+           "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
+    # fp32 on the CPU: the routing rules see 4-byte elements
+    return got, chip_smoke.expected_launches(tiny_debug(), mode, steps=1,
+                                             esize=4)
+
+
+def test_training_calls_match_derived_counts():
+    """Under "kvstat": every K1 but the UNet's first attn1 runs a backward,
+    and every K2 runs two."""
+    got, want = _step_calls("kvstat")
     assert got == want
     assert want["flash_attention_fwd"] == 40
+    assert want["fused_qkv_out_attention"] == want["fused_qkv_attention"] == 0
+
+
+def test_training_calls_match_derived_counts_auto():
+    """Under "auto" the tiny preset routes every kernel attention to K8 or
+    its pair; K7 recomputes o for dWout in the backward of the ControlNet's
+    K8 calls and of each pair branch, and K1/K2 never run."""
+    got, want = _step_calls("auto")
+    assert got == want
+    assert want["flash_attention_fwd"] == 40
+    assert want["kvstat_attention"] == want["kvstat_attention_pair"] == 0
+    assert want["fused_qkv_out_attention"] == 21
+    assert want["fused_qkv_out_attention_pair"] == 10
+    assert want["fused_qkv_attention"] == 26

@@ -20,7 +20,9 @@ At half scale the worst tensor agrees to 3e-5 of its max.
 
 At this size the UNet's 28x50 and 14x25 levels (Lq*Lk >= 90 000) take the
 port's K1/K2 routes, so their backward runs the plain K5/K6; the JAX package
-computes the same gradients by XLA autodiff of its plain attention.
+computes the same gradients by XLA autodiff of its plain attention. The
+``_auto`` tests repeat the port's step under MAGICDRIVE_FUSED_MODE=auto
+(K8, the K8 pair and K7's recompute for dWout) against the same JAX step.
 
 One JAX tree (``jax.eval_shape`` of ``init_params``, then numpy values)
 and one jit keep the file near two minutes.
@@ -137,9 +139,11 @@ def _as_port(flat):
     return out
 
 
-@pytest.fixture(scope="module")
-def port_step(jax_step):
+def _port_step(jax_step, mode):
+    """The port's step on the JAX step's weights, batch and draws, under
+    the fused ``mode``."""
     from magicdrive_tpu_torch.config import tiny_debug
+    from magicdrive_tpu_torch.kernels import dispatch
     from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
     from magicdrive_tpu_torch.train import state as tstate
@@ -163,18 +167,31 @@ def port_step(jax_step):
         timesteps=torch.tensor(d["timesteps"], dtype=torch.long),
         drop_mask=torch.tensor(d["drop_mask"]))
     schedule = NoiseSchedule.create()
-    loss, grads = loss_and_grads(modules, state,
-                                 batch_tensors(j["batch"], "cpu"), draws,
-                                 cfg, schedule)
-    metrics = train_step(modules, state, j["batch"], cfg, draws=draws,
-                         schedule=schedule)
+    with dispatch.fused_mode(mode):
+        loss, grads = loss_and_grads(modules, state,
+                                     batch_tensors(j["batch"], "cpu"), draws,
+                                     cfg, schedule)
+        metrics = train_step(modules, state, j["batch"], cfg, draws=draws,
+                             schedule=schedule)
     return dict(loss=float(loss), step_loss=float(metrics["loss"]),
                 grads={k: g.numpy() for k, g in grads.items()},
                 updated={k: t.numpy() for k, t in state.masters.items()},
                 step=state.step)
 
 
-def test_tiny_train_step_loss_matches_jax(jax_step, port_step):
+@pytest.fixture(scope="module")
+def port_step(jax_step):
+    return _port_step(jax_step, "kvstat")
+
+
+@pytest.fixture(scope="module")
+def port_step_auto(jax_step):
+    """Under MAGICDRIVE_FUSED_MODE=auto the 28x50 and 14x25 attentions take
+    K8 and the K8 pair, whose backward recomputes o with K7 for dWout."""
+    return _port_step(jax_step, "auto")
+
+
+def _check_loss(jax_step, port_step):
     assert np.isfinite(jax_step["loss"]) and jax_step["loss"] > 0.1
     np.testing.assert_allclose(port_step["loss"], jax_step["loss"],
                                rtol=RTOL)
@@ -182,7 +199,15 @@ def test_tiny_train_step_loss_matches_jax(jax_step, port_step):
     assert jax_step["draws"]["drop_mask"].sum() == 3
 
 
-def test_tiny_train_step_grads_match_jax(jax_step, port_step):
+def test_tiny_train_step_loss_matches_jax(jax_step, port_step):
+    _check_loss(jax_step, port_step)
+
+
+def test_tiny_train_step_loss_matches_jax_auto(jax_step, port_step_auto):
+    _check_loss(jax_step, port_step_auto)
+
+
+def _check_grads(jax_step, port_step):
     want = _as_port(jax_step["grads"])
     got = port_step["grads"]
     assert set(got) == set(want)
@@ -195,7 +220,15 @@ def test_tiny_train_step_grads_match_jax(jax_step, port_step):
     assert live >= len(want) - 2, (live, len(want))
 
 
-def test_tiny_train_step_update_matches_jax(jax_step, port_step):
+def test_tiny_train_step_grads_match_jax(jax_step, port_step):
+    _check_grads(jax_step, port_step)
+
+
+def test_tiny_train_step_grads_match_jax_auto(jax_step, port_step_auto):
+    _check_grads(jax_step, port_step_auto)
+
+
+def _check_update(jax_step, port_step):
     want = _as_port(jax_step["updated"])
     before = _as_port(_flat_trainable(jax_step["params"]))
     grads = _as_port(jax_step["grads"])
@@ -214,6 +247,14 @@ def test_tiny_train_step_update_matches_jax(jax_step, port_step):
     # the port moves nearly every tensor, and the settled elements are most
     assert moved > 0.9 * len(want), (moved, len(want))
     assert settled > 0.5 * size, (settled, size)
+
+
+def test_tiny_train_step_update_matches_jax(jax_step, port_step):
+    _check_update(jax_step, port_step)
+
+
+def test_tiny_train_step_update_matches_jax_auto(jax_step, port_step_auto):
+    _check_update(jax_step, port_step_auto)
 
 
 def _flat_trainable(params):
