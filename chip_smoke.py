@@ -10,15 +10,19 @@ no result line):
      compiled from this checkout;
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
-     12 views), and K5, both launches of K6 and K7 at the shapes the
-     training path gives them (6 views of 8 heads), against their plain
-     versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 * max|ref|,
-     with CUDA-event times of the kernel, of the plain version on the same
-     inputs and, where one PyTorch call computes the same function (the
-     flash SDPA forward for K5, its backward for K6), of that call, beside
-     the kernel's bound (the larger of its operations at the bf16 tensor
-     peak and its bytes at the memory rate); then the autograd of K1-K4, K8
-     and the K8 pair at the training shapes: every input and weight
+     12 views), and K5, both launches of K6, the whole K6 and K7 at the
+     shapes the training path gives them (6 views of 8 heads), K5 and K6
+     also at one ragged shape (keys masked past kv_len < Lk), against their
+     plain versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 *
+     max|ref|, with CUDA-event times of the kernel, of the plain version on
+     the same inputs and, where one PyTorch call computes the same function
+     (the flash SDPA forward for K5, its backward for the whole K6), of that
+     call, beside the kernel's bound (the larger of its operations at the
+     bf16 tensor peak and its bytes at the memory rate); two whole K6 calls
+     on the same inputs must be bitwise equal; K5 and the whole K6 also at
+     one head depth for each of their template instances (FLASH_DEPTHS), at
+     a small ragged shape, against the plain versions; then the autograd of
+     K1-K4, K8 and the K8 pair at the training shapes: every input and weight
      gradient through the kernel route against the plain backward in fp32,
      within 1e-2 * max|ref| or the plain bf16 backward's own error, which
      is printed beside it (GRAD_TOL);
@@ -49,16 +53,23 @@ no result line):
      call, forward and backward, is held against its plain version in fp32
      on the inputs the path gave it (the tolerance of phase 3). The
      ControlNet gradient, kernels against plain versions, is printed as a
-     smoke test.
+     smoke test;
+  8. profile_train_step, per mode: after one more step to warm up, one
+     training step under torch.profiler prints its host-clock time, the
+     device-busy share (the kernels' summed device time over it), the 8
+     kernels that take the most and the device time of K5 and of K6 in the
+     step.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
 four path runs of phases 4 and 6 and "launches_by_path" gives each. The
-last line is {"ok": true, "device": {...}}.
+whole K6's rows (time, bound, library time) are logged on a line of their
+own before it. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -116,7 +127,7 @@ def build_kernels() -> None:
     path, compiler_log = build.build()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in compiler_log.splitlines():  # ptxas: registers, spills
-        if line.startswith("ptxas info"):
+        if line.startswith("ptxas info") or "bytes spill" in line:
             log("  " + line.strip())
     build.load()
 
@@ -134,9 +145,11 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # kernel -> (source, TPU kernel replaced); K6's two launches and K8's single
-# and pair forms are separate entries
+# and pair forms are separate entries. The whole K6 (both launches) is timed
+# beside them but is not a kernel of its own, so it stays out of this table
 _FA = "magicdrive_tpu/kernels/flash_attention.py"
 _FU = "magicdrive_tpu/kernels/fused_attention.py"
+_FA_CU = "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu"
 _OUT_CU = "magicdrive_tpu_torch/kernels/csrc/fused_out_attention.cu"
 KERNELS = {
     "kvstat_attention": (
@@ -148,12 +161,9 @@ KERNELS = {
                  "magicdrive_tpu/kernels/geglu.py:221"),
     "fused_geglu": ("magicdrive_tpu_torch/kernels/csrc/geglu.cu",
                     "magicdrive_tpu/kernels/geglu.py:70"),
-    "flash_attention_fwd": (
-        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:75"),
-    "flash_attention_bwd_dq": (
-        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:222"),
-    "flash_attention_bwd_dkv": (
-        "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu", f"{_FA}:252"),
+    "flash_attention_fwd": (_FA_CU, f"{_FA}:75"),
+    "flash_attention_bwd_dq": (_FA_CU, f"{_FA}:222"),
+    "flash_attention_bwd_dkv": (_FA_CU, f"{_FA}:252"),
     "fused_qkv_attention": (_OUT_CU, f"{_FU}:77"),
     "fused_qkv_out_attention": (_OUT_CU, f"{_FU}:83"),
     "fused_qkv_out_attention_pair": (_OUT_CU, f"{_FU}:104"),
@@ -264,7 +274,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 _FLASH_FLOPS_PER_LQ_LK_D = {"flash_attention_fwd": 4,  # q k^T, p v
                             "flash_attention_bwd_dq": 6,  # s, dp, dq
-                            "flash_attention_bwd_dkv": 8}  # s, dp, dv, dk
+                            "flash_attention_bwd_dkv": 8,  # s, dp, dv, dk
+                            # s, dp, dv, dk and dq once each: the two
+                            # launches' recompute of s and dp is a choice
+                            "flash_attention_bwd": 10}
 
 
 def _flops(name, args) -> int:
@@ -278,9 +291,10 @@ def _flops(name, args) -> int:
             f += 2 * M * (w1.shape[0] // 2) * args[3].shape[0]
         return f
     if name.startswith("flash"):
-        q, k = args[0], args[1]
+        # the wrappers' last argument is kv_len: keys past it need no work
+        q, kv_len = args[0], args[-1]
         BH, Lq, D = q.shape
-        return _FLASH_FLOPS_PER_LQ_LK_D[name] * BH * Lq * k.shape[1] * D
+        return _FLASH_FLOPS_PER_LQ_LK_D[name] * BH * Lq * kv_len * D
     pair = name.endswith("_pair")
     x_q, x_kv = args[0], args[0] if pair else args[1]
     wq = args[1] if pair else args[2]
@@ -296,8 +310,13 @@ def _flops(name, args) -> int:
     return f
 
 
-def _bytes(args, out) -> int:
-    """Each distinct input tensor read once, each output written once."""
+def _bytes(name, args, out) -> int:
+    """Each distinct input tensor read once, each output written once; the
+    flash kernels read the rows of k and v below kv_len (their last
+    argument) and no others."""
+    if name.startswith("flash"):
+        kv_len = args[-1]
+        args = (args[0], args[1][:, :kv_len], args[2][:, :kv_len], *args[3:])
     seen = {}
     for t in (*args, *_outputs(out)):
         if torch.is_tensor(t):
@@ -309,7 +328,7 @@ def bound(name, args, out):
     """(bound_ms, bound_by): the least time the card could take for the
     same work, from this call's shapes."""
     by_ops = _flops(name, args) / PEAK_BF16_FLOPS * 1e3
-    by_bytes = _bytes(args, out) / PEAK_BYTES_PER_S * 1e3
+    by_bytes = _bytes(name, args, out) / PEAK_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")
 
@@ -355,10 +374,12 @@ def check_kernels():
     return rows
 
 
-# (Lq, Lk, D) of the flash kernels on the training path: the backward of
-# K1/K8 at attn1 on levels 0 and 1 and at attn2 on level 0, and of each
-# K2/K8-pair branch; 6 views of 8 heads
-FLASH_SHAPES = ((1400, 1400, 40), (350, 350, 80), (1400, 238, 40))
+# (Lq, Lk, D, kv_len) of the flash kernels on the training path: the
+# backward of K1/K8 at attn1 on levels 0 and 1 and at attn2 on level 0, and
+# of each K2/K8-pair branch; 6 views of 8 heads. The last shape is not on
+# the path: keys masked past kv_len < Lk, which the wrappers take.
+FLASH_SHAPES = ((1400, 1400, 40, 1400), (350, 350, 80, 350),
+                (1400, 238, 40, 238), (1400, 256, 40, 238))
 FLASH_BH = 48
 
 
@@ -383,42 +404,86 @@ def _sdpa_calls(q, k, v, do):
 
 
 def check_flash_kernels():
-    """K5 and the two launches of K6 at the path shapes against their plain
-    versions in fp32 on the same inputs; K6 takes K5's o and lse. The plain
-    and library times of each K6 entry are those of the whole backward."""
+    """K5, the two launches of K6 and the whole K6 against their plain
+    versions in fp32 on the same inputs at FLASH_SHAPES; K6 takes K5's o and
+    lse, its second launch the first launch's delta. The library times are
+    the flash SDPA forward (K5) and backward (the whole K6) on the keys
+    below kv_len; no single call computes one launch of K6. Two whole K6
+    calls on the same inputs must be bitwise equal."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(1))
     rows = {}
-    for Lq, Lk, D in FLASH_SHAPES:
-        label = f"BH={FLASH_BH} Lq={Lq} Lk={Lk} D={D}"
+    for Lq, Lk, D, kv_len in FLASH_SHAPES:
+        label = f"BH={FLASH_BH} Lq={Lq} Lk={Lk} D={D}" + \
+            (f" kv_len={kv_len}" if kv_len < Lk else "")
         q = rnd(FLASH_BH, Lq, D, scale=D ** -0.5)
         k, v = rnd(FLASH_BH, Lk, D), rnd(FLASH_BH, Lk, D)
         do = rnd(FLASH_BH, Lq, D)
-        o, lse = dispatch.flash_attention_fwd(q, k, v)
-        bwd_args = (q, k, v, o, lse, do)
+        fwd_args = (q, k, v, kv_len)
+        o, lse = dispatch.flash_attention_fwd(*fwd_args)
+        bwd_args = (q, k, v, o, lse, do, kv_len)
         plain_bwd = reference.flash_attention_bwd(*map(_f32, bwd_args))
-        lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do)
+        _, delta = dispatch.flash_attention_bwd_dq(*bwd_args)
+        lib_fwd, lib_bwd = _sdpa_calls(q, k[:, :kv_len].contiguous(),
+                                       v[:, :kv_len].contiguous(), do)
         runs = {
             "flash_attention_fwd": (
-                (q, k, v), lambda: dispatch.flash_attention_fwd(q, k, v),
-                reference.flash_attention_fwd(*map(_f32, (q, k, v))),
-                lambda: reference.flash_attention_fwd(q, k, v), lib_fwd),
+                fwd_args, reference.flash_attention_fwd(*map(_f32, fwd_args)),
+                lib_fwd),
             "flash_attention_bwd_dq": (
-                bwd_args, lambda: dispatch.flash_attention_bwd_dq(*bwd_args),
-                plain_bwd[0],
-                lambda: reference.flash_attention_bwd(*bwd_args), lib_bwd),
+                bwd_args, (plain_bwd[0], reference.flash_delta(o.float(),
+                                                               do.float())),
+                None),
             "flash_attention_bwd_dkv": (
-                bwd_args, lambda: dispatch.flash_attention_bwd_dkv(*bwd_args),
-                plain_bwd[1:],
-                lambda: reference.flash_attention_bwd(*bwd_args), lib_bwd),
+                (q, k, v, lse, delta, do, kv_len), plain_bwd[1:], None),
+            "flash_attention_bwd": (bwd_args, plain_bwd, lib_bwd),
         }
-        for name, (args, kern, ref, plain, lib) in runs.items():
+        for name, (args, ref, lib) in runs.items():
+            kern = functools.partial(getattr(dispatch, name), *args)
+            plain = functools.partial(getattr(reference, name), *args)
             got = kern()
             err, scale = _worst(got, ref)
             row = _row(rows, name, label, args, got, err, kern, plain, lib)
             _gate(name, label, err, scale, KERNEL_TOL, row)
+        again = dispatch.flash_attention_bwd(*bwd_args)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(dispatch.flash_attention_bwd(*bwd_args), again))
+        log(f"  flash_attention_bwd {label}: two calls bitwise "
+            f"{'equal ok' if same else 'DIFFERENT FAIL'}")
+        if not same:
+            raise AssertionError(f"K6 {label}: two calls on the same inputs "
+                                 "differ")
     return rows
+
+
+# one head depth for each instance of the flash kernels (the depth padded to
+# a multiple of 16: 16, 32, ..., 128), four of them padded; the path takes
+# 40 and 80 only, and DP 96-128 run the dk/dv kernel's second branch (K and
+# V fragments reloaded from shared memory)
+FLASH_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
+
+
+def check_flash_depths() -> None:
+    """K5 and the whole K6 at every depth of FLASH_DEPTHS, at a small shape
+    with ragged q and key tails, against their plain versions in fp32."""
+    from magicdrive_tpu_torch.kernels import dispatch, reference
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(3))
+    BH, Lq, Lk, kv_len = 4, 200, 192, 150
+    for D in FLASH_DEPTHS:
+        label = f"BH={BH} Lq={Lq} Lk={Lk} D={D} kv_len={kv_len}"
+        q = rnd(BH, Lq, D, scale=D ** -0.5)
+        k, v, do = rnd(BH, Lk, D), rnd(BH, Lk, D), rnd(BH, Lq, D)
+        fwd_args = (q, k, v, kv_len)
+        o, lse = dispatch.flash_attention_fwd(*fwd_args)
+        err, scale = _worst((o, lse), reference.flash_attention_fwd(
+            *map(_f32, fwd_args)))
+        _gate("flash_attention_fwd", label, err, scale, KERNEL_TOL)
+        bwd_args = (q, k, v, o, lse, do, kv_len)
+        err, scale = _worst(dispatch.flash_attention_bwd(*bwd_args),
+                            reference.flash_attention_bwd(*map(_f32, bwd_args)))
+        _gate("flash_attention_bwd", label, err, scale, KERNEL_TOL)
 
 
 def autograd_cases(gen: torch.Generator):
@@ -561,11 +626,11 @@ def patched_kernels(make, names):
 
 
 def _new_modules(preset):
-    """The preset's modules on the card in fp32 with seeded weights."""
+    """The preset's modules on the card (the entry point's default) in fp32
+    with seeded weights."""
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
 
-    with torch.device("cuda"):
-        modules = MagicDriveModules.create(preset)
+    modules = MagicDriveModules.create(preset)
     init_weights(modules, seed=0)
     return modules
 
@@ -758,24 +823,59 @@ def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
     """One guided step under torch.profiler: its host-clock time, the sum of
     its kernels' device times (one stream, so the sum is the busy time) and
     the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
-
     x, t, cond = _step_inputs(pipe, batch)
-    pipe.guided_eps(x, t, cond)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.guided_eps(x, t, cond)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0
-                   and not e.key.startswith("aten::")), reverse=True)
+    wall, rows = _profiled(lambda: pipe.guided_eps(x, t, cond))
     busy = sum(r[0] for r in rows)
     log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
         f"{100 * (1 - busy / wall):.1f} %); top kernels: " +
+        "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
+
+
+def _profiled(fn):
+    """(host-clock ms, kernel rows) of one call of ``fn`` after a warm-up
+    call, under torch.profiler; the rows are (self device ms, count, name)
+    of every kernel, largest first, the ``aten::`` operator rows (which
+    repeat their kernels' time) left out. One stream, so the sum of the
+    rows is the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                         for e in prof.key_averages()
+                         if e.self_device_time_total > 0
+                         and not e.key.startswith("aten::")), reverse=True)
+
+
+def profile_train_step(setup, mode, top: int = 8) -> None:
+    """One warm training step under torch.profiler: its host-clock time,
+    the device-busy share, the kernels that take the most, and the device
+    time of K5 and K6 (the port's flash kernels, named mdk::flash_*)."""
+    from magicdrive_tpu_torch.train import train_step
+
+    modules, cfg, state, batch = setup
+    draws = _fixed_draws(cfg, batch, 11)
+    wall, rows = _profiled(
+        lambda: train_step(modules, state, batch, cfg, draws=draws))
+    busy = sum(r[0] for r in rows)
+
+    def device_ms(*parts):
+        return sum(ms for ms, _, k in rows if "mdk::" in k
+                   and any(p in k for p in parts))
+
+    k5, k6 = device_ms("flash_fwd_kernel"), device_ms("flash_bwd_dq_kernel",
+                                                      "flash_bwd_dkv_kernel")
+    log(f"training step ({mode}) under the profiler: {wall:.1f} ms host "
+        f"clock, kernels {busy:.1f} ms (device busy "
+        f"{100 * busy / wall:.1f} %); K5 {k5:.2f} ms, K6 {k6:.2f} ms, K5+K6 "
+        f"{k5 + k6:.2f} ms ({100 * (k5 + k6) / busy:.1f} % of kernel time); "
+        "top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
 
@@ -817,8 +917,7 @@ def train_set_up(batch_size: int):
     t0 = time.perf_counter()
     modules = _new_modules(preset)
     cfg = TrainConfig(lr_warmup_steps=1)
-    state = create_train_state(modules, cfg, device="cuda",
-                               dtype=torch.bfloat16)
+    state = create_train_state(modules, cfg, dtype=torch.bfloat16)
     batch = collate_fn([make_sample(i, with_images=True)
                         for i in range(batch_size)],
                        CollateConfig(bbox_max_len=preset.bbox_max_len))
@@ -855,7 +954,9 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
     dispatch.reset_launches()
     seconds = []
     with tempfile.TemporaryDirectory() as run_dir:
-        runner = Runner(modules, cfg, run_dir, checkpointing_steps=None)
+        # every step logged, so each loss is checked whatever ``steps`` is
+        runner = Runner(modules, cfg, run_dir, checkpointing_steps=None,
+                        log_every=1)
         for i in range(steps):
             t0 = time.perf_counter()
             runner.run(state, [batch], resume=False)
@@ -954,6 +1055,7 @@ def main() -> None:
     log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
     rows = check_kernels()
     rows.update(check_flash_kernels())
+    check_flash_depths()
     log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
         f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
     check_autograd()
@@ -975,9 +1077,12 @@ def main() -> None:
             if mode == "kvstat":
                 check_drop_all(setup)
             check_training_calls(setup, mode)
+            profile_train_step(setup, mode)
         del setup
         torch.cuda.empty_cache()
     log(f"path times (the first of each includes one-time setup): {timing}")
+    log("whole K6 (its two launches, counted under their own names): " +
+        json.dumps(rows["flash_attention_bwd"]))
     kernels = []
     for n, (src, rep) in KERNELS.items():
         worst = max(rows[n], key=lambda r: r["max_abs_err"])

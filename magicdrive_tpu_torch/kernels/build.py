@@ -38,7 +38,7 @@ _SIGNATURES = {
     "mdk_geglu": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "mdk_ff": (_I, [_P] * 5 + [_I] * 4 + [_P]),
     "mdk_flash_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P]),
-    "mdk_flash_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "mdk_flash_bwd_dq": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "mdk_flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "mdk_fused_qkv_attention": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
     "mdk_fused_qkv_out_attention": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),

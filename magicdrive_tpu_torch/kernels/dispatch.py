@@ -410,9 +410,21 @@ def _flash_shapes(name, q, k, kv_len):
     BH, Lq, D = q.shape
     Lk = k.shape[1]
     kv_len = Lk if kv_len is None else kv_len
-    if k.shape != (BH, Lk, D) or not 0 < kv_len <= Lk or D > 128:
+    if k.shape != (BH, Lk, D) or not 0 < kv_len <= Lk:
         raise ValueError(f"{name}: shapes do not agree")
+    if D > 128 or D % 8:
+        # the kernels copy rows as whole 16-byte vectors
+        raise ValueError(f"{name}: the kernel takes a head depth that is a "
+                         f"multiple of 8 up to 128, got {D}")
     return BH, Lq, Lk, D, kv_len
+
+
+def _fp32_rows(name, t, BH, Lq, device):
+    if t.shape != (BH, Lq) or t.dtype != torch.float32 or \
+            t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: a row statistic takes a contiguous fp32 "
+                         f"({BH}, {Lq}) tensor, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -438,39 +450,56 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _flash_bwd_args(name, q, k, v, o, lse, do, kv_len):
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor,
+                           kv_len: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6, first launch: dq (BH, Lq, D) and the fp32 row term
+    delta = rowsum(do * o) (BH, Lq), which the second launch reads."""
+    if _on_cpu(q):
+        return reference.flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len)
+    from . import build
+
+    name = "flash_attention_bwd_dq"
     _check(name, q, k, v, o, do)
     BH, Lq, Lk, D, kv_len = _flash_shapes(name, q, k, kv_len)
-    if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape or \
-            lse.shape != (BH, Lq) or lse.dtype != torch.float32 or \
-            lse.device != q.device or not lse.is_contiguous():
+    if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{name}: shapes do not agree")
-    return (_ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(do)), \
-        (BH, Lq, Lk, D, kv_len, _stream())
-
-
-def flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len=None) -> torch.Tensor:
-    """K6, first launch: dq (BH, Lq, D). CUDA tensors only."""
-    from . import build
-
-    ptrs, dims = _flash_bwd_args("flash_attention_bwd_dq", q, k, v, o, lse,
-                                 do, kv_len)
+    _fp32_rows(name, lse, BH, Lq, q.device)
     dq = torch.empty_like(q)
-    _run(build.load().mdk_flash_bwd_dq, *ptrs, _ptr(dq), *dims)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
+    delta = torch.empty(BH, Lq, dtype=torch.float32, device=q.device)
+    _run(build.load().mdk_flash_bwd_dq, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+         _ptr(lse), _ptr(do), _ptr(dq), _ptr(delta), BH, Lq, Lk, D, kv_len,
+         _stream())
+    LAUNCHES[name] += 1
+    return dq, delta
 
 
-def flash_attention_bwd_dkv(q, k, v, o, lse, do, kv_len=None
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lse: torch.Tensor,
+                            delta: torch.Tensor, do: torch.Tensor,
+                            kv_len: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6, second launch: dk and dv (BH, Lk, D). CUDA tensors only."""
+    """K6, second launch: dk and dv (BH, Lk, D) from the first launch's
+    delta."""
+    if _on_cpu(q):
+        return reference.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                 kv_len)
     from . import build
 
-    ptrs, dims = _flash_bwd_args("flash_attention_bwd_dkv", q, k, v, o, lse,
-                                 do, kv_len)
+    name = "flash_attention_bwd_dkv"
+    _check(name, q, k, v, do)
+    BH, Lq, Lk, D, kv_len = _flash_shapes(name, q, k, kv_len)
+    if v.shape != k.shape or do.shape != q.shape:
+        raise ValueError(f"{name}: shapes do not agree")
+    _fp32_rows(name, lse, BH, Lq, q.device)
+    _fp32_rows(name, delta, BH, Lq, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _run(build.load().mdk_flash_bwd_dkv, *ptrs, _ptr(dk), _ptr(dv), *dims)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    _run(build.load().mdk_flash_bwd_dkv, _ptr(q), _ptr(k), _ptr(v),
+         _ptr(lse), _ptr(delta), _ptr(do), _ptr(dk), _ptr(dv), BH, Lq, Lk, D,
+         kv_len, _stream())
+    LAUNCHES[name] += 1
     return dk, dv
 
 
@@ -479,8 +508,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6: the gradients of K5 given do, from its o and lse, as two
-    launches (dq; dk and dv) -> dq (BH, Lq, D), dk and dv (BH, Lk, D)."""
+    launches (dq and delta; dk and dv) -> dq (BH, Lq, D), dk and dv
+    (BH, Lk, D)."""
     if _on_cpu(q):
         return reference.flash_attention_bwd(q, k, v, o, lse, do, kv_len)
-    dq = flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, o, lse, do, kv_len))
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, kv_len)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, lse, delta, do, kv_len))

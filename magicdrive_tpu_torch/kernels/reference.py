@@ -163,3 +163,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = ds16.transpose(-1, -2) @ q.float()
     dv = p.to(dt).float().transpose(-1, -2) @ do.float()
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """K6's row term delta = rowsum(do * o) in fp32: (BH, Lq)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, lse: torch.Tensor,
+                           do: torch.Tensor, kv_len: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's first launch: dq (BH, Lq, D) and delta (BH, Lq) fp32."""
+    return (flash_attention_bwd(q, k, v, o, lse, do, kv_len)[0],
+            flash_delta(o, do))
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lse: torch.Tensor,
+                            delta: torch.Tensor, do: torch.Tensor,
+                            kv_len: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's second launch: dk and dv (BH, Lk, D) from lse and delta, with
+    ``flash_attention_bwd``'s cast points."""
+    dt = q.dtype
+    p = torch.exp(_masked_logits(q, k, kv_len) - lse[..., None])
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    dk = ds.to(dt).float().transpose(-1, -2) @ q.float()
+    dv = p.to(dt).float().transpose(-1, -2) @ do.float()
+    return dk.to(dt), dv.to(dt)

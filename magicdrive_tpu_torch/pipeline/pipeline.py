@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from magicdrive_tpu_torch.config import ModelPreset, PipelineConfig
+from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from magicdrive_tpu_torch.diffusion import NoiseSchedule, make_unipc_coeffs
 from magicdrive_tpu_torch.models.clip_text import CLIPTextModel
 from magicdrive_tpu_torch.models.controlnet import BEVControlNet
@@ -33,12 +34,15 @@ class MagicDriveModules:
     clip: CLIPTextModel
 
     @classmethod
-    def create(cls, preset: ModelPreset) -> "MagicDriveModules":
-        """Modules of a preset with PyTorch's default initialisation."""
-        return cls(unet=UNet2DConditionModel(preset.unet),
-                   controlnet=BEVControlNet(preset.controlnet),
-                   vae=AutoencoderKL(preset.vae),
-                   clip=CLIPTextModel(preset.clip))
+    def create(cls, preset: ModelPreset, device=DEFAULT_DEVICE
+               ) -> "MagicDriveModules":
+        """Modules of a preset with PyTorch's default initialisation, built
+        on ``device``: the card unless the caller asks for the CPU."""
+        with torch.device(resolve_device(device)):
+            return cls(unet=UNet2DConditionModel(preset.unet),
+                       controlnet=BEVControlNet(preset.controlnet),
+                       vae=AutoencoderKL(preset.vae),
+                       clip=CLIPTextModel(preset.clip))
 
     def items(self):
         return ((f.name, getattr(self, f.name))

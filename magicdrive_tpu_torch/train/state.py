@@ -24,6 +24,8 @@ from typing import Dict, Mapping
 
 import torch
 
+from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+
 UNET_TRAINABLE_SUBMODULES = ("norm4", "attn4", "connector",
                              "norm_temp", "attn_temp", "connector_temp")
 
@@ -152,11 +154,13 @@ class TrainState:
         self.opt.load_state_dict(sd["opt"])
 
 
-def create_train_state(modules, cfg: TrainConfig, device=None,
+def create_train_state(modules, cfg: TrainConfig, device=DEFAULT_DEVICE,
                        dtype: torch.dtype = torch.bfloat16) -> TrainState:
     """fp32 masters from the modules' current trainable weights, then the
-    modules moved to ``device`` and ``dtype`` (frozen weights included) with
-    only the trainable partition requiring gradients."""
+    modules moved to ``device`` (the card unless the caller asks for the
+    CPU) and ``dtype`` (frozen weights included) with only the trainable
+    partition requiring gradients."""
+    device = resolve_device(device)
     masters = {k: p.detach().to(device, torch.float32).clone()
                for k, p in trainable_parameters(modules).items()}
     modules.to(device, dtype)  # also freezes every parameter

@@ -386,6 +386,66 @@ def test_k6_plain_matches_pallas(BH, Lq, Lk, D, kv_len, bq, bk, monkeypatch):
                                    rtol=RTOL, err_msg=name)
 
 
+@pytest.mark.parametrize("BH,Lq,Lk,D,kv_len,bq,bk", _FLASH_CASES)
+def test_k6_launches_match_pallas(BH, Lq, Lk, D, kv_len, bq, bk,
+                                  monkeypatch):
+    """K6 as its wrappers split it, through the plain path: the first
+    launch's dq and delta = rowsum(dO * O), then dk and dv from that delta
+    in place of o, against the Pallas backward (which computes delta
+    inside); the whole wrapper gives the same three gradients."""
+    monkeypatch.setattr(jfl, "_auto_blocks_bwd", lambda *a: (bq, bk))
+    rs = np.random.RandomState(7)
+    q, k, v = _flash_inputs(rs, BH, Lq, Lk, D)
+    do = rs.randn(BH, Lq, D).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o, lse = jfl._flash_fwd(jq, jk, jv, 1.0, kv_len, bq, bk, True)
+    want = jfl._flash_bwd(jq, jk, jv, o, lse, jnp.asarray(do), 1.0, kv_len,
+                          bq, bk, True)
+    tq, tk, tv, to, tdo = map(_t, (q, k, v, np.asarray(o), do))
+    tlse = _t(np.asarray(lse)[..., 0])
+    dispatch.reset_launches()
+    dq, delta = dispatch.flash_attention_bwd_dq(tq, tk, tv, to, tlse, tdo,
+                                                kv_len)
+    assert delta.shape == (BH, Lq) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(),
+                               (do * np.asarray(o)).sum(-1), atol=ATOL,
+                               rtol=RTOL)
+    dk, dv = dispatch.flash_attention_bwd_dkv(tq, tk, tv, tlse, delta, tdo,
+                                              kv_len)
+    for g, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL, err_msg=name)
+    whole = dispatch.flash_attention_bwd(tq, tk, tv, to, tlse, tdo, kv_len)
+    for g, w in zip(whole, (dq, dk, dv)):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL)
+    assert all(n == 0 for n in dispatch.LAUNCHES.values())
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
+    """Shape rules of the flash wrappers, checked before any launch: a head
+    depth the kernels do not take (not a multiple of 8, or over 128), kv_len
+    out of range, and row statistics of the wrong shape or dtype."""
+    q = torch.zeros(2, 24, 40)
+    assert dispatch._flash_shapes("f", q, torch.zeros(2, 30, 40), 17) == \
+        (2, 24, 30, 40, 17)
+    assert dispatch._flash_shapes("f", q, torch.zeros(2, 30, 40), None)[-1] \
+        == 30
+    for bad_q, bad_k, kv_len in ((torch.zeros(2, 24, 36),
+                                  torch.zeros(2, 30, 36), None),
+                                 (torch.zeros(2, 24, 136),
+                                  torch.zeros(2, 30, 136), None),
+                                 (q, torch.zeros(2, 30, 40), 31),
+                                 (q, torch.zeros(2, 30, 40), 0),
+                                 (q, torch.zeros(3, 30, 40), None)):
+        with pytest.raises(ValueError, match="flash"):
+            dispatch._flash_shapes("flash", bad_q, bad_k, kv_len)
+    dispatch._fp32_rows("f", torch.zeros(2, 24), 2, 24, q.device)
+    for bad in (torch.zeros(2, 23), torch.zeros(2, 24, dtype=torch.float64),
+                torch.zeros(24, 2).t()):
+        with pytest.raises(ValueError, match="row statistic"):
+            dispatch._fp32_rows("f", bad, 2, 24, q.device)
+
+
 def _grads_of(fn, inputs, dy):
     ts = [_t(a).requires_grad_() for a in inputs]
     fn(*ts).backward(_t(dy))

@@ -74,7 +74,7 @@ def _port_images(params, batch, lat):
                                                         MagicDrivePipeline)
 
     tp = tiny_debug()
-    mods = MagicDriveModules.create(tp).load_state_dicts(
+    mods = MagicDriveModules.create(tp, device="cpu").load_state_dicts(
         jax_params_to_state_dicts(params)).to("cpu", torch.float32)
     pipe = MagicDrivePipeline(mods, dataclasses.replace(
         tp.pipeline, num_inference_steps=2))
@@ -132,7 +132,7 @@ def test_converter_consumes_every_leaf(tiny_jax):
             want[key] = int(np.size(leaf))
         assert len(want) == len(flat), name
         assert {k: v.size for k, v in sds[name].items()} == want, name
-    MagicDriveModules.create(tiny_debug()).load_state_dicts(sds)
+    MagicDriveModules.create(tiny_debug(), device="cpu").load_state_dicts(sds)
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -234,8 +234,9 @@ def test_port_imports_no_jax():
         x = torch.randn(6, 320, 16, requires_grad=True)
         blk(x, torch.randn(6, 7, 16)).square().mean().backward()
         assert x.grad.abs().max() > 0
-        state = create_train_state(MagicDriveModules.create(tiny_debug()),
-                                   TrainConfig())
+        state = create_train_state(
+            MagicDriveModules.create(tiny_debug(), device="cpu"),
+            TrainConfig(), device="cpu")
         assert len(state.masters) > 100
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "magicdrive_tpu"))

@@ -137,7 +137,8 @@ def test_trainable_keys_match_jax_partition(jax_tree):
     assert got == want
     assert got["vae"] == got["clip"] == set()
     assert len(got["unet"]) > 20 and len(got["controlnet"]) > 100
-    port = trainable_parameters(MagicDriveModules.create(tiny_debug()))
+    port = trainable_parameters(MagicDriveModules.create(tiny_debug(),
+                                                         device="cpu"))
     assert set(port) == {f"{n}.{k}" for n, ks in got.items() for k in ks}
 
 
@@ -150,9 +151,9 @@ def _tiny_setup(dtype=torch.float32):
 
     torch.manual_seed(0)
     preset = tiny_debug()
-    modules = MagicDriveModules.create(preset)
+    modules = MagicDriveModules.create(preset, device="cpu")
     cfg = TrainConfig(learning_rate=1e-3, lr_warmup_steps=1)
-    state = create_train_state(modules, cfg, dtype=dtype)
+    state = create_train_state(modules, cfg, device="cpu", dtype=dtype)
     batch = collate_fn([make_sample(0, with_images=True)],
                        CollateConfig(bbox_max_len=preset.bbox_max_len))
     return modules, cfg, state, batch

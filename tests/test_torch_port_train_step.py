@@ -154,12 +154,14 @@ def _port_step(jax_step, mode):
     from magicdrive_tpu_torch.diffusion import NoiseSchedule
 
     j = jax_step
-    modules = MagicDriveModules.create(tiny_debug()).load_state_dicts(
+    modules = MagicDriveModules.create(tiny_debug(),
+                                       device="cpu").load_state_dicts(
         jax_params_to_state_dicts(j["params"]))
     cfg = tstate.TrainConfig(**{f.name: getattr(j["tcfg"], f.name)
                                 for f in dataclasses.fields(
                                     tstate.TrainConfig)})
-    state = tstate.create_train_state(modules, cfg, dtype=torch.float32)
+    state = tstate.create_train_state(modules, cfg, device="cpu",
+                                      dtype=torch.float32)
     d = j["draws"]
     draws = StepDraws(
         vae_noise=torch.tensor(d["vae_noise"].transpose(0, 3, 1, 2)),
