@@ -18,10 +18,15 @@ no result line):
      the same inputs and, where one PyTorch call computes the same function
      (the flash SDPA forward for K5, its backward for the whole K6), of that
      call, beside the kernel's bound (the larger of its operations at the
-     bf16 tensor peak and its bytes at the memory rate); two whole K6 calls
-     on the same inputs must be bitwise equal; K5 and the whole K6 also at
-     one head depth for each of their template instances (FLASH_DEPTHS), at
-     a small ragged shape, against the plain versions; then the autograd of
+     bf16 tensor peak and its bytes at the memory rate); K1 and K2 also
+     beside their composition of library calls (F.linear projections and
+     F.scaled_dot_product_attention, one per neighbour for K2: composed_ms),
+     K1 with its kv projection timed alone (the kv_project sub-row); two
+     calls of K1, of K2 and of the whole K6 on the same inputs must be
+     bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and K1 and K2
+     (ATTENTION_DEPTHS, K2 under both ring-shift sets) also at one head
+     depth for each of their template instances, at a small ragged shape,
+     against the plain versions; then the autograd of
      K1-K4, K8 and the K8 pair at the training shapes: every input and weight
      gradient through the kernel route against the plain backward in fp32,
      within 1e-2 * max|ref| or the plain bf16 backward's own error, which
@@ -40,7 +45,8 @@ no result line):
      sits near 1.1e-2, and planted faults in K2 and K4 passed it while the
      per-call check and phase 3 caught both (PERF.md); then one guided step
      under torch.profiler prints its kernels' device time beside its host
-     clock time;
+     clock time, with the share of the mode's attention kernels and of
+     their k/v projection;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -65,6 +71,10 @@ error was largest, with every shape under "shapes"; "launches" sums the
 four path runs of phases 4 and 6 and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
+
+``compare_trees(other)`` (not run by ``main``) times K1, K2 and warm
+``kvstat`` requests of another checkout and of this one in turns, for a
+kernel change measured against its parent on one card.
 """
 from __future__ import annotations
 
@@ -283,6 +293,9 @@ _FLASH_FLOPS_PER_LQ_LK_D = {"flash_attention_fwd": 4,  # q k^T, p v
 def _flops(name, args) -> int:
     """The matrix-product operations the function needs on these inputs
     (the softmax's elementwise work is left out)."""
+    if name == "kv_project":  # (x_kv, wk, wv): k and v of every head
+        x, wk, wv = args
+        return 2 * x.numel() * (wk.shape[0] + wv.shape[0])
     if name in ("fused_ff", "fused_geglu"):
         x, w1 = args[0], args[1]
         M, K = x.numel() // x.shape[-1], x.shape[-1]
@@ -336,10 +349,16 @@ def bound(name, args, out):
 def _gate(name, label, err, scale, tol, row=None, note=""):
     ok = np.isfinite(err) and err <= tol * scale
     if row is not None:
-        lib = row["library_ms"]
+        lib, kvp = row["library_ms"], row.get("kv_project")
         note = (f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})" +
-                ("" if lib is None else f" library {lib:.4f} ms"))
+                ("" if lib is None else f" library {lib:.4f} ms") +
+                ("" if "composed_ms" not in row else
+                 f" composed {row['composed_ms']:.4f} ms") +
+                ("" if kvp is None else
+                 f" (kv_project {kvp['ms']:.4f} ms, bound "
+                 f"{kvp['bound_ms']:.4f} ms {kvp['bound_by']})") +
+                (f"; {note}" if note else ""))
     log(f"  {name:28s} {label:34s} max_abs_err {err:.3e} (max|ref| "
         f"{scale:.3e}) {note} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -359,7 +378,69 @@ def _row(rows, name, label, args, out, err, kern, plain, library=None):
     return row
 
 
+def _heads(t, heads):
+    """(B, L, H*D) -> (B, H, L, D)"""
+    return t.unflatten(-1, (heads, -1)).transpose(1, 2)
+
+
+def _merge_heads(t):
+    """(B, H, L, D) -> (B, L, H*D)"""
+    return t.transpose(1, 2).flatten(2)
+
+
+def composed_kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale):
+    """K1's function as a composition of library calls, the yardstick of
+    ``composed_ms`` (the port never calls it): three F.linear projections,
+    then F.scaled_dot_product_attention over the heads."""
+    import torch.nn.functional as F
+
+    q, k, v = (_heads(F.linear(x, w), heads)
+               for x, w in ((x_q, wq), (x_kv, wk), (x_kv, wv)))
+    return _merge_heads(F.scaled_dot_product_attention(q, k, v, scale=scale))
+
+
+def composed_kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts):
+    """K2's function as library calls: the projections once, then one
+    F.scaled_dot_product_attention per ring neighbour on the ring-indexed
+    k/v, the two outputs summed in fp32 and cast once."""
+    import torch.nn.functional as F
+    from magicdrive_tpu_torch.kernels.reference import ring_views
+
+    s1, s2, n = shifts
+    q, k, v = (_heads(F.linear(x, w), heads) for w in (wq, wk, wv))
+    o = sum(F.scaled_dot_product_attention(
+        q, ring_views(k, s, n), ring_views(v, s, n), scale=scale).float()
+        for s in (s1, s2))
+    return _merge_heads(o.to(x.dtype))
+
+
+COMPOSED = {"kvstat_attention": composed_kvstat_attention,
+            "kvstat_attention_pair": composed_kvstat_attention_pair}
+
+
+def _kv_project(args):
+    """K1's first launch alone on K1's arguments: -> (the call, its
+    arguments as the bound counts them)."""
+    from magicdrive_tpu_torch.kernels import build, dispatch
+
+    _, x_kv, _, wk, wv, heads, _ = args
+    lib = build.load()
+    return (lambda: dispatch._project_kv(lib, x_kv, wk, wv, heads),
+            (x_kv, wk, wv))
+
+
+def _kv_project_row(args):
+    """The time and bound of K1's kv projection at K1's shape."""
+    run, kv_args = _kv_project(args)
+    bound_ms, bound_by = bound("kv_project", kv_args, run())
+    return {"ms": cuda_ms(run), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_kernels():
+    """Every kernel of the path at its path shapes against its plain version
+    in fp32; K1 and K2 also against their library composition (timed as
+    ``composed_ms``), K1 with its kv projection timed alone, and two K1 and
+    two K2 calls on the same inputs bitwise equal."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -370,7 +451,15 @@ def check_kernels():
         err, scale = _worst(got, plain(*map(_f32, args)))
         row = _row(rows, name, label, args, got, err, lambda: kern(*args),
                    lambda: plain(*args))
-        _gate(name, label, err, scale, KERNEL_TOL, row)
+        if name in COMPOSED:
+            row["composed_ms"] = cuda_ms(lambda: COMPOSED[name](*args))
+            if not torch.equal(got, kern(*args)):
+                raise AssertionError(f"{name} {label}: two calls on the same "
+                                     "inputs differ")
+        if name == "kvstat_attention":
+            row["kv_project"] = _kv_project_row(args)
+        _gate(name, label, err, scale, KERNEL_TOL, row,
+              "two calls bitwise equal" if name in COMPOSED else "")
     return rows
 
 
@@ -484,6 +573,50 @@ def check_flash_depths() -> None:
         err, scale = _worst(dispatch.flash_attention_bwd(*bwd_args),
                             reference.flash_attention_bwd(*map(_f32, bwd_args)))
         _gate("flash_attention_bwd", label, err, scale, KERNEL_TOL)
+
+
+# one head depth for each instance of K1's and K2's launcher (the depth
+# padded to a multiple of 16: 16, 32, ..., 128), four of them padded; the
+# path takes 40 and 80 only
+ATTENTION_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
+RING_SHIFTS = ((5, 1, 6), (1, 2, 6))
+
+
+def check_attention_depths() -> None:
+    """K1 and K2 at every depth of ATTENTION_DEPTHS, at a small shape with
+    ragged q and key tails (200 and 150 rows against 64-row tiles) and a C
+    that is not a multiple of the projection's 32-column chunk, K2 under
+    both ring-shift sets, against their plain versions in fp32; the plain
+    bf16 version's own distance from fp32 is printed beside each. The
+    hidden states are drawn at 0.5 (logits of std 0.25): at 1.0 and D=8 the
+    contract's own bf16 q and k casts put the plain bf16 version up to
+    1.1e-2 * max|ref| from fp32 (CPU, PERF.md), so the gate would measure
+    that rounding rather than the kernel; at 0.5 it stays under 4.5e-3."""
+    from magicdrive_tpu_torch.kernels import dispatch, reference
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(4))
+    B, Lq, Lk, C, Ck, H = 2, 200, 150, 72, 40, 2
+
+    def gate(name, label, args):
+        ref = getattr(reference, name)(*map(_f32, args))
+        err, scale = _worst(getattr(dispatch, name)(*args), ref)
+        bf_err, _ = _worst(getattr(reference, name)(*args), ref)
+        _gate(name, label, err, scale, KERNEL_TOL,
+              note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
+
+    for D in ATTENTION_DEPTHS:
+        HD, scale = H * D, D ** -0.5
+        gate("kvstat_attention",
+             f"B={B} Lq={Lq} Lk={Lk} C={C} Ck={Ck} H={H} D={D}",
+             (rnd(B, Lq, C, scale=0.5), rnd(B, Lk, Ck, scale=0.5),
+              rnd(HD, C, scale=C ** -0.5), rnd(HD, Ck, scale=Ck ** -0.5),
+              rnd(HD, Ck, scale=Ck ** -0.5), H, scale))
+        x = rnd(6, Lk, C, scale=0.5)
+        w = [rnd(HD, C, scale=C ** -0.5) for _ in range(3)]
+        for shifts in RING_SHIFTS:
+            gate("kvstat_attention_pair",
+                 f"6 views L={Lk} C={C} H={H} D={D} shifts={shifts}",
+                 (x, *w, H, scale, shifts))
 
 
 def autograd_cases(gen: torch.Generator):
@@ -819,16 +952,28 @@ def check_path_calls(pipe, batch, mode) -> None:
     _report_calls(f"one guided step ({mode})", stats, generation_calls(mode))
 
 
+def _device_ms(rows, *parts):
+    """The summed device ms of the port's kernels (mdk::) whose name holds
+    one of ``parts``."""
+    return sum(ms for ms, _, k in rows if "mdk::" in k
+               and any(p in k for p in parts))
+
+
 def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
     """One guided step under torch.profiler: its host-clock time, the sum of
-    its kernels' device times (one stream, so the sum is the busy time) and
-    the kernels that take the most."""
+    its kernels' device times (one stream, so the sum is the busy time), the
+    device time of the attention kernels of the mode and of their k/v
+    projection, and the kernels that take the most."""
     x, t, cond = _step_inputs(pipe, batch)
     wall, rows = _profiled(lambda: pipe.guided_eps(x, t, cond))
     busy = sum(r[0] for r in rows)
+    attention = {"kvstat": ("K1+K2", "kvstat_kernel"),
+                 "auto": ("K8+pair", "fused_out_kernel")}[mode]
     log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
-        f"{100 * (1 - busy / wall):.1f} %); top kernels: " +
+        f"{100 * (1 - busy / wall):.1f} %); {attention[0]} "
+        f"{_device_ms(rows, attention[1]):.2f} ms, kv_project "
+        f"{_device_ms(rows, 'kv_project_kernel'):.2f} ms; top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
 
@@ -864,13 +1009,8 @@ def profile_train_step(setup, mode, top: int = 8) -> None:
     wall, rows = _profiled(
         lambda: train_step(modules, state, batch, cfg, draws=draws))
     busy = sum(r[0] for r in rows)
-
-    def device_ms(*parts):
-        return sum(ms for ms, _, k in rows if "mdk::" in k
-                   and any(p in k for p in parts))
-
-    k5, k6 = device_ms("flash_fwd_kernel"), device_ms("flash_bwd_dq_kernel",
-                                                      "flash_bwd_dkv_kernel")
+    k5 = _device_ms(rows, "flash_fwd_kernel")
+    k6 = _device_ms(rows, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     log(f"training step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device busy "
         f"{100 * busy / wall:.1f} %); K5 {k5:.2f} ms, K6 {k6:.2f} ms, K5+K6 "
@@ -1047,6 +1187,81 @@ def check_training_calls(setup, mode) -> None:
         f"relative L2 {rel:.3e} (a smoke test, not a gate)")
 
 
+def time_attention(requests: int = 2) -> dict:
+    """The CUDA-event ms of K1 and K2 at their five path shapes (as in
+    ``check_kernels``, K1 with its kv projection alone) and the host-clock
+    seconds of ``requests`` warm ``kvstat`` requests after one warm-up
+    request, through the port this interpreter imports; printed as one JSON
+    line. ``compare_trees`` runs it in another checkout."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    rows = []
+    for name, label, args in kernel_cases(
+            torch.Generator(device="cuda").manual_seed(0)):
+        if name not in COMPOSED:
+            continue
+        kern = getattr(dispatch, name)
+        rows.append({"name": name, "shape": label,
+                     "ms": cuda_ms(lambda: kern(*args))})
+        if name == "kvstat_attention":
+            rows[-1]["kv_project_ms"] = cuda_ms(_kv_project(args)[0])
+    _, pipe, batches = set_up()
+    seconds = []
+    with dispatch.fused_mode("kvstat"):
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        for i in range(requests + 1):
+            t0 = time.perf_counter()
+            pipe(batches[i % len(batches)], generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    result = {"kernels": rows, "warm_s_per_request": seconds[1:]}
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def compare_trees(other: str, requests: int = 2) -> None:
+    """K1/K2 and warm ``kvstat`` request times of another checkout (say a
+    ``git archive`` of the parent unpacked into runs/parent) and of this
+    one, in turns: other, this, this, other. Each turn is a process of its
+    own that imports that tree's port and builds its kernels there; the
+    timing code is this file's (``time_attention``). Prints each turn's
+    line, then each row's mean over the two turns of each tree."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    code = ("import importlib.util, sys; sys.path.insert(0, {tree!r}); "
+            "spec = importlib.util.spec_from_file_location('smoke', {me!r}); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); m.environment(); m.build_kernels(); "
+            "m.time_attention({n})")
+    turns = []
+    for label, tree in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, "-c", code.format(
+                tree=tree, me=os.path.abspath(__file__), n=requests)],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"turn in {tree} failed ({proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"{label} ({tree}): {json.dumps(result)}")
+        turns.append((label, result))
+    for i, row in enumerate(turns[0][1]["kernels"]):
+        means = {}
+        for side in ("other", "this"):
+            got = [r["kernels"][i] for s, r in turns if s == side]
+            means[side] = {k: sum(g[k] for g in got) / len(got)
+                           for k in row if k.endswith("ms")}
+        log(f"{row['name']} {row['shape']}: " + "; ".join(
+            f"{k} other {means['other'][k]:.4f} this {means['this'][k]:.4f} "
+            f"({means['this'][k] / means['other'][k]:.3f}x)"
+            for k in means["other"]))
+    for side in ("other", "this"):
+        log(f"warm kvstat s/request, {side}: " + ", ".join(
+            f"{s:.4f}" for lab, r in turns if lab == side
+            for s in r["warm_s_per_request"]))
+
+
 def main() -> None:
     from magicdrive_tpu_torch.kernels import dispatch
 
@@ -1056,6 +1271,7 @@ def main() -> None:
     rows = check_kernels()
     rows.update(check_flash_kernels())
     check_flash_depths()
+    check_attention_depths()
     log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
         f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
     check_autograd()

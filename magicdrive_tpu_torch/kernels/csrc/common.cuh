@@ -1,8 +1,15 @@
-// Shared pieces of the hand-written Hopper kernels: bf16 tensor-core
-// fragments (WMMA, m16n16k16, fp32 accumulate), a zero-filling tile loader
-// and the error convention of the plain C entry points (each returns the
-// cudaError_t of its launch, or cudaErrorInvalidValue for a shape it does
-// not take; the Python wrapper raises on anything but 0).
+// Shared pieces of the hand-written Hopper kernels and the error convention
+// of their plain C entry points: each returns the cudaError_t of its launch,
+// or cudaErrorInvalidValue for a shape or a pointer it does not take, and the
+// Python wrapper raises on anything but 0.
+//  * WMMA fragments (m16n16k16, bf16 in, fp32 accumulate) and a zero-filling
+//    synchronous tile loader, for K3/K4 (geglu.cu) and attend_tile;
+//  * attend_tile, the projection-fused attention core of K7, K8 and the K8
+//    pair (fused_out_attention.cu): WMMA on 64-row tiles, logits, p and the
+//    o accumulator in shared memory. K1 and K2 left it for the register-tile
+//    core of proj_attend.cuh, which the K8 pair and K8 can take over;
+//  * the declaration of the k/v projection (kvstat_attention.cu) that K1,
+//    K2, K7, K8 and the K8 pair share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +19,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
 namespace mdk {
 
@@ -72,6 +80,14 @@ static __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
 }
 
+// Whether every non-null pointer is 16-byte aligned (cp.async, uint4).
+static inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0)
+      return false;
+  return true;
+}
+
 // Kernels needing more than 48 KB of dynamic shared memory must opt in.
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -81,11 +97,10 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// Projection-fused attention core shared by K1, K2, K7 and K8.
+// Projection-fused attention core of K7, K8 and the K8 pair.
 //
-// attend_tile: one (batch, head, 64-row q tile) on four warps of 16 q rows.
-// K1/K2 run one per block; K7/K8 (fused_out_attention.cu) loop it over the
-// heads of a block.
+// attend_tile: one (batch, head, 64-row q tile) on four warps of 16 q rows;
+// K7/K8 (fused_out_attention.cu) loop it over the heads of a block.
 //  1. q = (x_q tile . Wq_h^T) in fp32 over 32-wide chunks of C, times the
 //     softmax scale, cast to bf16 (the Pallas kernel's cast points).
 //  2. For each of NBR key/value sources: stream 64-row k/v tiles of the
@@ -287,69 +302,8 @@ __device__ const float* attend_tile(
   return NBR == 2 ? ot : os;
 }
 
-// K1 (NBR == 1) and K2 (NBR == 2): grid (q tiles, H, B); the tile goes to
-// out (B, Lq, H*D) at the head's columns.
-template <int DP, int NBR>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
-                 const bf16* __restrict__ kws, const bf16* __restrict__ vws,
-                 bf16* __restrict__ out, int Lq, int C, int Lk, int H, int D,
-                 float scale, int shift0, int shift1, int n_views) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * ATT_BQ, h = blockIdx.y, b = blockIdx.z;
-  const float* fin = attend_tile<DP, NBR>(smem, xq, wq, kws, vws, Lq, C, Lk,
-                                          H, D, scale, shift0, shift1,
-                                          n_views, q0, h, b);
-  const int lane = threadIdx.x % 32, r0 = (threadIdx.x / 32) * 16;
-  const long HD = (long)H * D;
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = r0 + i / D, c = i % D;
-    if (q0 + r < Lq)
-      out[((long)b * Lq + q0 + r) * HD + (long)h * D + c] =
-          __float2bfloat16(fin[r * AttnLayout<DP, NBR>::LDO + c]);
-  }
-}
-
-template <int NBR>
-static cudaError_t launch_attention(const bf16* xq, const bf16* wq,
-                                    const bf16* kws, const bf16* vws,
-                                    bf16* out, int B, int Lq, int C, int Lk,
-                                    int H, int D, float scale, int shift0,
-                                    int shift1, int n_views,
-                                    cudaStream_t stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || C <= 0 || C % 8 || H <= 0 || D <= 0 ||
-      D > 128 || D % 8)
-    return cudaErrorInvalidValue;
-  const dim3 grid((Lq + ATT_BQ - 1) / ATT_BQ, H, B);
-  const int dp = (D + 15) / 16 * 16;
-#define MDK_ATTN_CASE(DPV)                                                   \
-  case DPV: {                                                                \
-    auto kern = attention_kernel<DPV, NBR>;                                  \
-    const size_t bytes = AttnLayout<DPV, NBR>::BYTES;                        \
-    cudaError_t e = allow_smem(kern, bytes);                                 \
-    if (e != cudaSuccess) return e;                                          \
-    kern<<<grid, ATT_THREADS, bytes, stream>>>(xq, wq, kws, vws, out, Lq, C, \
-                                               Lk, H, D, scale, shift0,      \
-                                               shift1, n_views);             \
-    return cudaGetLastError();                                               \
-  }
-  switch (dp) {
-    MDK_ATTN_CASE(16)
-    MDK_ATTN_CASE(32)
-    MDK_ATTN_CASE(48)
-    MDK_ATTN_CASE(64)
-    MDK_ATTN_CASE(80)
-    MDK_ATTN_CASE(96)
-    MDK_ATTN_CASE(112)
-    MDK_ATTN_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MDK_ATTN_CASE
-}
-
 // k/v projection into the (B, H, Lk, D) workspace, defined in
-// kvstat_attention.cu and shared by K1 and K2.
+// kvstat_attention.cu and shared by K1, K2, K7, K8 and the K8 pair.
 cudaError_t launch_kv_project(const bf16* x, const bf16* wk, const bf16* wv,
                               bf16* k, bf16* v, int B, int Lk, int Ck, int H,
                               int D, cudaStream_t stream);

@@ -46,8 +46,6 @@
 //    another's.
 // Every output element is written by exactly one block and no atomics are
 // used, so the results are deterministic.
-#include <initializer_list>
-
 #include "common.cuh"
 #include "flash_tile.cuh"
 
@@ -197,7 +195,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     inv[r] = 1.0f / l[r];
   }
   const int row0 = q0 + warp * 16;
-  tile::store_rows<NO>(o + bh * Lq * D, acc, inv, row0, Lq, D);
+  tile::store_rows<NO>(o + bh * Lq * D, acc, inv, row0, Lq, D, D);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -345,7 +343,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   tile::cp_wait<0>();
   const float one[2] = {1.0f, 1.0f};
-  tile::store_rows<NO>(dq + bh * Lq * D, acc, one, row0, Lq, D);
+  tile::store_rows<NO>(dq + bh * Lq * D, acc, one, row0, Lq, D, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,8 +479,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   tile::cp_wait<0>();
   const float one[2] = {1.0f, 1.0f};
-  tile::store_rows<NO>(dk + bh * Lk * D, dk_acc, one, kw0, Lk, D);
-  tile::store_rows<NO>(dv + bh * Lk * D, dv_acc, one, kw0, Lk, D);
+  tile::store_rows<NO>(dk + bh * Lk * D, dk_acc, one, kw0, Lk, D, D);
+  tile::store_rows<NO>(dv + bh * Lk * D, dv_acc, one, kw0, Lk, D, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -525,13 +523,6 @@ static cudaError_t launch_flash_dp(FlashOp op, const FlashArgs& a,
                     a.k, a.v, a.lse_in, a.delta_in, a.dout, a.d0, a.d1,
                     a.Lq, a.Lk, a.D, a.kv_len);
   }
-}
-
-static bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0)
-      return false;
-  return true;
 }
 
 static cudaError_t launch_flash(FlashOp op, const FlashArgs& a,

@@ -74,6 +74,26 @@ __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int row0,
   }
 }
 
+// Start copying one K chunk of the two operands of a product a b^T, both
+// row-major bf16 with K columns (K a multiple of 8), into a shared tile of
+// pitch LD: rows [a0, a0 + RA) of a (zeros at rows >= a_end), then rows
+// [b0, b0 + RB) of b (zeros at rows >= b_end), each at columns
+// [col0, col0 + KC) (zeros past K). Called by all threads of the block.
+template <int RA, int RB, int KC, int LD>
+__device__ __forceinline__ void cp_chunk(bf16* dst, const bf16* a, int a0,
+                                         int a_end, const bf16* b, int b0,
+                                         int b_end, int col0, int K) {
+  constexpr int VPR = KC / 8;
+  for (int i = threadIdx.x; i < (RA + RB) * VPR; i += blockDim.x) {
+    const int r = i / VPR, cc = (i - r * VPR) * 8, col = col0 + cc;
+    const bool is_a = r < RA;
+    const int row = is_a ? a0 + r : b0 + r - RA;
+    const bool ok = row < (is_a ? a_end : b_end) && col < K;
+    cp16(dst + r * LD + cc, (is_a ? a : b) + (ok ? (long)row * K + col : 0),
+         ok);
+  }
+}
+
 // Start copying entries [i0, i0 + N) of an fp32 vector, zeros at >= end.
 template <int N>
 __device__ __forceinline__ void cp_vec(float* dst, const float* src, int i0,
@@ -212,11 +232,12 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4],
 
 // Store a warp's 16-row fp32 accumulator (NT 8-column tiles), times the
 // per-row factor scale[0] (row g) and scale[1] (row g + 8), as bf16 pairs
-// into a row-major (L, D) matrix at rows row0.., columns < D, rows < L.
+// into a row-major matrix of row pitch ld at rows row0.., columns < D, rows
+// < L.
 template <int NT>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&c)[NT][4],
                                            const float (&scale)[2], int row0,
-                                           int L, int D) {
+                                           int L, int D, long ld) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -226,7 +247,7 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&c)[NT][4],
     for (int j = 0; j < NT; ++j) {
       const int col = j * 8 + 2 * t;
       if (col < D)
-        *reinterpret_cast<uint32_t*>(dst + (long)row * D + col) =
+        *reinterpret_cast<uint32_t*>(dst + row * ld + col) =
             pack_bf16(c[j][2 * r] * scale[r], c[j][2 * r + 1] * scale[r]);
     }
   }

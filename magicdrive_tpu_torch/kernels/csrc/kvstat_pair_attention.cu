@@ -12,8 +12,22 @@
 // kernel indexes that one workspace through the ring map. The two outputs
 // come from separate softmaxes and are summed in fp32 before the one cast;
 // the caller out-projects the sum with the bias counted twice.
-// Bound: as K1, with twice the logits and PV work per q tile.
-#include "common.cuh"
+//
+// Bound. At the 28x50 level (12 views, L=1400, C=320, 8 heads of 40) the
+// function needs 70.5 GFLOP: the projections once (10.3 GFLOP), the logits
+// and P.V once per neighbour (30.1 GFLOP each), against 22 MB of inputs and
+// output: 0.071 ms of operations at the bf16 tensor peak.
+//
+// Design: kvstat_kernel<DP, 2> of proj_attend.cuh, K1's register-tile core
+// with two sources, which answers the six faults of the old WMMA core as
+// K1's source note sets out. One block projects its q tile once, keeps it
+// in registers for both neighbours, and streams the two neighbours' k/v
+// tiles as one ring, so the first tiles of the second neighbour are in
+// flight while the first finishes. The first neighbour's normalised o is
+// parked once in shared memory (256*DP bytes, each thread its own fragment
+// elements) rather than in registers, so K2 keeps K1's register count and
+// occupancy: 55,296 B of shared memory a block at DP=48.
+#include "proj_attend.cuh"
 
 extern "C" {
 
@@ -24,9 +38,7 @@ int mdk_kvstat_attention_pair(const void* x, const void* wq, const void* k,
                               int H, int D, float scale, int shift1,
                               int shift2, int n_views, void* stream) {
   using mdk::bf16;
-  if (n_views <= 0 || B % n_views != 0 || shift1 < 0 || shift2 < 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)mdk::launch_attention<2>(
+  return (int)mdk::launch_kvstat<2>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), B, L, C, L, H, D, scale, shift1, shift2,

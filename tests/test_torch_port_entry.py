@@ -1,6 +1,8 @@
 """The port's entry points build on the card unless the caller asks for the
-CPU, and raise where there is no card; and the bounds ``chip_smoke.py``
-computes for the flash kernels from a call's shapes."""
+CPU, and raise where there is no card; the bounds ``chip_smoke.py`` computes
+for the flash kernels and for K1/K2 from a call's shapes; and its K1/K2
+library yardsticks and depth list."""
+import numpy as np
 import pytest
 import torch
 
@@ -95,3 +97,115 @@ def test_flash_bound_counts_the_keys_below_kv_len(name, per_lq_lk_d, Lk,
         2 * BH * D * (n_q * Lq + 2 * kv_len + n_k * Lk) + n_stat * 4 * BH * Lq
     ms, by = chip_smoke.bound(name, args, out)
     assert by in ("bytes", "operations") and ms > 0
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("Lq,Lk,C,Ck,H,D", [
+    (24, 24, 16, 16, 2, 8), (24, 10, 16, 40, 2, 8), (30, 17, 32, 24, 4, 16)])
+@pytest.mark.parametrize("self_attention", [True, False])
+def test_k1_bound_counts_each_projection_once(Lq, Lk, C, Ck, H, D,
+                                              self_attention):
+    """K1's operations: q, k and v projected once, q k^T and p v per head;
+    its bytes: each distinct input once (x_q read once where it is also
+    x_kv, as at attn1) and the output once, with k and v, which never leave
+    the function, not counted. K1's kv projection alone counts its own."""
+    import chip_smoke
+
+    B = 3
+    if self_attention:
+        Lk, Ck = Lq, C
+    x_q = _bf16(B, Lq, C)
+    x_kv = x_q if self_attention else _bf16(B, Lk, Ck)
+    HD = H * D
+    wq, wk, wv = _bf16(HD, C), _bf16(HD, Ck), _bf16(HD, Ck)
+    args, out = (x_q, x_kv, wq, wk, wv, H, D ** -0.5), _bf16(B, Lq, HD)
+    assert chip_smoke._flops("kvstat_attention", args) == \
+        2 * B * (Lq * C + 2 * Lk * Ck) * HD + 4 * B * Lq * Lk * HD
+    x_bytes = B * Lq * C + (0 if self_attention else B * Lk * Ck)
+    assert chip_smoke._bytes("kvstat_attention", args, out) == \
+        2 * (x_bytes + HD * C + 2 * HD * Ck + B * Lq * HD)
+    kv = (x_kv, wk, wv)
+    assert chip_smoke._flops("kv_project", kv) == 2 * B * Lk * Ck * 2 * HD
+    assert chip_smoke._bytes("kv_project", kv, (_bf16(B, H, Lk, D),
+                                                _bf16(B, H, Lk, D))) == \
+        2 * (B * Lk * Ck + 2 * HD * Ck + 2 * B * Lk * HD)
+
+
+@pytest.mark.parametrize("L,C,H,D", [(24, 16, 2, 8), (30, 32, 4, 16)])
+def test_k2_bound_counts_projections_once_and_attention_per_neighbour(
+        L, C, H, D):
+    """The pair's neighbours share k and v, so the projections count once;
+    q k^T and p v count once per neighbour. x is read once, the output
+    written once."""
+    import chip_smoke
+
+    B, HD = 6, H * D
+    x, w = _bf16(B, L, C), [_bf16(HD, C) for _ in range(3)]
+    args = (x, *w, H, D ** -0.5, (5, 1, 6))
+    assert chip_smoke._flops("kvstat_attention_pair", args) == \
+        2 * B * 3 * L * C * HD + 2 * 4 * B * L * L * HD
+    assert chip_smoke._bytes("kvstat_attention_pair", args,
+                             _bf16(B, L, HD)) == \
+        2 * (B * L * C + 3 * HD * C + B * L * HD)
+
+
+def _normal(*shape, scale=1.0, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            * scale)
+
+
+def test_composed_k1_yardstick_matches_the_plain_version():
+    """composed_ms times F.linear projections and one SDPA call; in fp32 on
+    the CPU that computes K1's function."""
+    import chip_smoke
+    from magicdrive_tpu_torch.kernels import reference
+
+    B, Lq, Lk, C, Ck, H, D = 2, 19, 11, 24, 40, 2, 8
+    args = (_normal(B, Lq, C, seed=1), _normal(B, Lk, Ck, seed=2),
+            _normal(H * D, C, scale=C ** -0.5, seed=3),
+            _normal(H * D, Ck, scale=Ck ** -0.5, seed=4),
+            _normal(H * D, Ck, scale=Ck ** -0.5, seed=5), H, D ** -0.5)
+    torch.testing.assert_close(chip_smoke.composed_kvstat_attention(*args),
+                               reference.kvstat_attention(*args),
+                               atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
+def test_composed_k2_yardstick_matches_the_plain_version(shifts):
+    """The pair's yardstick, two SDPA calls on the ring-indexed k/v summed
+    in fp32, computes K2's function under both ring-shift sets."""
+    import chip_smoke
+    from magicdrive_tpu_torch.kernels import reference
+
+    B, L, C, H, D = 12, 13, 24, 2, 8
+    args = (_normal(B, L, C, seed=6),
+            *(_normal(H * D, C, scale=C ** -0.5, seed=7 + i)
+              for i in range(3)), H, D ** -0.5, shifts)
+    torch.testing.assert_close(
+        chip_smoke.composed_kvstat_attention_pair(*args),
+        reference.kvstat_attention_pair(*args), atol=2e-4, rtol=2e-3)
+
+
+def test_attention_depths_reach_every_instance_of_the_launcher():
+    """check_attention_depths runs K1 and K2 at one depth for each head
+    depth the K1/K2 launcher's switch compiles (D padded to a multiple of
+    16), each a depth the wrappers take (a multiple of 8), with padded
+    ones among them."""
+    import pathlib
+    import re
+
+    import chip_smoke
+
+    src = pathlib.Path(chip_smoke.__file__).parent / \
+        "magicdrive_tpu_torch/kernels/csrc/proj_attend.cuh"
+    compiled = {int(n) for n in re.findall(r"MDK_KVSTAT_CASE\((\d+)\)",
+                                           src.read_text())}
+    depths = chip_smoke.ATTENTION_DEPTHS
+    assert compiled == set(range(16, 129, 16))
+    assert {(d + 15) // 16 * 16 for d in depths} == compiled
+    assert all(d % 8 == 0 for d in depths)
+    assert any(d % 16 for d in depths)
