@@ -7,7 +7,8 @@ no result line):
   1. environment: a CUDA device, the torch/CUDA versions, the card's name
      and power limit from nvidia-smi;
   2. build: the hand-written kernels (magicdrive_tpu_torch/kernels/csrc),
-     compiled from this checkout;
+     compiled from this checkout, with ptxas's registers and spills; any
+     spill in an instance of K3 or K4 fails the run;
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
      12 views), and K5, both launches of K6, the whole K6 and K7 at the
@@ -18,14 +19,18 @@ no result line):
      the same inputs and, where one PyTorch call computes the same function
      (the flash SDPA forward for K5, its backward for the whole K6), of that
      call, beside the kernel's bound (the larger of its operations at the
-     bf16 tensor peak and its bytes at the memory rate); K1 and K2 also
-     beside their composition of library calls (F.linear projections and
-     F.scaled_dot_product_attention, one per neighbour for K2: composed_ms),
-     K1 with its kv projection timed alone (the kv_project sub-row); two
-     calls of K1, of K2 and of the whole K6 on the same inputs must be
+     bf16 tensor peak and its bytes at the memory rate); K1-K4, K7, K8 and
+     the K8 pair also beside their composition of library calls (COMPOSED:
+     F.linear projections and F.scaled_dot_product_attention, one per
+     neighbour for the pairs, F.linear by Wout for K8; F.linear, the exact
+     GELU and F.linear for K3/K4: composed_ms), K1 with its kv projection
+     timed alone (the kv_project sub-row), and the host cost of one TMA
+     tensor-map encoding (K3/K4 encode theirs on every call); two calls of
+     K1-K4 (REDESIGNED) and of the whole K6 on the same inputs must be
      bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and K1 and K2
      (ATTENTION_DEPTHS, K2 under both ring-shift sets) also at one head
-     depth for each of their template instances, at a small ragged shape,
+     depth for each of their template instances, and K3 and K4 at the
+     widths of FF_WIDTHS (one per K3 instance), at small ragged shapes,
      against the plain versions; then the autograd of
      K1-K4, K8 and the K8 pair at the training shapes: every input and weight
      gradient through the kernel route against the plain backward in fp32,
@@ -46,7 +51,7 @@ no result line):
      per-call check and phase 3 caught both (PERF.md); then one guided step
      under torch.profiler prints its kernels' device time beside its host
      clock time, with the share of the mode's attention kernels and of
-     their k/v projection;
+     their k/v projection, and of K3 and K4;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -72,7 +77,7 @@ four path runs of phases 4 and 6 and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
-``compare_trees(other)`` (not run by ``main``) times K1, K2 and warm
+``compare_trees(other)`` (not run by ``main``) times K1-K4 and warm
 ``kvstat`` requests of another checkout and of this one in turns, for a
 kernel change measured against its parent on one card.
 """
@@ -130,22 +135,61 @@ def environment() -> str:
     return smi
 
 
-def build_kernels() -> None:
+def spills(compiler_log: str, source: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} from ptxas's lines for
+    every entry function of ``source`` (a file name under csrc/)."""
+    import re
+
+    out, section, entry = {}, None, None
+    for line in compiler_log.splitlines():
+        if line.startswith("== "):
+            section = line[3:].strip()
+        elif section == source:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry is not None:
+                out[entry] = (int(m.group(1)), int(m.group(2)))
+                entry = None
+    return out
+
+
+def build_kernels(spill_gate: bool = True) -> None:
+    """Build the kernels, print ptxas's registers and spills, and (with
+    ``spill_gate``) fail if an instance of K3 or K4 (csrc/geglu.cu) spills
+    or is missing."""
     from magicdrive_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     path, compiler_log = build.build()
     log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
     for line in compiler_log.splitlines():  # ptxas: registers, spills
-        if line.startswith("ptxas info") or "bytes spill" in line:
+        if line.startswith("ptxas info") or "bytes spill" in line or \
+                "warning" in line:
             log("  " + line.strip())
     build.load()
+    if spill_gate and compiler_log:  # empty when already built
+        ff = spills(compiler_log, "geglu.cu")
+        log(f"K3/K4 spills (store, load bytes): {ff}")
+        if len(ff) != 6 or any(st or ld for st, ld in ff.values()):
+            raise AssertionError(f"K3/K4 instances spill or are missing: {ff}")
+
+
+QUEUE_FILL_CYCLES = 20_000_000  # about 11 ms of an H100's clock
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
+    """Device ms per call of ``fn`` by CUDA events around ``iters`` calls.
+    The events are queued behind a spin kernel that keeps the card busy
+    while the host enqueues the calls, so a call whose host side (Python,
+    ctypes, the launch) takes longer than its kernels is timed on the
+    device, not at the host's enqueue rate."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_FILL_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -414,8 +458,61 @@ def composed_kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts):
     return _merge_heads(o.to(x.dtype))
 
 
+def composed_fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout, heads,
+                                     scale):
+    """K8's function as library calls: K1's composition, then F.linear by
+    Wout (no bias)."""
+    import torch.nn.functional as F
+
+    return F.linear(composed_kvstat_attention(x_q, x_kv, wq, wk, wv, heads,
+                                              scale), wout)
+
+
+def composed_fused_qkv_out_attention_pair(x, wq, wk, wv, wout, heads, scale,
+                                          shifts):
+    """The K8 pair's function as library calls: K2's composition, then
+    F.linear by Wout (no bias)."""
+    import torch.nn.functional as F
+
+    return F.linear(composed_kvstat_attention_pair(x, wq, wk, wv, heads,
+                                                   scale, shifts), wout)
+
+
+def _composed_gated(x, w1, b1):
+    import torch.nn.functional as F
+
+    hv, hg = F.linear(x, w1, b1).chunk(2, dim=-1)
+    return (hv * F.gelu(hg)).to(x.dtype)
+
+
+def composed_fused_geglu(x, w1, b1):
+    """K4's function as library calls: F.linear by W1 with its bias, the
+    exact GELU of the gate half times the value half, cast to x's type."""
+    return _composed_gated(x, w1, b1)
+
+
+def composed_fused_ff(x, w1, b1, w2):
+    """K3's function as library calls: K4's composition, then F.linear by
+    W2 (no bias)."""
+    import torch.nn.functional as F
+
+    return F.linear(_composed_gated(x, w1, b1), w2)
+
+
+# Each kernel's function as a composition of library calls that the port
+# never calls: the yardstick of ``composed_ms``. K7 computes K1's function.
 COMPOSED = {"kvstat_attention": composed_kvstat_attention,
-            "kvstat_attention_pair": composed_kvstat_attention_pair}
+            "kvstat_attention_pair": composed_kvstat_attention_pair,
+            "fused_ff": composed_fused_ff,
+            "fused_geglu": composed_fused_geglu,
+            "fused_qkv_attention": composed_kvstat_attention,
+            "fused_qkv_out_attention": composed_fused_qkv_out_attention,
+            "fused_qkv_out_attention_pair":
+                composed_fused_qkv_out_attention_pair}
+# the kernels whose two calls on the same inputs must be bitwise equal in
+# ``check_kernels``, and which ``compare_trees`` times against another tree
+REDESIGNED = ("kvstat_attention", "kvstat_attention_pair", "fused_ff",
+              "fused_geglu")
 
 
 def _kv_project(args):
@@ -438,10 +535,13 @@ def _kv_project_row(args):
 
 def check_kernels():
     """Every kernel of the path at its path shapes against its plain version
-    in fp32; K1 and K2 also against their library composition (timed as
-    ``composed_ms``), K1 with its kv projection timed alone, and two K1 and
-    two K2 calls on the same inputs bitwise equal."""
-    from magicdrive_tpu_torch.kernels import dispatch, reference
+    in fp32, each also timed beside its library composition
+    (``composed_ms``), K1 with its kv projection timed alone, and two calls
+    of each of REDESIGNED on the same inputs bitwise equal."""
+    from magicdrive_tpu_torch.kernels import build, dispatch, reference
+
+    log(f"tensor-map encoding on the host (K3 encodes three a call, K4 "
+        f"two): {build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -451,15 +551,14 @@ def check_kernels():
         err, scale = _worst(got, plain(*map(_f32, args)))
         row = _row(rows, name, label, args, got, err, lambda: kern(*args),
                    lambda: plain(*args))
-        if name in COMPOSED:
-            row["composed_ms"] = cuda_ms(lambda: COMPOSED[name](*args))
-            if not torch.equal(got, kern(*args)):
-                raise AssertionError(f"{name} {label}: two calls on the same "
-                                     "inputs differ")
+        row["composed_ms"] = cuda_ms(lambda: COMPOSED[name](*args))
+        if name in REDESIGNED and not torch.equal(got, kern(*args)):
+            raise AssertionError(f"{name} {label}: two calls on the same "
+                                 "inputs differ")
         if name == "kvstat_attention":
             row["kv_project"] = _kv_project_row(args)
         _gate(name, label, err, scale, KERNEL_TOL, row,
-              "two calls bitwise equal" if name in COMPOSED else "")
+              "two calls bitwise equal" if name in REDESIGNED else "")
     return rows
 
 
@@ -617,6 +716,49 @@ def check_attention_depths() -> None:
             gate("kvstat_attention_pair",
                  f"6 views L={Lk} C={C} H={H} D={D} shifts={shifts}",
                  (x, *w, H, scale, shifts))
+
+
+# The widths C of check_ff_widths: K3 (in C, inner 4C, out C) at one C for
+# each instance of its launcher (ff_instance) up to the largest C that
+# ff_full_fusion_fits sends it at bf16, C = 8 (not a multiple of 16) and
+# 16 among them; K4 (in C, inner 4C) at the path's two widths and one that
+# is not a multiple of 64.
+FF_WIDTHS = {"fused_ff": (8, 16, 64, 128, 192, 256, 320, 576),
+             "fused_geglu": (200, 640, 1280)}
+FF_ROWS = 200  # ragged against the kernels' 128-row blocks
+
+
+def ff_instance(C: int) -> int:
+    """The instance (64-column output tiles a block) of K3's launcher that
+    an output width C takes: tiles of 64 spread evenly over the fewest
+    blocks of at most 5 (``mdk_ff`` in csrc/geglu.cu)."""
+    tiles = -(-C // 64)
+    n_ct = -(-tiles // 5)
+    return -(-tiles // n_ct)
+
+
+def check_ff_widths() -> None:
+    """K3 and K4 at every width of FF_WIDTHS, at FF_ROWS rows, with and
+    without the W1 bias, against their plain versions in fp32; the plain
+    bf16 version's own distance from fp32 is printed beside each."""
+    from magicdrive_tpu_torch.kernels import dispatch, reference
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(5))
+    for name, widths in FF_WIDTHS.items():
+        for C in widths:
+            x = rnd(FF_ROWS, C)
+            w1 = rnd(8 * C, C, scale=C ** -0.5)
+            w2 = (rnd(C, 4 * C, scale=(4 * C) ** -0.5),) \
+                if name == "fused_ff" else ()
+            for b1 in (rnd(8 * C, scale=0.1), None):
+                args = (x, w1, b1, *w2)
+                ref = getattr(reference, name)(*map(_f32, args))
+                err, scale = _worst(getattr(dispatch, name)(*args), ref)
+                bf_err, _ = _worst(getattr(reference, name)(*args), ref)
+                inst = f" instance {ff_instance(C)}" if w2 else ""
+                _gate(name, f"M={FF_ROWS} C={C} bias={b1 is not None}{inst}",
+                      err, scale, KERNEL_TOL,
+                      note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
 
 
 def autograd_cases(gen: torch.Generator):
@@ -853,8 +995,8 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
                 n["flash_attention_fwd"] += steps * branches
                 if route == "out" and (branches == 2 or not unet):
                     n["fused_qkv_attention"] += steps * branches
-            ff = "fused_ff" if dispatch.ff_full_fusion_fits(C, 4 * C, C) \
-                else "fused_geglu"
+            ff = "fused_ff" if dispatch.ff_full_fusion_fits(
+                C, 4 * C, C, esize) else "fused_geglu"
             n[ff] += forwards + steps
     n["flash_attention_bwd_dq"] = n["flash_attention_bwd_dkv"] = \
         n["flash_attention_fwd"]
@@ -972,7 +1114,9 @@ def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
     log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
         f"{100 * (1 - busy / wall):.1f} %); {attention[0]} "
-        f"{_device_ms(rows, attention[1]):.2f} ms, kv_project "
+        f"{_device_ms(rows, attention[1]):.2f} ms, K3 "
+        f"{_device_ms(rows, 'ff_kernel'):.2f} ms, K4 "
+        f"{_device_ms(rows, 'geglu_kernel'):.2f} ms, kv_project "
         f"{_device_ms(rows, 'kv_project_kernel'):.2f} ms; top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
@@ -1187,18 +1331,19 @@ def check_training_calls(setup, mode) -> None:
         f"relative L2 {rel:.3e} (a smoke test, not a gate)")
 
 
-def time_attention(requests: int = 2) -> dict:
-    """The CUDA-event ms of K1 and K2 at their five path shapes (as in
-    ``check_kernels``, K1 with its kv projection alone) and the host-clock
-    seconds of ``requests`` warm ``kvstat`` requests after one warm-up
-    request, through the port this interpreter imports; printed as one JSON
-    line. ``compare_trees`` runs it in another checkout."""
+def time_kernels(requests: int = 2) -> dict:
+    """The CUDA-event ms of the REDESIGNED kernels (K1, K2, K3, K4) at their
+    path shapes (as in ``check_kernels``, K1 with its kv projection alone)
+    and the host-clock seconds of ``requests`` warm ``kvstat`` requests
+    after one warm-up request, through the port this interpreter imports;
+    printed as one JSON line. ``compare_trees`` runs it in another
+    checkout."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     rows = []
     for name, label, args in kernel_cases(
             torch.Generator(device="cuda").manual_seed(0)):
-        if name not in COMPOSED:
+        if name not in REDESIGNED:
             continue
         kern = getattr(dispatch, name)
         rows.append({"name": name, "shape": label,
@@ -1220,19 +1365,21 @@ def time_attention(requests: int = 2) -> dict:
 
 
 def compare_trees(other: str, requests: int = 2) -> None:
-    """K1/K2 and warm ``kvstat`` request times of another checkout (say a
+    """K1-K4 and warm ``kvstat`` request times of another checkout (say a
     ``git archive`` of the parent unpacked into runs/parent) and of this
     one, in turns: other, this, this, other. Each turn is a process of its
     own that imports that tree's port and builds its kernels there; the
-    timing code is this file's (``time_attention``). Prints each turn's
+    timing code is this file's (``time_kernels``). Prints each turn's
     line, then each row's mean over the two turns of each tree."""
+    environment()  # the card and its power limit, for the record
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
     code = ("import importlib.util, sys; sys.path.insert(0, {tree!r}); "
             "spec = importlib.util.spec_from_file_location('smoke', {me!r}); "
             "m = importlib.util.module_from_spec(spec); "
-            "spec.loader.exec_module(m); m.environment(); m.build_kernels(); "
-            "m.time_attention({n})")
+            "spec.loader.exec_module(m); m.environment(); "
+            "m.build_kernels(spill_gate=False); "
+            "m.time_kernels({n})")
     turns = []
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
@@ -1272,6 +1419,7 @@ def main() -> None:
     rows.update(check_flash_kernels())
     check_flash_depths()
     check_attention_depths()
+    check_ff_widths()
     log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
         f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
     check_autograd()

@@ -38,8 +38,9 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: K3 (whole FF) where ``ff_full_fusion_fits``
-    holds, else K4 (stage 1) followed by the stage-2 ``nn.Linear``; their
-    gradients come from ``kernels.autograd``."""
+    holds for the input's element size, as the JAX package decides, else K4
+    (stage 1) followed by the stage-2 ``nn.Linear``; their gradients come
+    from ``kernels.autograd``."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -49,7 +50,8 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        if dispatch.ff_full_fusion_fits(self.dim, self.inner, self.dim):
+        if dispatch.ff_full_fusion_fits(self.dim, self.inner, self.dim,
+                                        x.element_size()):
             return autograd.fused_ff(x, proj.weight, proj.bias,
                                      out.weight) + out.bias
         return out(autograd.fused_geglu(x, proj.weight, proj.bias))

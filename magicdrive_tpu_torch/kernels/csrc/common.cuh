@@ -3,7 +3,9 @@
 // or cudaErrorInvalidValue for a shape or a pointer it does not take, and the
 // Python wrapper raises on anything but 0.
 //  * WMMA fragments (m16n16k16, bf16 in, fp32 accumulate) and a zero-filling
-//    synchronous tile loader, for K3/K4 (geglu.cu) and attend_tile;
+//    synchronous tile loader, for attend_tile;
+//  * the exact GELU of K3/K4 (geglu.cu, on the wgmma pieces of
+//    wgmma_tile.cuh);
 //  * attend_tile, the projection-fused attention core of K7, K8 and the K8
 //    pair (fused_out_attention.cu): WMMA on 64-row tiles, logits, p and the
 //    o accumulator in shared memory. K1 and K2 left it for the register-tile

@@ -198,7 +198,7 @@ def pair_route(L: int, C: int, dim_head: int, esize: int) -> Optional[str]:
 # The JAX package's whole-FF routing rule (kernels/geglu.py
 # ff_full_fusion_fits) with its byte budget, restated so both packages send
 # the same FeedForward widths to the whole-FF kernel. The budget belongs to
-# that rule; K3 sizes its own shared-memory plan (csrc/geglu.cu FFLayout).
+# that rule; K3 sizes its own shared-memory plan (csrc/geglu.cu launch_ff).
 _FF_RULE_BUDGET = 11 << 20
 
 
