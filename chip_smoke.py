@@ -8,7 +8,8 @@ no result line):
      and power limit from nvidia-smi;
   2. build: the hand-written kernels (magicdrive_tpu_torch/kernels/csrc),
      compiled from this checkout, with ptxas's registers and spills; any
-     spill in an instance of K3 or K4 fails the run;
+     spill in a wgmma kernel (K3, K4, the out-projection: SPILL_GATED)
+     fails the run;
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
      12 views), and K5, both launches of K6, the whole K6 and K7 at the
@@ -24,14 +25,18 @@ no result line):
      F.linear projections and F.scaled_dot_product_attention, one per
      neighbour for the pairs, F.linear by Wout for K8; F.linear, the exact
      GELU and F.linear for K3/K4: composed_ms), K1 with its kv projection
-     timed alone (the kv_project sub-row), and the host cost of one TMA
-     tensor-map encoding (K3/K4 encode theirs on every call); two calls of
-     K1-K4 (REDESIGNED) and of the whole K6 on the same inputs must be
-     bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and K1 and K2
-     (ATTENTION_DEPTHS, K2 under both ring-shift sets) also at one head
-     depth for each of their template instances, and K3 and K4 at the
-     widths of FF_WIDTHS (one per K3 instance), at small ragged shapes,
-     against the plain versions; then the autograd of
+     timed alone (the kv_project sub-row), K8 and its pair with their last
+     launch, the out-projection, checked against its plain version and
+     timed alone beside F.linear (the out_project sub-row), and the host
+     cost of one TMA tensor-map encoding (K3, K4 and the out-projection
+     encode theirs on every call); two calls of K1-K4, K7, K8 and the pair
+     (REDESIGNED), of the out-projection and of the whole K6 on the same
+     inputs must be bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and
+     K1, K2, K7, K8 and the K8 pair (ATTENTION_DEPTHS, the pairs under both
+     ring-shift sets, K8 and its pair out-projected to OUT_WIDTH = 72
+     columns) also at one head depth for each of their template instances,
+     and K3 and K4 at the widths of FF_WIDTHS (one per K3 instance), at
+     small ragged shapes, against the plain versions; then the autograd of
      K1-K4, K8 and the K8 pair at the training shapes: every input and weight
      gradient through the kernel route against the plain backward in fp32,
      within 1e-2 * max|ref| or the plain bf16 backward's own error, which
@@ -50,8 +55,10 @@ no result line):
      sits near 1.1e-2, and planted faults in K2 and K4 passed it while the
      per-call check and phase 3 caught both (PERF.md); then one guided step
      under torch.profiler prints its kernels' device time beside its host
-     clock time, with the share of the mode's attention kernels and of
-     their k/v projection, and of K3 and K4;
+     clock time, with the device time of the mode's attention (K1+K2, or
+     K8+pair: the heads' kernel and the out-projection, which is also
+     printed alone), of their k/v projection, and of K3 and K4 (PROFILED
+     names the kernels);
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -68,8 +75,9 @@ no result line):
   8. profile_train_step, per mode: after one more step to warm up, one
      training step under torch.profiler prints its host-clock time, the
      device-busy share (the kernels' summed device time over it), the 8
-     kernels that take the most and the device time of K5 and of K6 in the
-     step.
+     kernels that take the most and the device time of K5, of K6, of the
+     attention heads (K7 among them under "auto"), of the out-projection
+     and of the k/v projection in the step.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
@@ -77,9 +85,10 @@ four path runs of phases 4 and 6 and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
-``compare_trees(other)`` (not run by ``main``) times K1-K4 and warm
-``kvstat`` requests of another checkout and of this one in turns, for a
-kernel change measured against its parent on one card.
+``compare_trees(other)`` (not run by ``main``) times the REDESIGNED kernels
+(K1-K4, K7, K8 and the pair; K8's out-projection alone where the tree has
+it) and warm requests in both fused modes of another checkout and of this
+one in turns, for a kernel change measured against its parent on one card.
 """
 from __future__ import annotations
 
@@ -156,10 +165,15 @@ def spills(compiler_log: str, source: str) -> dict:
     return out
 
 
+# the wgmma kernels' sources and their entry functions' count: K3's five
+# instances and K4 (geglu.cu), the out-projection of K8 and its pair
+SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1}
+
+
 def build_kernels(spill_gate: bool = True) -> None:
     """Build the kernels, print ptxas's registers and spills, and (with
-    ``spill_gate``) fail if an instance of K3 or K4 (csrc/geglu.cu) spills
-    or is missing."""
+    ``spill_gate``) fail if an entry function of SPILL_GATED's sources
+    spills or is missing."""
     from magicdrive_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -171,10 +185,12 @@ def build_kernels(spill_gate: bool = True) -> None:
             log("  " + line.strip())
     build.load()
     if spill_gate and compiler_log:  # empty when already built
-        ff = spills(compiler_log, "geglu.cu")
-        log(f"K3/K4 spills (store, load bytes): {ff}")
-        if len(ff) != 6 or any(st or ld for st, ld in ff.values()):
-            raise AssertionError(f"K3/K4 instances spill or are missing: {ff}")
+        for source, entries in SPILL_GATED.items():
+            got = spills(compiler_log, source)
+            log(f"{source} spills (store, load bytes): {got}")
+            if len(got) != entries or any(st or ld for st, ld in got.values()):
+                raise AssertionError(f"{source}: entry functions spill or are "
+                                     f"missing: {got}")
 
 
 QUEUE_FILL_CYCLES = 20_000_000  # about 11 ms of an H100's clock
@@ -204,10 +220,10 @@ def cuda_ms(fn, iters: int = 10) -> float:
 _FA = "magicdrive_tpu/kernels/flash_attention.py"
 _FU = "magicdrive_tpu/kernels/fused_attention.py"
 _FA_CU = "magicdrive_tpu_torch/kernels/csrc/flash_attention.cu"
+_K1_CU = "magicdrive_tpu_torch/kernels/csrc/kvstat_attention.cu"
 _OUT_CU = "magicdrive_tpu_torch/kernels/csrc/fused_out_attention.cu"
 KERNELS = {
-    "kvstat_attention": (
-        "magicdrive_tpu_torch/kernels/csrc/kvstat_attention.cu", f"{_FU}:211"),
+    "kvstat_attention": (_K1_CU, f"{_FU}:211"),
     "kvstat_attention_pair": (
         "magicdrive_tpu_torch/kernels/csrc/kvstat_pair_attention.cu",
         f"{_FU}:467"),
@@ -218,7 +234,7 @@ KERNELS = {
     "flash_attention_fwd": (_FA_CU, f"{_FA}:75"),
     "flash_attention_bwd_dq": (_FA_CU, f"{_FA}:222"),
     "flash_attention_bwd_dkv": (_FA_CU, f"{_FA}:252"),
-    "fused_qkv_attention": (_OUT_CU, f"{_FU}:77"),
+    "fused_qkv_attention": (_K1_CU, f"{_FU}:77"),
     "fused_qkv_out_attention": (_OUT_CU, f"{_FU}:83"),
     "fused_qkv_out_attention_pair": (_OUT_CU, f"{_FU}:104"),
 }
@@ -340,6 +356,9 @@ def _flops(name, args) -> int:
     if name == "kv_project":  # (x_kv, wk, wv): k and v of every head
         x, wk, wv = args
         return 2 * x.numel() * (wk.shape[0] + wv.shape[0])
+    if name == "out_project":  # (o, wout): K8's product by Wout
+        o, wout = args
+        return 2 * o.numel() * wout.shape[0]
     if name in ("fused_ff", "fused_geglu"):
         x, w1 = args[0], args[1]
         M, K = x.numel() // x.shape[-1], x.shape[-1]
@@ -393,14 +412,16 @@ def bound(name, args, out):
 def _gate(name, label, err, scale, tol, row=None, note=""):
     ok = np.isfinite(err) and err <= tol * scale
     if row is not None:
-        lib, kvp = row["library_ms"], row.get("kv_project")
+        lib = row["library_ms"]
+        kvp = row.get("kv_project") or row.get("out_project")
+        sub = "kv_project" if "kv_project" in row else "out_project"
         note = (f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})" +
                 ("" if lib is None else f" library {lib:.4f} ms") +
                 ("" if "composed_ms" not in row else
                  f" composed {row['composed_ms']:.4f} ms") +
                 ("" if kvp is None else
-                 f" (kv_project {kvp['ms']:.4f} ms, bound "
+                 f" ({sub} {kvp['ms']:.4f} ms, bound "
                  f"{kvp['bound_ms']:.4f} ms {kvp['bound_by']})") +
                 (f"; {note}" if note else ""))
     log(f"  {name:28s} {label:34s} max_abs_err {err:.3e} (max|ref| "
@@ -512,7 +533,9 @@ COMPOSED = {"kvstat_attention": composed_kvstat_attention,
 # the kernels whose two calls on the same inputs must be bitwise equal in
 # ``check_kernels``, and which ``compare_trees`` times against another tree
 REDESIGNED = ("kvstat_attention", "kvstat_attention_pair", "fused_ff",
-              "fused_geglu")
+              "fused_geglu", "fused_qkv_attention", "fused_qkv_out_attention",
+              "fused_qkv_out_attention_pair")
+_OUT_KERNELS = ("fused_qkv_out_attention", "fused_qkv_out_attention_pair")
 
 
 def _kv_project(args):
@@ -533,15 +556,60 @@ def _kv_project_row(args):
     return {"ms": cuda_ms(run), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def _out_project(name, args):
+    """The last launch of K8 (or its pair) alone on its arguments, from the
+    heads' output that K1's (K2's) launches give: -> (the call, its
+    arguments as the bound counts them)."""
+    from magicdrive_tpu_torch.kernels import build, dispatch
+
+    if name == "fused_qkv_out_attention":
+        x_q, x_kv, wq, wk, wv, wout, heads, scale = args
+        o = dispatch.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
+    else:
+        x, wq, wk, wv, wout, heads, scale, shifts = args
+        o = dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
+                                           shifts)
+    lib = build.load()
+    return lambda: dispatch._out_project(lib, o, wout), (o, wout)
+
+
+def _out_project_row(name, label, args):
+    """The out-projection of K8 (or its pair) alone at its shape against its
+    plain version in fp32, with its time, bound, plain time and the time of
+    F.linear on the same inputs; gated as a kernel."""
+    import torch.nn.functional as F
+    from magicdrive_tpu_torch.kernels import reference
+
+    run, (o, wout) = _out_project(name, args)
+    got = run()
+    err, scale = _worst(got, reference.out_projection(o.float(),
+                                                      wout.float()))
+    bound_ms, bound_by = bound("out_project", (o, wout), got)
+    row = {"max_abs_err": err, "ms": cuda_ms(run),
+           "plain_ms": cuda_ms(lambda: reference.out_projection(o, wout)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": cuda_ms(lambda: F.linear(o, wout))}
+    if not torch.equal(got, run()):
+        raise AssertionError(f"out_project {label}: two calls on the same "
+                             "inputs differ")
+    _gate("out_project", label, err, scale, KERNEL_TOL,
+          note=f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}) library "
+          f"{row['library_ms']:.4f} ms; two calls bitwise equal")
+    return row
+
+
 def check_kernels():
     """Every kernel of the path at its path shapes against its plain version
     in fp32, each also timed beside its library composition
-    (``composed_ms``), K1 with its kv projection timed alone, and two calls
+    (``composed_ms``), K1 with its kv projection timed alone, K8 and its
+    pair with their out-projection checked and timed alone, and two calls
     of each of REDESIGNED on the same inputs bitwise equal."""
     from magicdrive_tpu_torch.kernels import build, dispatch, reference
 
-    log(f"tensor-map encoding on the host (K3 encodes three a call, K4 "
-        f"two): {build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
+    log(f"tensor-map encoding on the host (K3 encodes three a call, K4 and "
+        f"the out-projection two): "
+        f"{build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -557,6 +625,8 @@ def check_kernels():
                                  "inputs differ")
         if name == "kvstat_attention":
             row["kv_project"] = _kv_project_row(args)
+        if name in _OUT_KERNELS:
+            row["out_project"] = _out_project_row(name, label, args)
         _gate(name, label, err, scale, KERNEL_TOL, row,
               "two calls bitwise equal" if name in REDESIGNED else "")
     return rows
@@ -676,17 +746,23 @@ def check_flash_depths() -> None:
 
 # one head depth for each instance of K1's and K2's launcher (the depth
 # padded to a multiple of 16: 16, 32, ..., 128), four of them padded; the
-# path takes 40 and 80 only
+# path takes 40 and 80 only. K7, K8 and the K8 pair run the same launcher.
 ATTENTION_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
 RING_SHIFTS = ((5, 1, 6), (1, 2, 6))
+# the out-projection's width in the depth checks: not a multiple of its
+# 64-column tile; at two heads of D=40 its depth H*D = 80 is not a multiple
+# of its 64-deep chunk either
+OUT_WIDTH = 72
 
 
 def check_attention_depths() -> None:
-    """K1 and K2 at every depth of ATTENTION_DEPTHS, at a small shape with
-    ragged q and key tails (200 and 150 rows against 64-row tiles) and a C
-    that is not a multiple of the projection's 32-column chunk, K2 under
-    both ring-shift sets, against their plain versions in fp32; the plain
-    bf16 version's own distance from fp32 is printed beside each. The
+    """K1, K2, K7, K8 and the K8 pair at every depth of ATTENTION_DEPTHS, at
+    a small shape with ragged q and key tails (200 and 150 rows against
+    64-row tiles) and a C that is not a multiple of the projection's
+    32-column chunk, K2 and the K8 pair under both ring-shift sets, K8 and
+    its pair out-projected to OUT_WIDTH columns, against their plain
+    versions in fp32; the plain bf16 version's own distance from fp32 is
+    printed beside each. The
     hidden states are drawn at 0.5 (logits of std 0.25): at 1.0 and D=8 the
     contract's own bf16 q and k casts put the plain bf16 version up to
     1.1e-2 * max|ref| from fp32 (CPU, PERF.md), so the gate would measure
@@ -705,17 +781,22 @@ def check_attention_depths() -> None:
 
     for D in ATTENTION_DEPTHS:
         HD, scale = H * D, D ** -0.5
-        gate("kvstat_attention",
-             f"B={B} Lq={Lq} Lk={Lk} C={C} Ck={Ck} H={H} D={D}",
-             (rnd(B, Lq, C, scale=0.5), rnd(B, Lk, Ck, scale=0.5),
-              rnd(HD, C, scale=C ** -0.5), rnd(HD, Ck, scale=Ck ** -0.5),
-              rnd(HD, Ck, scale=Ck ** -0.5), H, scale))
+        label = f"B={B} Lq={Lq} Lk={Lk} C={C} Ck={Ck} H={H} D={D}"
+        args = (rnd(B, Lq, C, scale=0.5), rnd(B, Lk, Ck, scale=0.5),
+                rnd(HD, C, scale=C ** -0.5), rnd(HD, Ck, scale=Ck ** -0.5),
+                rnd(HD, Ck, scale=Ck ** -0.5))
+        wout = rnd(OUT_WIDTH, HD, scale=HD ** -0.5)
+        gate("kvstat_attention", label, (*args, H, scale))
+        gate("fused_qkv_attention", label, (*args, H, scale))
+        gate("fused_qkv_out_attention", f"{label} C_out={OUT_WIDTH}",
+             (*args, wout, H, scale))
         x = rnd(6, Lk, C, scale=0.5)
         w = [rnd(HD, C, scale=C ** -0.5) for _ in range(3)]
         for shifts in RING_SHIFTS:
-            gate("kvstat_attention_pair",
-                 f"6 views L={Lk} C={C} H={H} D={D} shifts={shifts}",
-                 (x, *w, H, scale, shifts))
+            label = f"6 views L={Lk} C={C} H={H} D={D} shifts={shifts}"
+            gate("kvstat_attention_pair", label, (x, *w, H, scale, shifts))
+            gate("fused_qkv_out_attention_pair", f"{label} C_out={OUT_WIDTH}",
+                 (x, *w, wout, H, scale, shifts))
 
 
 # The widths C of check_ff_widths: K3 (in C, inner 4C, out C) at one C for
@@ -1094,30 +1175,48 @@ def check_path_calls(pipe, batch, mode) -> None:
     _report_calls(f"one guided step ({mode})", stats, generation_calls(mode))
 
 
-def _device_ms(rows, *parts):
-    """The summed device ms of the port's kernels (mdk::) whose name holds
-    one of ``parts``."""
-    return sum(ms for ms, _, k in rows if "mdk::" in k
-               and any(p in k for p in parts))
+# What the profiled steps sum by kernel name: each part is the name of a
+# __global__ function of kernels/csrc. The attention heads of K1, K2, K7,
+# K8 and the K8 pair all run kvstat_kernel; K8 and its pair add
+# out_project_kernel.
+PROFILED = {"heads": ("kvstat_kernel",),
+            "out_project": ("out_project_kernel",),
+            "kv_project": ("kv_project_kernel",),
+            "K3": ("ff_kernel",), "K4": ("geglu_kernel",),
+            "K5": ("flash_fwd_kernel",),
+            "K6": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+
+
+def _device_ms(rows, part):
+    """The summed device ms of the port's kernels that PROFILED's ``part``
+    names, as the profiler prints them: in namespace mdk (or an anonymous
+    namespace inside it), a template's arguments or the call's after the
+    name."""
+    names = PROFILED[part]
+    return sum(ms for ms, _, k in rows if "mdk::" in k and any(
+        f"::{n}{c}" in k for n in names for c in "<("))
+
+
+def _kernel_parts(rows, parts):
+    return ", ".join(f"{p} {_device_ms(rows, p):.2f} ms" for p in parts)
 
 
 def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
     """One guided step under torch.profiler: its host-clock time, the sum of
     its kernels' device times (one stream, so the sum is the busy time), the
-    device time of the attention kernels of the mode and of their k/v
-    projection, and the kernels that take the most."""
+    device time of the mode's attention (the heads, with the out-projection
+    under ``auto``), of the out-projection alone, of the k/v projection, of
+    K3 and K4, and the kernels that take the most."""
     x, t, cond = _step_inputs(pipe, batch)
     wall, rows = _profiled(lambda: pipe.guided_eps(x, t, cond))
     busy = sum(r[0] for r in rows)
-    attention = {"kvstat": ("K1+K2", "kvstat_kernel"),
-                 "auto": ("K8+pair", "fused_out_kernel")}[mode]
+    attention = {"kvstat": "K1+K2", "auto": "K8+pair"}[mode]
+    attn_ms = _device_ms(rows, "heads") + _device_ms(rows, "out_project")
     log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
-        f"{100 * (1 - busy / wall):.1f} %); {attention[0]} "
-        f"{_device_ms(rows, attention[1]):.2f} ms, K3 "
-        f"{_device_ms(rows, 'ff_kernel'):.2f} ms, K4 "
-        f"{_device_ms(rows, 'geglu_kernel'):.2f} ms, kv_project "
-        f"{_device_ms(rows, 'kv_project_kernel'):.2f} ms; top kernels: " +
+        f"{100 * (1 - busy / wall):.1f} %); {attention} {attn_ms:.2f} ms (" +
+        _kernel_parts(rows, ("heads", "out_project")) + "), " +
+        _kernel_parts(rows, ("K3", "K4", "kv_project")) + "; top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
 
@@ -1145,7 +1244,9 @@ def _profiled(fn):
 def profile_train_step(setup, mode, top: int = 8) -> None:
     """One warm training step under torch.profiler: its host-clock time,
     the device-busy share, the kernels that take the most, and the device
-    time of K5 and K6 (the port's flash kernels, named mdk::flash_*)."""
+    time of K5 and K6 (the port's flash kernels, named mdk::flash_*), of
+    the attention heads (K1/K2, or K8, its pair and K7 in their backward),
+    of the out-projection and of the k/v projection."""
     from magicdrive_tpu_torch.train import train_step
 
     modules, cfg, state, batch = setup
@@ -1153,13 +1254,13 @@ def profile_train_step(setup, mode, top: int = 8) -> None:
     wall, rows = _profiled(
         lambda: train_step(modules, state, batch, cfg, draws=draws))
     busy = sum(r[0] for r in rows)
-    k5 = _device_ms(rows, "flash_fwd_kernel")
-    k6 = _device_ms(rows, "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    k5, k6 = _device_ms(rows, "K5"), _device_ms(rows, "K6")
     log(f"training step ({mode}) under the profiler: {wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device busy "
         f"{100 * busy / wall:.1f} %); K5 {k5:.2f} ms, K6 {k6:.2f} ms, K5+K6 "
-        f"{k5 + k6:.2f} ms ({100 * (k5 + k6) / busy:.1f} % of kernel time); "
-        "top kernels: " +
+        f"{k5 + k6:.2f} ms ({100 * (k5 + k6) / busy:.1f} % of kernel time), " +
+        _kernel_parts(rows, ("heads", "out_project", "kv_project")) +
+        "; top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
 
@@ -1332,12 +1433,13 @@ def check_training_calls(setup, mode) -> None:
 
 
 def time_kernels(requests: int = 2) -> dict:
-    """The CUDA-event ms of the REDESIGNED kernels (K1, K2, K3, K4) at their
-    path shapes (as in ``check_kernels``, K1 with its kv projection alone)
-    and the host-clock seconds of ``requests`` warm ``kvstat`` requests
-    after one warm-up request, through the port this interpreter imports;
-    printed as one JSON line. ``compare_trees`` runs it in another
-    checkout."""
+    """The CUDA-event ms of the REDESIGNED kernels (K1-K4, K7, K8 and the
+    K8 pair) at their path shapes (as in ``check_kernels``, K1 with its kv
+    projection alone, K8 and its pair with their out-projection alone where
+    the tree has one) and the host-clock seconds of ``requests`` warm
+    requests in each fused mode after one warm-up request, through the port
+    this interpreter imports; printed as one JSON line. ``compare_trees``
+    runs it in another checkout."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     rows = []
@@ -1350,27 +1452,34 @@ def time_kernels(requests: int = 2) -> dict:
                      "ms": cuda_ms(lambda: kern(*args))})
         if name == "kvstat_attention":
             rows[-1]["kv_project_ms"] = cuda_ms(_kv_project(args)[0])
+        if name in _OUT_KERNELS and hasattr(dispatch, "_out_project"):
+            rows[-1]["out_project_ms"] = cuda_ms(_out_project(name, args)[0])
     _, pipe, batches = set_up()
-    seconds = []
-    with dispatch.fused_mode("kvstat"):
-        gen = torch.Generator(device="cuda").manual_seed(42)
-        for i in range(requests + 1):
-            t0 = time.perf_counter()
-            pipe(batches[i % len(batches)], generator=gen)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-    result = {"kernels": rows, "warm_s_per_request": seconds[1:]}
+    seconds = {}
+    for mode in dispatch.FUSED_MODES:
+        with dispatch.fused_mode(mode):
+            gen = torch.Generator(device="cuda").manual_seed(42)
+            runs = []
+            for i in range(requests + 1):
+                t0 = time.perf_counter()
+                pipe(batches[i % len(batches)], generator=gen)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            seconds[mode] = runs[1:]
+    result = {"kernels": rows, "warm_s_per_request": seconds}
     print(json.dumps(result), flush=True)
     return result
 
 
 def compare_trees(other: str, requests: int = 2) -> None:
-    """K1-K4 and warm ``kvstat`` request times of another checkout (say a
-    ``git archive`` of the parent unpacked into runs/parent) and of this
-    one, in turns: other, this, this, other. Each turn is a process of its
-    own that imports that tree's port and builds its kernels there; the
-    timing code is this file's (``time_kernels``). Prints each turn's
-    line, then each row's mean over the two turns of each tree."""
+    """The REDESIGNED kernels' times and warm request times in both fused
+    modes of another checkout (say a ``git archive`` of the parent unpacked
+    into runs/parent) and of this one, in turns: other, this, this, other.
+    Each turn is a process of its own that imports that tree's port and
+    builds its kernels there; the timing code is this file's
+    (``time_kernels``). Prints each turn's line, then each row's mean over
+    the two turns of each tree (a time only one tree has is printed
+    alone)."""
     environment()  # the card and its power limit, for the record
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
@@ -1398,15 +1507,20 @@ def compare_trees(other: str, requests: int = 2) -> None:
         for side in ("other", "this"):
             got = [r["kernels"][i] for s, r in turns if s == side]
             means[side] = {k: sum(g[k] for g in got) / len(got)
-                           for k in row if k.endswith("ms")}
+                           for k in got[0] if k.endswith("ms")}
+        keys = sorted(set(means["other"]) | set(means["this"]))
         log(f"{row['name']} {row['shape']}: " + "; ".join(
             f"{k} other {means['other'][k]:.4f} this {means['this'][k]:.4f} "
             f"({means['this'][k] / means['other'][k]:.3f}x)"
-            for k in means["other"]))
-    for side in ("other", "this"):
-        log(f"warm kvstat s/request, {side}: " + ", ".join(
-            f"{s:.4f}" for lab, r in turns if lab == side
-            for s in r["warm_s_per_request"]))
+            if k in means["other"] and k in means["this"] else
+            f"{k} " + " ".join(f"{side} {means[side][k]:.4f}"
+                               for side in means if k in means[side])
+            for k in keys))
+    for mode in turns[1][1]["warm_s_per_request"]:
+        for side in ("other", "this"):
+            log(f"warm {mode} s/request, {side}: " + ", ".join(
+                f"{s:.4f}" for lab, r in turns if lab == side
+                for s in r["warm_s_per_request"][mode]))
 
 
 def main() -> None:

@@ -40,10 +40,7 @@ _SIGNATURES = {
     "mdk_flash_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P]),
     "mdk_flash_bwd_dq": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "mdk_flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_P]),
-    "mdk_fused_qkv_attention": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "mdk_fused_qkv_out_attention": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
-    "mdk_fused_qkv_out_attention_pair": (_I, [_P] * 6 + [_I] * 6 + [_F]
-                                         + [_I] * 3 + [_P]),
+    "mdk_out_project": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "mdk_tensor_map_encode_us": (_F, [_I]),
     "mdk_error_string": (ctypes.c_char_p, [_I]),
 }

@@ -1,237 +1,185 @@
-// K7 and K8: the projection-fused attention with the heads looped inside one
-// block, and K8's out-projection fused as its epilogue, for Hopper (sm_90a).
+// The out-projection of K8 and of the K8 pair for Hopper (sm_90a).
 //
-// Replaces the Pallas kernels magicdrive_tpu/kernels/fused_attention.py
+// K7, K8 and the K8 pair replace the Pallas kernels
+// magicdrive_tpu/kernels/fused_attention.py
 //  * _fused_kernel (K7; launcher _fused_fwd_impl, entry fused_qkv_attention):
 //    o_h = softmax((x_q Wq_h) scale (x_kv Wk_h)^T) (x_kv Wv_h) per head,
-//    written as (B, Lq, H*D);
+//    written as (B, Lq, H*D): K1's function;
 //  * _fused_kernel_out (K8; launcher _fused_fwd_impl with wout, entry
 //    fused_qkv_out_attention): y = sum_h bf16(o_h) Wout_h^T, fp32
 //    accumulation, one cast, no bias, written as (B, Lq, C_out);
 //  * _fused_kernel_out2 (the K8 pair; launcher _pair_fwd_impl, entry
 //    fused_qkv_out_attention_pair): per head the two ring neighbours'
-//    normalised outputs summed in fp32 before the cast, then as K8.
-// One template serves all three, as JAX's share _fused_fwd_impl.
+//    normalised outputs summed in fp32 before the cast (K2's function), then
+//    as K8.
 //
-// Design. k and v come from K1's projection kernel (mdk_kv_project) in a
-// (B, H, Lk, D) workspace: the TPU kernel's per-q-block recompute of k/v is
-// a VMEM tile plan, not the contract. Grid (q tiles of 64 rows, B); each
-// block loops over the H heads and runs, per head, attend_tile of
-// common.cuh (the q-tile projection and the streamed online softmax K1 and
-// K2 run). Each o_h goes, cast to bf16, into a 64 x H*D o tile in shared
-// memory at columns h*D. K7 writes that tile out. K8 multiplies it by
-// Wout^T with WMMA into fp32, 64 output columns at a time, staging Wout
-// tiles in the k/v/logit buffers the heads no longer need, and writes bf16
-// (B, Lq, C_out): the (B, Lq, H*D) attention output never reaches device
-// memory.
+// Design. The TPU kernels keep o in VMEM and recompute k/v per q block; both
+// are tile plans, not the contract. Here each is K1's or K2's launches
+// (kvstat_attention.cu, proj_attend.cuh: k/v projected once into a
+// (B, H, Lk, D) workspace, then one block per (64-row q tile, head, batch)
+// on the register-tile core), and K8 and its pair add this file's kernel,
+// which multiplies the bf16 (B*Lq, H*D) output by Wout^T. The summed heads of
+// the contract are one product over K = H*D with an fp32 accumulator, so the
+// cast points are the Pallas kernels': bf16 o_h (the pair: one cast of the
+// fp32 sum), fp32 accumulation over every head, one bf16 cast. The o
+// workspace (10.75 MB at the 28x50 level with 12 views) costs about 6 us of
+// device-memory traffic to write and read back.
 //
-// Bound. At the 224x400 level 0 (L=1400, C=320, D=40, 8 heads) the logits
-// and PV products (4*Lq*Lk*D flops per head) dominate, and the inputs are a
-// few MB: the kernel is bound by operations. Its plan does not serve that
-// bound well: a block walks its 8 heads in series, so the grid has only
-// ceil(Lq/64)*B blocks (264 at level 0 with 12 views, 72 at level 1) at one
-// or two blocks per SM for the shared memory of the o tile. That is the
-// price of keeping o out of device memory; it is recorded, not tuned.
+// The out-projection (out_project_kernel) is a plain matrix product,
+// y (M, N) = o (M, K) . Wout^T with Wout (N, K) in nn.Linear layout, built as
+// K4 (geglu.cu) is: a block of 128 rows x 64 output columns, two consumer
+// warpgroups of 64 rows and one producer warp that keeps TMA loads of
+// 128-byte swizzled 64-deep K chunks in flight through a four-stage mbarrier
+// ring; SS wgmma (m64n64k16) accumulates in fp32 registers. The epilogue casts
+// once to bf16, stages the 128 x 64 tile in the drained ring and writes it as
+// 16-byte vectors. TMA zero-fills the ragged edges (rows past M, K columns past
+// H*D = 80 say, Wout rows past N), and rows and columns past M and N are not
+// stored. One thread writes each output element, with no atomics, so two calls
+// on the same inputs are bitwise equal.
+//
+// Bound. At the path's shapes (M = 16,800, K = N = 320 at level 0; M = 4,200,
+// K = N = 640 at level 1) the product is 3.44 GFLOP (3.5 us at the bf16
+// tensor peak) against 21.7 or 10.8 MB of o, Wout and y (6.5 or 3.2 us at
+// 3.35 TB/s): bound by bytes at level 0. The grid runs the output-column
+// tiles of one row block side by side (blockIdx.x), so o comes from device
+// memory about once and from L2 for the other tiles.
 #include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace mdk {
 
-constexpr int EP_BN = 64;  // output columns per epilogue pass
-constexpr int EP_KC = 64;  // H*D chunk per Wout tile
-constexpr int EP_LDW = EP_KC + 8;
-constexpr int EP_LDS = EP_BN + 4;
+constexpr int OP_THREADS = 288;    // warpgroups 0-1 consume, warp 8 produces
+constexpr int OP_CONSUMERS = 256;
+constexpr int OP_BM = 128, OP_BN = 64, OP_BK = 64, OP_STAGES = 4;
+constexpr uint32_t OP_A_BOX = OP_BM * OP_BK * 2;  // 128 rows of o, 16 KB
+constexpr uint32_t OP_B_BOX = OP_BN * OP_BK * 2;  // 64 rows of Wout, 8 KB
+constexpr uint32_t OP_STAGE = OP_A_BOX + OP_B_BOX;
+constexpr uint32_t OP_WG_ROWS = 64 * OP_BK * 2;   // a warpgroup's 64 rows
+constexpr int OP_LDC = OP_BN + 8;  // bf16 pitch of the staged output tile
+constexpr size_t OP_SMEM = wg::SW128_ATOM + OP_STAGES * OP_STAGE +
+                           2 * OP_STAGES * 8;
+static_assert(OP_BM * OP_LDC * 2 <= OP_STAGES * OP_STAGE,
+              "the output tile is staged in the ring");
 
-// Epilogue scratch inside the attention layout's k/v/logit/p buffers
-// (KS..OS), free once the last head is done.
-template <int DP, int NBR>
-struct EpLayout {
-  using Lay = AttnLayout<DP, NBR>;
-  static constexpr size_t WT = Lay::KS;
-  static constexpr size_t ST = align128(WT + sizeof(bf16) * EP_BN * EP_LDW);
-  static_assert(ST + sizeof(float) * ATT_BQ * EP_LDS <= Lay::OS,
-                "epilogue scratch overlaps the output accumulator");
-};
-
-__host__ __device__ constexpr int ceil64(int x) { return (x + 63) / 64 * 64; }
-
-// the o tile (64 x ceil64(H*D) bf16) follows the attention layout
-__host__ __device__ constexpr int otile_ld(int HD) { return ceil64(HD) + 8; }
-
-template <int DP, int NBR>
-__host__ __device__ constexpr size_t fused_out_bytes(int HD) {
-  return AttnLayout<DP, NBR>::BYTES + sizeof(bf16) * ATT_BQ * otile_ld(HD);
-}
-
-template <int DP, int NBR, bool OUT>
-__global__ void __launch_bounds__(ATT_THREADS)
-fused_out_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
-                 const bf16* __restrict__ kws, const bf16* __restrict__ vws,
-                 const bf16* __restrict__ wout, bf16* __restrict__ out,
-                 int Lq, int C, int Lk, int H, int D, int C_out, float scale,
-                 int shift0, int shift1, int n_views) {
-  using Lay = AttnLayout<DP, NBR>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * ATT_BQ, b = blockIdx.y;
+__global__ void __launch_bounds__(OP_THREADS, 2)
+out_project_kernel(const __grid_constant__ CUtensorMap tm_o,
+                   const __grid_constant__ CUtensorMap tm_w,
+                   bf16* __restrict__ out, int M, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + wg::SW128_ATOM - 1) & ~(wg::SW128_ATOM - 1);
+  const uint32_t bars = base + OP_STAGES * OP_STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (OP_STAGES + s); };
+  const int n0 = blockIdx.x * OP_BN, m0 = blockIdx.y * OP_BM;
+  const int KT = (K + OP_BK - 1) / OP_BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  const int HD = H * D, HDP = ceil64(HD), LDT = otile_ld(HD);
-  bf16* ot = reinterpret_cast<bf16*>(smem + Lay::BYTES);
 
-  // the columns past H*D enter the epilogue's products: zeros, not garbage
-  const bf16 zero = __float2bfloat16(0.0f);
-  for (int i = threadIdx.x; i < ATT_BQ * (HDP - HD); i += ATT_THREADS)
-    ot[(i / (HDP - HD)) * LDT + HD + i % (HDP - HD)] = zero;
-
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();
-    const float* fin = attend_tile<DP, NBR>(smem, xq, wq, kws, vws, Lq, C,
-                                            Lk, H, D, scale, shift0, shift1,
-                                            n_views, q0, h, b);
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = r0 + i / D, c = i % D;
-      ot[r * LDT + h * D + c] = __float2bfloat16(fin[r * Lay::LDO + c]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < OP_STAGES; ++s) {
+      wg::mbar_init(full(s), 1);
+      wg::mbar_init(empty(s), OP_CONSUMERS);
     }
+    wg::mbar_fence_init();
   }
   __syncthreads();
 
-  if (!OUT) {  // K7: the o tile to (B, Lq, H*D), 16-byte vectors
-    const int vpr = HD / 8;
-    for (int i = threadIdx.x; i < ATT_BQ * vpr; i += ATT_THREADS) {
-      const int r = i / vpr, c = (i % vpr) * 8;
-      if (q0 + r < Lq)
-        *reinterpret_cast<uint4*>(out + ((long)b * Lq + q0 + r) * HD + c) =
-            *reinterpret_cast<const uint4*>(ot + r * LDT + c);
+  if (warp == 8) {  // producer: o rows m0.., then Wout rows n0.., per chunk
+    if (lane == 0) {
+      wg::tma_prefetch_map(&tm_o);
+      wg::tma_prefetch_map(&tm_w);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        wg::mbar_wait(empty(s), phase ^ 1);
+        wg::mbar_expect_tx(full(s), OP_STAGE);
+        const uint32_t st = base + s * OP_STAGE;
+        wg::tma_load_2d(st, &tm_o, full(s), kt * OP_BK, m0);
+        wg::tma_load_2d(st + OP_A_BOX, &tm_w, full(s), kt * OP_BK, n0);
+        if (++s == OP_STAGES) s = 0, phase ^= 1;
+      }
     }
     return;
   }
 
-  // K8: y = o_tile . Wout^T, Wout (C_out, H*D) row-major
-  using Ep = EpLayout<DP, NBR>;
-  bf16* wt = reinterpret_cast<bf16*>(smem + Ep::WT);
-  float* st = reinterpret_cast<float*>(smem + Ep::ST);
-  for (int n0 = 0; n0 < C_out; n0 += EP_BN) {
-    FragC acc[EP_BN / 16];
+  // consumer warpgroup w: rows m0 + 64 w .. + 63 of the 64 output columns
+  const int w = warp / 4;
+  float d[32];
 #pragma unroll
-    for (int j = 0; j < EP_BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int k0 = 0; k0 < HDP; k0 += EP_KC) {
-      __syncthreads();  // every warp is done with the previous Wout tile
-      load_tile(wt, EP_LDW, wout, HD, EP_BN, EP_KC, n0, k0, C_out, HD);
-      __syncthreads();
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < KT; ++kt) {
+    wg::mbar_wait(full(s), phase);
+    const uint32_t st = base + s * OP_STAGE;
+    wg::mma_fence();
 #pragma unroll
-      for (int kk = 0; kk < EP_KC; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, ot + r0 * LDT + k0 + kk, LDT);
-#pragma unroll
-        for (int j = 0; j < EP_BN / 16; ++j) {
-          FragBt w;
-          wmma::load_matrix_sync(w, wt + j * 16 * EP_LDW + kk, EP_LDW);
-          wmma::mma_sync(acc[j], a, w, acc[j]);
-        }
-      }
+    for (int kk = 0; kk < OP_BK / 16; ++kk)
+      wg::mma_ss_n64(d, wg::sw128(st + w * OP_WG_ROWS + 32 * kk),
+                     wg::sw128(st + OP_A_BOX + 32 * kk));
+    wg::mma_commit();
+    if (kt > 0) {  // the previous chunk's products are done: free its slot
+      wg::mma_wait<1>();
+      wg::mbar_arrive(empty(prev));
     }
-#pragma unroll
-    for (int j = 0; j < EP_BN / 16; ++j)
-      wmma::store_matrix_sync(st + r0 * EP_LDS + j * 16, acc[j], EP_LDS,
-                              wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * EP_BN; i += 32) {
-      const int r = r0 + i / EP_BN, c = i % EP_BN;
-      if (q0 + r < Lq && n0 + c < C_out)
-        out[((long)b * Lq + q0 + r) * C_out + n0 + c] =
-            __float2bfloat16(st[r * EP_LDS + c]);
-    }
-    __syncwarp();
+    prev = s;
+    if (++s == OP_STAGES) s = 0, phase ^= 1;
   }
-}
+  wg::mma_wait<0>();
+  wg::fence_operands(d);
 
-template <int NBR, bool OUT>
-static cudaError_t launch_fused_out(const bf16* xq, const bf16* wq,
-                                    const bf16* kws, const bf16* vws,
-                                    const bf16* wout, bf16* out, int B,
-                                    int Lq, int C, int Lk, int H, int D,
-                                    int C_out, float scale, int shift0,
-                                    int shift1, int n_views,
-                                    cudaStream_t stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || C <= 0 || C % 8 || H <= 0 || D <= 0 ||
-      D > 128 || D % 8 || (OUT && C_out <= 0))
-    return cudaErrorInvalidValue;
-  const dim3 grid((Lq + ATT_BQ - 1) / ATT_BQ, B);
-  const int dp = (D + 15) / 16 * 16;
-#define MDK_FUSED_CASE(DPV)                                                  \
-  case DPV: {                                                                \
-    auto kern = fused_out_kernel<DPV, NBR, OUT>;                             \
-    const size_t bytes = fused_out_bytes<DPV, NBR>(H * D);                   \
-    cudaError_t e = allow_smem(kern, bytes);                                 \
-    if (e != cudaSuccess) return e;                                          \
-    kern<<<grid, ATT_THREADS, bytes, stream>>>(xq, wq, kws, vws, wout, out,  \
-                                               Lq, C, Lk, H, D, C_out,       \
-                                               scale, shift0, shift1,        \
-                                               n_views);                     \
-    return cudaGetLastError();                                               \
+  // epilogue: every load was consumed, so once both warpgroups' products
+  // are done the ring is free; the tile is cast once, staged there and
+  // leaves as 16-byte vectors
+  asm volatile("bar.sync 1, %0;\n" ::"n"(OP_CONSUMERS) : "memory");
+  bf16* cs = reinterpret_cast<bf16*>(smem_raw + (base - raw));
+  const int g = lane / 4, q = lane % 4;
+  const int r0 = 64 * w + 16 * (warp % 4) + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(cs + (r0 + 8 * h) * OP_LDC + 8 * j +
+                                   2 * q) =
+          wg::pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(OP_CONSUMERS) : "memory");
+  constexpr int VPR = OP_BN / 8;  // vectors a row
+  for (int i = threadIdx.x; i < OP_BM * VPR; i += OP_CONSUMERS) {
+    const int r = i / VPR, c = (i % VPR) * 8;
+    if (m0 + r < M && n0 + c < N)  // N % 8 == 0: the whole vector is in
+      *reinterpret_cast<uint4*>(out + (long)(m0 + r) * N + n0 + c) =
+          *reinterpret_cast<const uint4*>(cs + r * OP_LDC + c);
   }
-  switch (dp) {
-    MDK_FUSED_CASE(16)
-    MDK_FUSED_CASE(32)
-    MDK_FUSED_CASE(48)
-    MDK_FUSED_CASE(64)
-    MDK_FUSED_CASE(80)
-    MDK_FUSED_CASE(96)
-    MDK_FUSED_CASE(112)
-    MDK_FUSED_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef MDK_FUSED_CASE
 }
 
 }  // namespace mdk
 
 extern "C" {
 
-// K7. xq: (B, Lq, C); wq: (H*D, C); k, v: (B, H, Lk, D) from
-// mdk_kv_project; out: (B, Lq, H*D) bf16
-int mdk_fused_qkv_attention(const void* xq, const void* wq, const void* k,
-                            const void* v, void* out, int B, int Lq, int C,
-                            int Lk, int H, int D, float scale, void* stream) {
-  using mdk::bf16;
-  return (int)mdk::launch_fused_out<1, false>(
-      static_cast<const bf16*>(xq), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v), nullptr,
-      static_cast<bf16*>(out), B, Lq, C, Lk, H, D, 0, scale, 0, 0, 1,
-      static_cast<cudaStream_t>(stream));
-}
-
-// K8. As K7, with wout: (C_out, H*D); out: (B, Lq, C_out) bf16
-int mdk_fused_qkv_out_attention(const void* xq, const void* wq, const void* k,
-                                const void* v, const void* wout, void* out,
-                                int B, int Lq, int C, int Lk, int H, int D,
-                                int C_out, float scale, void* stream) {
-  using mdk::bf16;
-  return (int)mdk::launch_fused_out<1, true>(
-      static_cast<const bf16*>(xq), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(wout), static_cast<bf16*>(out), B, Lq, C, Lk,
-      H, D, C_out, scale, 0, 0, 1, static_cast<cudaStream_t>(stream));
-}
-
-// The K8 pair. x: (B, L, C) the views' hidden states; k, v: (B, H, L, D)
-// projected from x; neighbour i of view b read at batch
-// (b // n) * n + (b % n + shift_i) % n; out: (B, L, C_out) bf16
-int mdk_fused_qkv_out_attention_pair(const void* x, const void* wq,
-                                     const void* k, const void* v,
-                                     const void* wout, void* out, int B,
-                                     int L, int C, int H, int D, int C_out,
-                                     float scale, int shift1, int shift2,
-                                     int n_views, void* stream) {
-  using mdk::bf16;
-  if (n_views <= 0 || B % n_views != 0 || shift1 < 0 || shift2 < 0)
+// o: (M, K) bf16, the heads' output (B*Lq rows of H*D); wout: (N, K) bf16 in
+// nn.Linear layout; out: (M, N) bf16. K and N multiples of 8 (16-byte TMA
+// strides and stores), every pointer 16-byte aligned.
+int mdk_out_project(const void* o, const void* wout, void* out, int M, int K,
+                    int N, void* stream) {
+  using namespace mdk;
+  if (M <= 0 || K <= 0 || K % 8 || N <= 0 || N % 8 ||
+      (M + OP_BM - 1) / OP_BM > 65535 || !aligned16({o, wout, out}))
     return (int)cudaErrorInvalidValue;
-  return (int)mdk::launch_fused_out<2, true>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wq),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(wout), static_cast<bf16*>(out), B, L, C, L, H,
-      D, C_out, scale, shift1, shift2, n_views,
-      static_cast<cudaStream_t>(stream));
+  CUtensorMap to, tw;
+  cudaError_t e = wg::encode_2d(&to, o, M, K, OP_BM, OP_BK,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = wg::encode_2d(&tw, wout, N, K, OP_BN, OP_BK,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  static unsigned opted_in = 0;
+  if (e == cudaSuccess)
+    e = allow_smem_once(out_project_kernel, OP_SMEM, opted_in);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((N + OP_BN - 1) / OP_BN, (M + OP_BM - 1) / OP_BM);
+  out_project_kernel<<<grid, OP_THREADS, OP_SMEM,
+                       static_cast<cudaStream_t>(stream)>>>(
+      to, tw, static_cast<bf16*>(out), M, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -60,12 +60,9 @@ constexpr int BM = 128;          // rows a block, 64 a consumer warpgroup
 constexpr int BK = 64;           // K chunk: one 128-byte swizzled row
 constexpr uint32_t X_BOX = BM * BK * 2;  // one 128 x 64 x tile, 16 KB
 constexpr uint32_t WG_ROWS_BYTES = 64 * BK * 2;  // a warpgroup's 64 rows
-constexpr uint32_t SW128_ATOM = 1024;
 constexpr uint32_t SW64_ATOM = 512;
-
-__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
-  return wg::desc(addr, wg::SW128, SW128_ATOM);
-}
+using wg::SW128_ATOM;
+using wg::sw128;
 
 // ---------------------------------------------------------------------------
 // K4
@@ -382,19 +379,6 @@ static int max_smem_optin() {
                              dev) != cudaSuccess)
     return 0;
   return bytes;
-}
-
-// The dynamic shared-memory opt-in of `kernel`, made once per device (bit d
-// of `devices`) rather than on every launch, which would cost host time.
-template <typename Kernel>
-static cudaError_t allow_smem_once(Kernel kernel, size_t bytes,
-                                   unsigned& devices) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (devices >> (dev & 31) & 1u)) return e;
-  e = allow_smem(kernel, bytes);
-  if (e == cudaSuccess) devices |= 1u << (dev & 31);
-  return e;
 }
 
 template <int NC>

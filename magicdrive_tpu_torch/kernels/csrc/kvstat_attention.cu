@@ -12,7 +12,7 @@
 // shared memory, so K1 is two launches here:
 //  1. kv_project_kernel writes k and v once per (batch, head) into a
 //     (B, H, Lk, D) bf16 workspace: the stand-in for kv-stationary scratch.
-//     K2, K7, K8 and the K8 pair share it. It was a WMMA GEMM with
+//     K2, K7, K8 and the K8 pair run it too. It was a WMMA GEMM with
 //     synchronous loads and 2-byte stores through an fp32 tile, and took
 //     0.1045 of K1's 0.3558 ms at L=1400 once the attention below was
 //     redesigned (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); it is now
@@ -28,8 +28,8 @@
 // ms) against 11.4 GFLOP (0.0115 ms). Each block reads its head's k/v once
 // from L2; q never reaches device memory.
 //
-// Design against the six faults of the WMMA core it replaces (attend_tile,
-// common.cuh, which K7/K8 keep):
+// Design against the six faults of the WMMA core it replaced (attend_tile,
+// deleted once K7 and K8 moved to this core too):
 //  1. logits went to shared memory in fp32: they stay in mma.sync C
 //     fragments (m16n8k16 on ldmatrix fragments);
 //  2. the softmax ran row by row across a warp, two 5-step reductions a

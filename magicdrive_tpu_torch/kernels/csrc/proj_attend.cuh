@@ -1,8 +1,8 @@
 // The projection-fused attention core on register tiles, for Hopper
 // (sm_90a), and the K1/K2 kernel built on it. K1 (kvstat_attention.cu) and
-// K2 (kvstat_pair_attention.cu) run the core once per block; the K8 pair and
-// K8 can loop it over the heads of a block (it starts with a barrier and
-// ends with no copy in flight, so its shared memory is free between calls).
+// K2 (kvstat_pair_attention.cu) run the core once per block, and so do K7
+// (K1's launches), K8 (K1's, then the out-projection of
+// fused_out_attention.cu) and the K8 pair (K2's, then the out-projection).
 //
 // proj_attend: one 64-row q tile of one (batch, head) on four warps, each
 // owning 16 rows, from flash_tile.cuh's pieces:

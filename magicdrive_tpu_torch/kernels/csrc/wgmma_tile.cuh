@@ -1,6 +1,7 @@
 // Hopper (sm_90a) pieces of the warp-specialised matrix-product kernels
-// K3 and K4 (geglu.cu): 2-D TMA loads into 128- or 64-byte swizzled shared
-// tiles, mbarrier rings between one producer warp and the consumer
+// K3 and K4 (geglu.cu) and the out-projection of K8 and its pair
+// (fused_out_attention.cu): 2-D TMA loads into 128- or 64-byte swizzled
+// shared tiles, mbarrier rings between one producer warp and the consumer
 // warpgroups, shared-memory matrix descriptors, and wgmma.mma_async
 // (bf16 in, fp32 accumulate) with A from shared memory (SS) or from
 // registers (RS); setmaxnreg; and the host-side encoding of the tensor
@@ -148,6 +149,13 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, Swizzle sw,
                                          uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)sw << 62);
+}
+
+constexpr uint32_t SW128_ATOM = 1024;  // 8 rows of 128 bytes
+
+// the descriptor of a K-major tile of 64-value (128-byte swizzled) rows
+__device__ __forceinline__ uint64_t sw128(uint32_t addr) {
+  return desc(addr, SW128, SW128_ATOM);
 }
 
 __device__ __forceinline__ void mma_fence() {

@@ -8,7 +8,9 @@ no fallback from one to the other.
 
 ``LAUNCHES`` counts, per kernel, the launches made through its wrapper
 (``chip_smoke.py`` reads it to show the main path ran every kernel); K6's
-wrapper launches two kernels and counts each.
+wrapper launches two kernels and counts each. The attention wrappers count
+one per call: K1, K2 and K7 are the kv projection and the heads' kernel, K8
+and its pair add the out-projection.
 
 The routing rules restate the JAX package's decisions as pure functions of
 ints, so both packages send each shape to the same kernel:
@@ -78,7 +80,7 @@ def reset_launches() -> None:
 # The JAX package's VMEM byte rules (kernels/fused_attention.py _auto_bq,
 # _auto_bq_kvstat; budget kernels/flash_attention.py _VMEM_BUDGET) with
 # their constants. They belong to the routing only: the CUDA kernels size
-# their own shared-memory plans (csrc/common.cuh AttnLayout).
+# their own shared-memory plans (csrc/proj_attend.cuh ProjAttendSmem).
 _ATTN_RULE_BUDGET = 11 << 20
 _KV_CHUNK = 512
 _BQ_CANDIDATES = (1024, 768, 512, 384, 256, 128)
@@ -264,11 +266,25 @@ def _project_kv(lib, x_kv, wk, wv, heads):
     return k, v
 
 
+def _out_project(lib, o, wout):
+    """The out-projection launch of K8 and its pair: bf16(o) Wout^T with
+    fp32 accumulation over H*D, cast once, no bias. o (B, Lq, H*D), wout
+    (C_out, H*D) -> (B, Lq, C_out)."""
+    B, Lq, HD = o.shape
+    C_out = wout.shape[0]
+    y = torch.empty(B, Lq, C_out, dtype=o.dtype, device=o.device)
+    _run(lib.mdk_out_project, _ptr(o), _ptr(wout), _ptr(y), B * Lq, HD,
+         C_out, _stream())
+    return y
+
+
 def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, shifts=None):
-    """Launch one projection-fused attention kernel, ``mdk_<name>``: k and
-    v projected once by K1's projection kernel, then K1, K2, K7, K8 or the
-    K8 pair (``wout`` given: out-projected; ``shifts`` given: the ring
-    pair, x_kv being x_q itself). -> (B, Lq, H*D) or (B, Lq, C_out)."""
+    """One projection-fused attention, counted once under ``name``: k and v
+    projected once by K1's projection kernel, then the heads by K1's kernel
+    (with ``shifts``, K2's: the ring pair, x_kv being x_q itself) into
+    (B, Lq, H*D), and with ``wout`` that output out-projected into
+    (B, Lq, C_out). K7 is K1's launches; K8 and its pair add the
+    out-projection."""
     from . import build
 
     _check(name, x_q, x_kv, wq, wk, wv, wout)
@@ -285,16 +301,18 @@ def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, shifts=None):
         raise ValueError(f"{name}: shapes do not agree")
     lib = build.load()
     k, v = _project_kv(lib, x_kv, wk, wv, heads)  # once for every view
-    C_out = () if wout is None else (wout.shape[0],)
-    out = torch.empty(B, Lq, *(C_out or (heads * D,)), dtype=x_q.dtype,
-                      device=x_q.device)
-    ptrs = [_ptr(t) for t in (x_q, wq, k, v, wout, out) if t is not None]
-    # the pair's kernels take one length: x_kv is x_q
-    dims = (B, Lq, C) + (() if shifts else (x_kv.shape[1],)) + (heads, D)
-    _run(getattr(lib, f"mdk_{name}"), *ptrs, *dims, *C_out, float(scale),
-         *(shifts or ()), _stream())
+    o = torch.empty(B, Lq, heads * D, dtype=x_q.dtype, device=x_q.device)
+    ptrs = (_ptr(x_q), _ptr(wq), _ptr(k), _ptr(v), _ptr(o))
+    if shifts is None:
+        _run(lib.mdk_kvstat_attention, *ptrs, B, Lq, C, x_kv.shape[1], heads,
+             D, float(scale), _stream())
+    else:
+        _run(lib.mdk_kvstat_attention_pair, *ptrs, B, Lq, C, heads, D,
+             float(scale), *shifts, _stream())
+    if wout is not None:
+        o = _out_project(lib, o, wout)
     LAUNCHES[name] += 1
-    return out
+    return o
 
 
 def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
@@ -325,8 +343,8 @@ def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 def fused_qkv_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                         wq: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
                         heads: int, scale: float) -> torch.Tensor:
-    """K7: K1's function from the out-fused kernel's template without its
-    epilogue (one block per 64 q rows looping over the heads). Shapes as
+    """K7: K1's function, launched as K1 (the TPU kernel's per-q-block
+    recompute of k/v is a tile plan, not the contract). Shapes as
     ``kvstat_attention``."""
     if _on_cpu(x_q):
         return reference.fused_qkv_attention(x_q, x_kv, wq, wk, wv, heads,
@@ -339,9 +357,9 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                             wq: torch.Tensor, wk: torch.Tensor,
                             wv: torch.Tensor, wout: torch.Tensor, heads: int,
                             scale: float) -> torch.Tensor:
-    """K8: K1's attention out-projected in the kernel, without the out
-    bias: bf16(o) Wout^T with wout (C_out, H*D) -> (B, Lq, C_out). The
-    (B, Lq, H*D) attention output never reaches device memory."""
+    """K8: K1's attention out-projected without the out bias: bf16(o)
+    Wout^T with wout (C_out, H*D), fp32 accumulation over every head, one
+    cast -> (B, Lq, C_out). C_out and H*D are multiples of 8."""
     if _on_cpu(x_q):
         return reference.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
                                                  heads, scale)
@@ -353,8 +371,8 @@ def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wout: torch.Tensor, heads: int, scale: float,
                                  shifts: Tuple[int, int, int]) -> torch.Tensor:
-    """The K8 pair: K2's two ring-neighbour attentions summed in fp32, then
-    out-projected in the kernel without the bias -> (B, L, C_out)."""
+    """The K8 pair: K2's two ring-neighbour attentions summed in fp32 and
+    cast once, then out-projected as K8 without the bias -> (B, L, C_out)."""
     if _on_cpu(x):
         return reference.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
                                                       heads, scale, shifts)

@@ -83,23 +83,29 @@ def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 fused_qkv_attention = kvstat_attention
 
 
+def out_projection(o: torch.Tensor, wout: torch.Tensor) -> torch.Tensor:
+    """The out-projection launch of K8 and its pair: o (B, Lq, H*D) in the
+    input dtype times Wout^T, wout (C_out, H*D), accumulated in fp32 and
+    cast once -> (B, Lq, C_out)."""
+    return _linear32(o, wout).to(o.dtype)
+
+
 def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                             wq: torch.Tensor, wk: torch.Tensor,
                             wv: torch.Tensor, wout: torch.Tensor, heads: int,
                             scale: float) -> torch.Tensor:
-    """K8. bf16(o) Wout^T, wout (C_out, H*D): -> (B, Lq, C_out)."""
-    q, k, v = _project(x_q, x_kv, wq, wk, wv, scale)
-    o = _attend(q, k, v, heads).to(x_q.dtype)
-    return _linear32(o, wout).to(x_q.dtype)
+    """K8. K1's output out-projected: -> (B, Lq, C_out)."""
+    return out_projection(
+        kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale), wout)
 
 
 def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wout: torch.Tensor, heads: int, scale: float,
                                  shifts: Tuple[int, int, int]) -> torch.Tensor:
-    """The K8 pair. K2's fp32 sum, cast, then out-projected as K8."""
-    o = kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts)
-    return _linear32(o, wout).to(x.dtype)
+    """The K8 pair. K2's output (the fp32 sum, cast once) out-projected."""
+    return out_projection(
+        kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts), wout)
 
 
 def _gated(x: torch.Tensor, w1: torch.Tensor,

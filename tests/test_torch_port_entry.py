@@ -209,3 +209,71 @@ def test_attention_depths_reach_every_instance_of_the_launcher():
     assert {(d + 15) // 16 * 16 for d in depths} == compiled
     assert all(d % 8 == 0 for d in depths)
     assert any(d % 16 for d in depths)
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 80, 72), (200, 16, 8)])
+def test_out_project_bound_counts_the_product_and_each_tensor_once(M, K, N):
+    """The out-projection alone does 2*M*K*N operations and moves o, Wout
+    and y once each."""
+    import chip_smoke
+
+    o, wout, y = _bf16(M, K), _bf16(N, K), _bf16(M, N)
+    assert chip_smoke._flops("out_project", (o, wout)) == 2 * M * K * N
+    assert chip_smoke._bytes("out_project", (o, wout), y) == \
+        2 * (M * K + N * K + M * N)
+
+
+def test_profiled_kernel_names_are_kernels_of_the_csrc():
+    """Every name the profiled guided and training steps sum by
+    (chip_smoke.PROFILED) is a __global__ function of kernels/csrc, so a
+    renamed kernel fails here rather than reading 0 ms on the card; the
+    auto step's attention names the out-projection beside the heads."""
+    import pathlib
+    import re
+
+    import chip_smoke
+
+    csrc = pathlib.Path(chip_smoke.__file__).parent / \
+        "magicdrive_tpu_torch/kernels/csrc"
+    kernels = {m for p in csrc.iterdir() for m in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        p.read_text())}
+    names = {n for parts in chip_smoke.PROFILED.values() for n in parts}
+    assert names <= kernels, names - kernels
+    assert {"kvstat_kernel", "out_project_kernel", "flash_fwd_kernel",
+            "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"} <= names
+
+
+def test_attention_depths_reach_the_out_projection_edges():
+    """check_attention_depths out-projects K8 and its pair to a width that
+    the kernel takes (a multiple of 8) but is not a multiple of its 64-column
+    tile, and at one depth H*D = 80 (two heads of 40), not a multiple of its
+    64-deep chunk."""
+    import chip_smoke
+
+    assert chip_smoke.OUT_WIDTH % 8 == 0 and chip_smoke.OUT_WIDTH % 64
+    assert 40 in chip_smoke.ATTENTION_DEPTHS
+
+
+def test_profiled_parts_read_the_kernel_names_the_profiler_prints():
+    """_device_ms finds each kernel under the names torch.profiler gives
+    them on the card (a template's arguments, an anonymous namespace, a
+    plain function) and counts no other kernel of a similar name."""
+    import chip_smoke
+
+    rows = [(1.0, 14, "void mdk::kvstat_kernel<48, 1>(__nv_bfloat16 const*"),
+            (2.0, 5, "void mdk::kvstat_kernel<48, 2>(__nv_bfloat16 const*"),
+            (4.0, 31, "mdk::kv_project_kernel(__nv_bfloat16 const*, int)"),
+            (8.0, 40, "mdk::out_project_kernel(CUtensorMap_st, int)"),
+            (16.0, 23, "void mdk::(anonymous namespace)::flash_fwd_kernel"
+                       "<48>(__nv_bfloat16 const*"),
+            (32.0, 23, "void mdk::(anonymous namespace)::"
+                       "flash_bwd_dkv_kernel<48>(__nv_bfloat16 const*"),
+            (64.0, 23, "void mdk::(anonymous namespace)::"
+                       "flash_bwd_dq_kernel<48>(__nv_bfloat16 const*"),
+            (128.0, 7, "void mdk::ff_kernel<5>(CUtensorMap_st)"),
+            (256.0, 16, "mdk::geglu_kernel(CUtensorMap_st)"),
+            (512.0, 9, "void at::native::elementwise_kernel<128, 4>()")]
+    want = {"heads": 3.0, "kv_project": 4.0, "out_project": 8.0, "K5": 16.0,
+            "K6": 96.0, "K3": 128.0, "K4": 256.0}
+    assert {p: chip_smoke._device_ms(rows, p) for p in want} == want

@@ -157,7 +157,8 @@ def test_composed_k8_pair_yardstick_matches_the_plain_version(shifts):
 
 def test_every_kernel_of_the_path_has_a_yardstick():
     """Every kernel that check_kernels runs has a composition to time, and
-    the bitwise two-call check covers the redesigned K1-K4."""
+    the bitwise two-call check covers the redesigned K1-K4, K7, K8 and the
+    K8 pair."""
     import chip_smoke
 
     flash = {"flash_attention_fwd", "flash_attention_bwd_dq",
@@ -165,7 +166,8 @@ def test_every_kernel_of_the_path_has_a_yardstick():
     assert set(chip_smoke.KERNELS) - flash == set(chip_smoke.COMPOSED)
     assert set(chip_smoke.REDESIGNED) == {
         "kvstat_attention", "kvstat_attention_pair", "fused_ff",
-        "fused_geglu"}
+        "fused_geglu", "fused_qkv_attention", "fused_qkv_out_attention",
+        "fused_qkv_out_attention_pair"}
 
 
 def test_ff_widths_reach_every_instance_of_the_launcher():

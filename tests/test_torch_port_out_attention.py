@@ -4,7 +4,10 @@ against the forward entries, the autograd Functions against jax.vjp of the
 entries (whose backward is _fused_out_bwd / _pair_out_bwd: K7, the flash
 forward and backward, in interpret mode).
 
-fp32 throughout, atol 1e-4 / rtol 1e-3, as the K1-K6 tests. The JAX kernels
+fp32, atol 1e-4 / rtol 1e-3, as the K1-K6 tests; K8 and its pair are also
+held as the port launches them, K1's (K2's) plain version followed by the
+out-projection's, in fp32 (atol 2e-4 / rtol 2e-3) and on bf16 inputs (within
+1e-2 * max|ref|). The JAX kernels
 take weights lane-padded to 128 per head (Wout padded in its rows); their
 per-head outputs and weight gradients are sliced back to the logical depth.
 The port's weights are in nn.Linear (out, in) layout, Wout (C_out, H*D).
@@ -192,3 +195,67 @@ def test_k7_runs_only_for_dwout(pair, monkeypatch):
     wo = w[3].clone().requires_grad_()
     fn(x, *w[:3], wo).sum().backward()
     assert len(calls) == (2 if pair else 1) and wo.grad is not None
+
+
+def _in_dtype(dtype, *arrays):
+    """The JAX and the port's form of each array in ``dtype`` (bf16 rounds
+    once, on the numpy values both sides share)."""
+    jd = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    return [(jnp.asarray(a).astype(jd),
+             torch.from_numpy(np.array(a, np.float32)).to(dtype))
+            for a in arrays]
+
+
+def _assert_close(got, want, dtype):
+    """fp32: atol 2e-4 / rtol 2e-3. bf16: within 1e-2 * max|ref|, which
+    holds the cast points (bf16 o before the product, one cast after) and
+    leaves room for one bf16 rounding of an output."""
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-3)
+    else:
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Lq,Lk,C,Ck,H,D,C_out", _K8_CASES)
+def test_two_step_plain_k8_matches_pallas(B, Lq, Lk, C, Ck, H, D, C_out,
+                                          dtype):
+    """K8 as the port launches it, K1's plain version and then the
+    out-projection's, against the Pallas K8 that out-projects inside."""
+    rs = np.random.RandomState(26)
+    xq, xkv, w = _inputs(rs, B, Lq, Lk, C, Ck, H, D)
+    jo, to = _wout(rs, H, D, C_out)
+    (jxq, txq), (jxkv, txkv), (jwo, _) = _in_dtype(dtype, xq, xkv, jo)
+    jw = [j for j, _ in _in_dtype(dtype, *(j for j, _ in w))]
+    tw = [t.to(dtype) for _, t in w]
+    scale = D ** -0.5
+    want = jfa.fused_qkv_out_attention(jxq, jxkv, *jw, jwo, heads=H,
+                                       scale=scale, interpret=True)
+    o = reference.kvstat_attention(txq, txkv, *tw, H, scale)
+    got = reference.out_projection(o, to.to(dtype))
+    assert got.shape == (B, Lq, C_out) and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
+def test_two_step_plain_k8_pair_matches_pallas_ring_shifts(shifts, dtype):
+    """The K8 pair as the port launches it, K2's plain version (the two
+    neighbours summed in fp32, cast once) and then the out-projection's,
+    against the Pallas pair under both ring-shift sets."""
+    rs = np.random.RandomState(27)
+    n, Bg, L, C, H, D, C_out = 6, 2, 36, 48, 2, 40, 24
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    w = [_weights(rs, C, H, D) for _ in range(3)]
+    jo, to = _wout(rs, H, D, C_out)
+    (jx, tx), (jwo, _) = _in_dtype(dtype, x, jo)
+    jw = [j for j, _ in _in_dtype(dtype, *(j for j, _ in w))]
+    tw = [t.to(dtype) for _, t in w]
+    scale = D ** -0.5
+    want = jfa.fused_qkv_out_attention_pair(
+        jx, jx, jx, *jw, jwo, heads=H, scale=scale, interpret=True,
+        shifts=shifts)
+    o = reference.kvstat_attention_pair(tx, *tw, H, scale, shifts)
+    got = reference.out_projection(o, to.to(dtype))
+    _assert_close(got, want, dtype)
