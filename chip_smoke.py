@@ -12,41 +12,53 @@ no result line):
      fails the run;
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
-     12 views), and K5, both launches of K6, the whole K6 and K7 at the
-     shapes the training path gives them (6 views of 8 heads), K5 and K6
-     also at one ragged shape (keys masked past kv_len < Lk), against their
-     plain versions in fp32 with TF32 off, max|kernel - ref| <= 1e-2 *
-     max|ref|, with CUDA-event times of the kernel, of the plain version on
-     the same inputs and, where one PyTorch call computes the same function
-     (the flash SDPA forward for K5, its backward for the whole K6), of that
-     call, beside the kernel's bound (the larger of its operations at the
-     bf16 tensor peak and its bytes at the memory rate); K1-K4, K7, K8 and
-     the K8 pair also beside their composition of library calls (COMPOSED:
-     F.linear projections and F.scaled_dot_product_attention, one per
-     neighbour for the pairs, F.linear by Wout for K8; F.linear, the exact
-     GELU and F.linear for K3/K4: composed_ms), K1 with its kv projection
-     timed alone (the kv_project sub-row), K8 and its pair with their last
-     launch, the out-projection, checked against its plain version and
-     timed alone beside F.linear (the out_project sub-row), and the host
-     cost of one TMA tensor-map encoding (K3, K4 and the out-projection
-     encode theirs on every call); two calls of K1-K4, K7, K8 and the pair
-     (REDESIGNED), of the out-projection and of the whole K6 on the same
-     inputs must be bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and
-     K1, K2, K7, K8 and the K8 pair (ATTENTION_DEPTHS, the pairs under both
-     ring-shift sets, K8 and its pair out-projected to OUT_WIDTH = 72
-     columns) also at one head depth for each of their template instances,
-     and K3 and K4 at the widths of FF_WIDTHS (one per K3 instance), at
-     small ragged shapes, against the plain versions; then the autograd of
-     K1-K4, K8 and the K8 pair at the training shapes: every input and weight
+     12 views) and at the shapes the hi-res paths add (_hires_cases: K1 at
+     L=5300 and 3128, one neighbour's call of the 424x800 K1 loop among
+     them, K2 at L=3128 and 1350, K3 at M=12*5300 and 12*3128, K4 at
+     M=12*1350, K8 at L=782 in attn1 and attn2 and its pair at L=782), and
+     K5, both launches of K6, the whole K6 and K7 at the shapes the
+     training path gives them (6 views of 8 heads), K5 and K6 also at one
+     ragged shape (keys masked past kv_len < Lk) and at the projected
+     route's forced shape, against their plain versions in fp32 with TF32
+     off, max|kernel - ref| <= 1e-2 * max|ref|, with CUDA-event times of
+     the kernel, of the plain version on the same inputs and, where one
+     PyTorch call computes the same function (the flash SDPA forward for
+     K5, its backward for the whole K6), of that call, beside the kernel's
+     bound (the larger of its operations at the bf16 tensor peak and its
+     bytes at the memory rate); K1-K4, K7, K8 and the K8 pair also beside
+     their composition of library calls (COMPOSED: F.linear projections
+     and F.scaled_dot_product_attention, one per neighbour for the pairs,
+     F.linear by Wout for K8; F.linear, the exact GELU and F.linear for
+     K3/K4: composed_ms), K1 with its kv projection timed alone (the
+     kv_project sub-row), K8 and its pair with their last launch, the
+     out-projection, checked against its plain version and timed alone
+     beside F.linear (the out_project sub-row), and the host cost of one
+     TMA tensor-map encoding (K3, K4 and the out-projection encode theirs
+     on every call); two calls of K1-K4, K7, K8 and the pair (REDESIGNED),
+     of the out-projection and of the whole K6 on the same inputs must be
+     bitwise equal; K5 and the whole K6 (FLASH_DEPTHS) and K1, K2, K7, K8
+     and the K8 pair (ATTENTION_DEPTHS, the pairs under both ring-shift
+     sets, K8 and its pair out-projected to OUT_WIDTH = 72 columns) also
+     at one head depth for each of their template instances, and K3 and K4
+     at the widths of FF_WIDTHS (one per K3 instance), at small ragged
+     shapes, against the plain versions; then the autograd of K1-K4, K8
+     and the K8 pair at the training shapes: every input and weight
      gradient through the kernel route against the plain backward in fp32,
      within 1e-2 * max|ref| or the plain bf16 backward's own error, which
      is printed beside it (GRAD_TOL);
-  4. generation, once per fused mode ("kvstat", then "auto", which routes
-     every kernel attention to K8 and its pair): the full-width
+  4. the routes no bf16 preset reaches, at forced bf16 shapes: the
+     projected route through an Attention (PROJECTED_SHAPE: K5, and K6 in
+     the backward) and the per-neighbour K8 loop through a
+     BasicTransformerBlock under "auto" (OUT_LOOP_SHAPE), each with its
+     launch counts, the per-call check of phase 5 and its output against
+     the same module through the plain versions (KERNEL_TOL);
+     then generation, once per fused mode ("kvstat", then "auto", which
+     routes every kernel attention to K8 and its pair): the full-width
      sd15mv_rawbox_224x400 pipeline (20 UniPC steps, CFG 2.0, bf16, B=1) on
      seeded random weights with every floating parameter non-zero, for 2
      requests; the launch counts of that run equal the counts derived from
-     the block structure and the routing rules;
+     the block structure and the routing rules (expected_launches: the
+     loops call their kernel once per neighbour);
   5. path checks, per mode: in one guided UNet+ControlNet step, every kernel
      call is held against its plain version in fp32 on the same inputs (the
      tolerance of phase 3), and the guided eps with kernels agrees with the
@@ -58,7 +70,12 @@ no result line):
      clock time, with the device time of the mode's attention (K1+K2, or
      K8+pair: the heads' kernel and the out-projection, which is also
      printed alone), of their k/v projection, and of K3 and K4 (PROFILED
-     names the kernels);
+     names the kernels); then the hi-res presets (HIRES) at full width:
+     sd15mv_rawbox_272x736 (2 requests under "kvstat", 1 under "auto") and
+     sd15mv_rawbox_424x800 (2 under "kvstat", its level-0 cross-view pair
+     the per-neighbour K1 loop), on fixture batches at their image and map
+     sizes, each run's launch counts equal to the derived ones, with the
+     per-call check and a profiled guided step of each preset and mode;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -81,7 +98,8 @@ no result line):
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
-four path runs of phases 4 and 6 and "launches_by_path" gives each. The
+path runs of phases 4-6 (the forced routes, the generation and training
+paths) and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
@@ -245,14 +263,11 @@ _ATTENTION_CALLS = {
     "auto": ("fused_qkv_out_attention", "fused_qkv_out_attention_pair")}
 
 
-def generation_calls(mode: str):
-    return _ATTENTION_CALLS[mode] + ("fused_ff", "fused_geglu")
-
-
 def training_calls(mode: str):
+    """The kernel wrappers a 224x400 training step calls under ``mode``."""
     k7 = ("fused_qkv_attention",) if mode == "auto" else ()
-    return generation_calls(mode) + k7 + ("flash_attention_fwd",
-                                           "flash_attention_bwd")
+    return _ATTENTION_CALLS[mode] + ("fused_ff", "fused_geglu") + k7 + (
+        "flash_attention_fwd", "flash_attention_bwd")
 
 
 def _rnd(gen: torch.Generator):
@@ -287,7 +302,54 @@ def kernel_cases(gen: torch.Generator):
         cases.append(("fused_geglu", f"geglu M=12*{L} C={C}",
                       (rnd(12 * L, C), rnd(8 * C, C, scale=C ** -0.5),
                        rnd(8 * C, scale=0.1))))
-    return cases + _out_cases(rnd)
+    return cases + _out_cases(rnd) + _hires_cases(rnd)
+
+
+def _hires_cases(rnd):
+    """The shapes the hi-res generation paths add (12 views, 8 heads): K1 at
+    the 424x800 level 0 (L=5300: attn1, attn2, and one neighbour's call of
+    the attn4 loop, whose x_kv is the neighbours' views) and the 272x736
+    attn1 (L=3128), K2 at the 272x736 level 0 and the 424x800 level 1
+    (L=1350), K3 at both level 0s, K4 at the 424x800 level 1, and K8 (attn1
+    and attn2) and its pair at the 272x736 level 1 (L=782) under "auto"."""
+    from magicdrive_tpu_torch.kernels.reference import ring_views
+
+    cases = []
+    w = [rnd(320, 320, scale=320 ** -0.5) for _ in range(3)]
+    x, x3 = rnd(12, 5300, 320), rnd(12, 3128, 320)
+    cases += [
+        ("kvstat_attention", "attn1 L=5300 C=320", (x, x, *w, 8, 40 ** -0.5)),
+        ("kvstat_attention", "attn4 one neighbour L=5300 C=320",
+         (x, ring_views(x, 5, 6), *w, 8, 40 ** -0.5)),
+        ("kvstat_attention", "attn2 L=5300 Lk=238 C=320",
+         (x, rnd(12, 238, 768), w[0], rnd(320, 768, scale=768 ** -0.5),
+          rnd(320, 768, scale=768 ** -0.5), 8, 40 ** -0.5)),
+        ("kvstat_attention", "attn1 L=3128 C=320",
+         (x3, x3, *w, 8, 40 ** -0.5)),
+        ("kvstat_attention_pair", "attn4 L=3128 C=320",
+         (x3, *w, 8, 40 ** -0.5, (5, 1, 6)))]
+    x1 = rnd(12, 1350, 640)
+    w6 = [rnd(640, 640, scale=640 ** -0.5) for _ in range(3)]
+    cases += [("kvstat_attention_pair", "attn4 L=1350 C=640",
+               (x1, *w6, 8, 80 ** -0.5, (5, 1, 6))),
+              ("fused_geglu", "geglu M=12*1350 C=640",
+               (x1.reshape(-1, 640), rnd(5120, 640, scale=640 ** -0.5),
+                rnd(5120, scale=0.1)))]
+    for L in (5300, 3128):
+        cases.append(("fused_ff", f"ff M=12*{L} C=320",
+                      (rnd(12 * L, 320), rnd(2560, 320, scale=320 ** -0.5),
+                       rnd(2560, scale=0.1),
+                       rnd(320, 1280, scale=1280 ** -0.5))))
+    x7 = rnd(12, 782, 640)
+    *w7, wo = _attention_weights(rnd, 640)
+    *w2, wo2 = _attention_weights(rnd, 640, 768)
+    return cases + [
+        ("fused_qkv_out_attention", "attn1 L=782 C=640",
+         (x7, x7, *w7, wo, 8, 80 ** -0.5)),
+        ("fused_qkv_out_attention", "attn2 L=782 Lk=238 C=640",
+         (x7, rnd(12, 238, 768), *w2, wo2, 8, 80 ** -0.5)),
+        ("fused_qkv_out_attention_pair", "attn4 L=782 C=640",
+         (x7, *w7, wo, 8, 80 ** -0.5, (5, 1, 6)))]
 
 
 def _attention_weights(rnd, C, Ck=None):
@@ -632,13 +694,15 @@ def check_kernels():
     return rows
 
 
-# (Lq, Lk, D, kv_len) of the flash kernels on the training path: the
+# (BH, Lq, Lk, D, kv_len) of the flash kernels: on the training path the
 # backward of K1/K8 at attn1 on levels 0 and 1 and at attn2 on level 0, and
-# of each K2/K8-pair branch; 6 views of 8 heads. The last shape is not on
-# the path: keys masked past kv_len < Lk, which the wrappers take.
-FLASH_SHAPES = ((1400, 1400, 40, 1400), (350, 350, 80, 350),
-                (1400, 238, 40, 238), (1400, 256, 40, 238))
-FLASH_BH = 48
+# of each K2/K8-pair branch (6 views of 8 heads); then one shape that is on
+# no path, keys masked past kv_len < Lk, which the wrappers take; last the
+# projected route at the bf16 shape the routing sends there, PROJECTED_SHAPE
+# (2 views of 8 heads, Lq = Lk = 8000), whose gradient K6 is.
+FLASH_SHAPES = ((48, 1400, 1400, 40, 1400), (48, 350, 350, 80, 350),
+                (48, 1400, 238, 40, 238), (48, 1400, 256, 40, 238),
+                (16, 8000, 8000, 40, 8000))
 
 
 def _sdpa_calls(q, k, v, do):
@@ -672,12 +736,12 @@ def check_flash_kernels():
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(1))
     rows = {}
-    for Lq, Lk, D, kv_len in FLASH_SHAPES:
-        label = f"BH={FLASH_BH} Lq={Lq} Lk={Lk} D={D}" + \
+    for BH, Lq, Lk, D, kv_len in FLASH_SHAPES:
+        label = f"BH={BH} Lq={Lq} Lk={Lk} D={D}" + \
             (f" kv_len={kv_len}" if kv_len < Lk else "")
-        q = rnd(FLASH_BH, Lq, D, scale=D ** -0.5)
-        k, v = rnd(FLASH_BH, Lk, D), rnd(FLASH_BH, Lk, D)
-        do = rnd(FLASH_BH, Lq, D)
+        q = rnd(BH, Lq, D, scale=D ** -0.5)
+        k, v = rnd(BH, Lk, D), rnd(BH, Lk, D)
+        do = rnd(BH, Lq, D)
         fwd_args = (q, k, v, kv_len)
         o, lse = dispatch.flash_attention_fwd(*fwd_args)
         bwd_args = (q, k, v, o, lse, do, kv_len)
@@ -981,6 +1045,22 @@ def patched_kernels(make, names):
             setattr(dispatch, n, fn)
 
 
+@contextlib.contextmanager
+def counted_calls(names):
+    """``patched_kernels`` that counts: {wrapper: calls} of the wrappers
+    ``names`` in the block, each call passed on to the wrapper."""
+    calls = dict.fromkeys(names, 0)
+
+    def make(name, kernel, plain):
+        def call(*args):
+            calls[name] += 1
+            return kernel(*args)
+        return call
+
+    with patched_kernels(make, names):
+        yield calls
+
+
 def _new_modules(preset):
     """The preset's modules on the card (the entry point's default) in fp32
     with seeded weights."""
@@ -991,15 +1071,15 @@ def _new_modules(preset):
     return modules
 
 
-def set_up():
-    """The full-width pipeline on seeded weights and N_REQUESTS fixture
-    request batches."""
-    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+def set_up(preset_name: str = "sd15mv_rawbox_224x400"):
+    """The full-width pipeline of a preset on seeded weights and N_REQUESTS
+    fixture request batches at its image and map sizes."""
+    from magicdrive_tpu_torch import config
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_dataset)
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
 
-    preset = sd15mv_rawbox_224x400()
+    preset = getattr(config, preset_name)()
     t0 = time.perf_counter()
     modules = _new_modules(preset).to("cuda", preset.pipeline.dtype)
     pipe = MagicDrivePipeline(modules, preset.pipeline)
@@ -1009,7 +1089,9 @@ def set_up():
     log(f"slice: {preset.name}, {n_params / 1e6:.1f} M parameters, set up "
         f"in {time.perf_counter() - t0:.1f} s")
     ccfg = CollateConfig(bbox_max_len=preset.bbox_max_len)
-    batches = [collate_fn([s], ccfg) for s in make_dataset(N_REQUESTS)]
+    batches = [collate_fn([s], ccfg) for s in make_dataset(
+        N_REQUESTS, image_hw=preset.image_size, map_hw=preset.map_hw,
+        map_channels=preset.map_channels)]
     return preset, pipe, batches
 
 
@@ -1033,9 +1115,24 @@ def _transformers(preset):
             yield unet, j, lengths[lvl], C, C // u.num_attention_heads
 
 
-_KERNEL_OF = {"kvstat": "kvstat_attention", "out": "fused_qkv_out_attention"}
-_PAIR_KERNEL_OF = {"kvstat": "kvstat_attention_pair",
-                   "out": "fused_qkv_out_attention_pair"}
+# The kernel wrapper a route calls in one forward, and how often: the K1
+# and K8 loops call their kernel once per ring neighbour, the projected
+# route K5 (per neighbour in its loop)
+_CALLS_OF = {"kvstat": ("kvstat_attention", 1),
+             "out": ("fused_qkv_out_attention", 1),
+             "projected": ("flash_attention_fwd", 1)}
+_PAIR_CALLS_OF = {"kvstat": ("kvstat_attention_pair", 1),
+                  "out": ("fused_qkv_out_attention_pair", 1),
+                  "kvstat_loop": ("kvstat_attention", 2),
+                  "out_loop": ("fused_qkv_out_attention", 2),
+                  "projected_loop": ("flash_attention_fwd", 2)}
+
+
+def _add_calls(n, route, pair: bool, forwards: int) -> None:
+    """Count into ``n`` the kernel calls of ``forwards`` forwards of an
+    attention (a cross-view pair if ``pair``) that takes ``route``."""
+    kernel, per = (_PAIR_CALLS_OF if pair else _CALLS_OF)[route]
+    n[kernel] += per * forwards
 
 
 def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
@@ -1045,12 +1142,14 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     ``mode``, derived from the block structure and the routing rules: per
     transformer at latent length L and width C, attn1 and attn2 (context
     1 + 77 + boxes, width max(C, 768)) take ``attention_route``'s kernel,
-    attn4 (UNet only) ``pair_route``'s, and the FF takes K3 where
-    ``ff_full_fusion_fits`` holds, else K4. In a train step every backward
-    of a K1 or K8 runs K5 and K6 once, of a pair twice, and K7 once per
-    branch of a K8 whose Wout trains (the ControlNet's and attn4's). The
-    only attention without a backward is attn1 of the UNet's first
-    transformer, whose input comes from frozen weights alone (the
+    attn4 (UNet only) ``pair_route``'s (a loop calls its kernel once per
+    neighbour), and the FF takes K3 where ``ff_full_fusion_fits`` holds,
+    else K4. In a train step the backward of each K1 or K8 call, and of
+    each branch of a pair, runs K5 and K6 once, that of a projected
+    attention K6 alone (on its forward's o and lse), and K7 runs once per
+    call or branch of a K8 whose Wout trains (the ControlNet's and
+    attn4's). The only attention without a backward is attn1 of the UNet's
+    first transformer, whose input comes from frozen weights alone (the
     trainable tokens enter at its attn2)."""
     from magicdrive_tpu_torch.kernels import dispatch
 
@@ -1059,29 +1158,37 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     ctx_dim = preset.unet.cross_attention_dim
     with dispatch.fused_mode(mode):
         for unet, j, L, C, D in _transformers(preset):
-            calls = [(dispatch.attention_route(L, L, C, D, esize), 1,
+            calls = [(dispatch.attention_route(L, L, C, D, esize), False,
                       unet and j == 0),
                      (dispatch.attention_route(L, ctx, max(C, ctx_dim), D,
-                                               esize), 1, False)]
+                                               esize), False, False)]
             if unet:
-                calls.append((dispatch.pair_route(L, C, D, esize), 2, False))
-            for route, branches, no_backward in calls:
+                calls.append((dispatch.pair_route(L, C, D, esize), True,
+                              False))
+            for route, pair, no_backward in calls:
                 if route is None:
                     continue
-                kernel = (_KERNEL_OF if branches == 1 else
-                          _PAIR_KERNEL_OF)[route]
-                n[kernel] += forwards + steps
+                _add_calls(n, route, pair, forwards + steps)
                 if no_backward:
                     continue
-                n["flash_attention_fwd"] += steps * branches
-                if route == "out" and (branches == 2 or not unet):
+                branches = 2 if pair else 1
+                if not route.startswith("projected"):
+                    n["flash_attention_fwd"] += steps * branches
+                n["flash_attention_bwd_dq"] += steps * branches
+                n["flash_attention_bwd_dkv"] += steps * branches
+                if route in ("out", "out_loop") and (pair or not unet):
                     n["fused_qkv_attention"] += steps * branches
             ff = "fused_ff" if dispatch.ff_full_fusion_fits(
                 C, 4 * C, C, esize) else "fused_geglu"
             n[ff] += forwards + steps
-    n["flash_attention_bwd_dq"] = n["flash_attention_bwd_dkv"] = \
-        n["flash_attention_fwd"]
     return n
+
+
+def path_calls(preset, mode: str):
+    """The kernel wrappers one guided step of ``preset`` calls under the
+    fused ``mode`` (bf16), by ``expected_launches``."""
+    return tuple(k for k, v in expected_launches(preset, mode,
+                                                 forwards=1).items() if v)
 
 
 def _check_launches(what, want):
@@ -1107,7 +1214,7 @@ def run_slice(preset, pipe, batches, mode):
         img = pipe(b, generator=gen)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        if tuple(img.shape) != (1, 6, 224, 400, 3):
+        if tuple(img.shape) != (1, 6, *preset.image_size, 3):
             raise AssertionError(f"image shape {tuple(img.shape)}")
         if not torch.isfinite(img).all():
             raise AssertionError("non-finite image values")
@@ -1117,10 +1224,11 @@ def run_slice(preset, pipe, batches, mode):
         log(f"  request: {seconds[-1]:.3f} s, image min {lo:.3f} max "
             f"{hi:.3f} mean {img.mean().item():.4f} std "
             f"{img.std().item():.4f}")
-    launches = _check_launches(f"generation ({mode})", expected_launches(
+    what = f"generation {preset.name} ({mode})"
+    launches = _check_launches(what, expected_launches(
         preset, mode, forwards=len(batches) * pipe.cfg.num_inference_steps))
-    log(f"generation ({mode}): seconds per request {seconds} (the first "
-        f"includes one-time setup such as cuDNN algorithm choice)")
+    log(f"{what}: seconds per request {seconds} (the first includes one-time "
+        f"setup such as cuDNN algorithm choice)")
     return launches, seconds
 
 
@@ -1165,14 +1273,15 @@ def _step_inputs(pipe, batch):
     return x, int(pipe.coeffs.timesteps[0]), pipe.conditioning(batch)
 
 
-def check_path_calls(pipe, batch, mode) -> None:
+def check_path_calls(preset, pipe, batch, mode) -> None:
     """Every kernel call of one guided step against its plain version in
     fp32 on the inputs the path gave it."""
     x, t, cond = _step_inputs(pipe, batch)
     stats = {}  # kernel -> [calls, worst max|err| / max|ref|]
-    with patched_kernels(_call_checker(stats), generation_calls(mode)):
+    names = path_calls(preset, mode)
+    with patched_kernels(_call_checker(stats), names):
         pipe.guided_eps(x, t, cond)
-    _report_calls(f"one guided step ({mode})", stats, generation_calls(mode))
+    _report_calls(f"one guided step of {preset.name} ({mode})", stats, names)
 
 
 # What the profiled steps sum by kernel name: each part is the name of a
@@ -1201,7 +1310,7 @@ def _kernel_parts(rows, parts):
     return ", ".join(f"{p} {_device_ms(rows, p):.2f} ms" for p in parts)
 
 
-def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
+def profile_guided_step(preset, pipe, batch, mode, top: int = 8) -> None:
     """One guided step under torch.profiler: its host-clock time, the sum of
     its kernels' device times (one stream, so the sum is the busy time), the
     device time of the mode's attention (the heads, with the out-projection
@@ -1212,7 +1321,8 @@ def profile_guided_step(pipe, batch, mode, top: int = 8) -> None:
     busy = sum(r[0] for r in rows)
     attention = {"kvstat": "K1+K2", "auto": "K8+pair"}[mode]
     attn_ms = _device_ms(rows, "heads") + _device_ms(rows, "out_project")
-    log(f"guided step ({mode}) under the profiler: {wall:.1f} ms host "
+    log(f"guided step of {preset.name} ({mode}) under the profiler: "
+        f"{wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
         f"{100 * (1 - busy / wall):.1f} %); {attention} {attn_ms:.2f} ms (" +
         _kernel_parts(rows, ("heads", "out_project")) + "), " +
@@ -1264,13 +1374,13 @@ def profile_train_step(setup, mode, top: int = 8) -> None:
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
 
 
-def check_eps(pipe, batch, mode) -> None:
+def check_eps(preset, pipe, batch, mode) -> None:
     """The guided eps of one step through the kernels against the same step
     through the plain versions."""
     x, t, cond = _step_inputs(pipe, batch)
     eps_k = pipe.guided_eps(x, t, cond)
     with patched_kernels(lambda name, kern, plain: plain,
-                         generation_calls(mode)):
+                         path_calls(preset, mode)):
         eps_p = pipe.guided_eps(x, t, cond)
         noise = torch.randn(x.shape, device=x.device,
                             generator=torch.Generator("cuda").manual_seed(8))
@@ -1282,6 +1392,128 @@ def check_eps(pipe, batch, mode) -> None:
         f"plain vs plain on a latent perturbed by 1e-3: {sens:.3e})")
     if not (np.isfinite(rel) and rel <= EPS_TOL):
         raise AssertionError(f"eps relative L2 {rel} > {EPS_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# the routes no bf16 preset reaches, and the hi-res presets
+# ---------------------------------------------------------------------------
+
+# (batch, L, C, heads) of a bf16 self-attention that the routing sends to
+# the projected route (neither fused kernel's rule holds at Lq = Lk = 8000,
+# C = 320, D = 40), and (views, L, C, heads) of a cross-view block whose
+# pair it sends to the per-neighbour K8 loop under "auto" (K8 fits at
+# L = 1050, C = 640, D = 80; the K8 pair does not)
+PROJECTED_SHAPE = (2, 8000, 320, 8)
+OUT_LOOP_SHAPE = (12, 1050, 640, 8)
+CTX_TOKENS, CTX_DIM = 1 + 77 + 160, 768
+
+
+def _module_check(what, module, inputs, want, names, dy=None):
+    """``module(*inputs)`` on the card, with the backward of ``dy`` when
+    given: the launch counts equal ``want``, every call of the kernel
+    wrappers ``names`` is within KERNEL_TOL of its plain version in fp32 on
+    its inputs (the per-call check), and the output is within KERNEL_TOL *
+    max|ref| of the same module's through the plain versions."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    dispatch.reset_launches()
+    stats = {}
+    with patched_kernels(_call_checker(stats), names):
+        y = module(*inputs)
+        if dy is not None:
+            y.backward(dy)
+    launches = _check_launches(what, want)
+    _report_calls(what, stats, names)
+    with torch.no_grad(), patched_kernels(lambda n, kern, plain: plain,
+                                          names):
+        ref = module(*inputs)
+    err, scale = _worst(y.detach(), ref)
+    _gate(what, "module vs its plain versions", err, scale, KERNEL_TOL)
+    return launches
+
+
+def check_forced_routes(by_path) -> None:
+    """The projected route, forward and backward, through an ``Attention``
+    at PROJECTED_SHAPE, and the per-neighbour K8 loop through a
+    ``BasicTransformerBlock`` at OUT_LOOP_SHAPE under "auto", on the card in
+    bf16 against their plain versions; their launch counts go into
+    ``by_path``."""
+    from magicdrive_tpu_torch.config import NUSCENES_NEIGHBORS
+    from magicdrive_tpu_torch.core.attention import Attention
+    from magicdrive_tpu_torch.core.transformer import BasicTransformerBlock
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(12))
+    B, L, C, H = PROJECTED_SHAPE
+    route = dispatch.attention_route(L, L, C, C // H, 2)
+    if route != "projected":
+        raise AssertionError(f"PROJECTED_SHAPE takes the route {route}")
+    attn = Attention(C, H, C // H).to("cuda")
+    init_weights({"attn": attn}, seed=13)
+    attn.to(torch.bfloat16)
+    x = rnd(B, L, C).requires_grad_()
+    want = dict.fromkeys(dispatch.LAUNCHES, 0)
+    want.update(flash_attention_fwd=1, flash_attention_bwd_dq=1,
+                flash_attention_bwd_dkv=1)
+    by_path["projected_route"] = _module_check(
+        f"Attention B={B} L={L} C={C} (projected route)", attn, (x,), want,
+        ("flash_attention_fwd", "flash_attention_bwd"), dy=rnd(B, L, C))
+    del attn, x
+
+    V, L, C, H = OUT_LOOP_SHAPE
+    with dispatch.fused_mode("auto"):
+        route = dispatch.pair_route(L, C, C // H, 2)
+        if route != "out_loop":
+            raise AssertionError(f"OUT_LOOP_SHAPE takes the route {route}")
+        want = dict.fromkeys(dispatch.LAUNCHES, 0)
+        for r, pair in ((dispatch.attention_route(L, L, C, C // H, 2), False),
+                        (dispatch.attention_route(L, CTX_TOKENS, CTX_DIM,
+                                                  C // H, 2), False),
+                        (route, True)):
+            if r is not None:
+                _add_calls(want, r, pair, 1)
+        want["fused_ff" if dispatch.ff_full_fusion_fits(C, 4 * C, C)
+             else "fused_geglu"] += 1
+        blk = BasicTransformerBlock(C, H, C // H, CTX_DIM,
+                                    NUSCENES_NEIGHBORS).to("cuda")
+        init_weights({"block": blk}, seed=14)
+        blk.to(torch.bfloat16)
+        with torch.no_grad():
+            by_path["out_loop"] = _module_check(
+                f"BasicTransformerBlock views={V} L={L} C={C} (auto, K8 "
+                "loop)", blk, (rnd(V, L, C), rnd(V, CTX_TOKENS, CTX_DIM)),
+                want, tuple(k for k, v in want.items() if v))
+    del blk
+    torch.cuda.empty_cache()
+
+
+# the hi-res presets and the fused modes their smoke paths run (272x736's
+# "auto" path reaches K8 and the K8 pair at L=782; 424x800's differs from
+# its "kvstat" one only at the level-1 attn2)
+HIRES = {"sd15mv_rawbox_272x736": ("kvstat", "auto"),
+         "sd15mv_rawbox_424x800": ("kvstat",)}
+
+
+def run_hires(by_path, timing) -> None:
+    """Each hi-res preset at full width: N_REQUESTS requests under "kvstat"
+    and one under each other mode of HIRES, every run's launch counts equal
+    to the derived ones; then, in each mode, the per-call check of one
+    guided step and one profiled guided step."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    for name, modes in HIRES.items():
+        preset, pipe, batches = set_up(name)
+        tag = name.rsplit("_", 1)[1]
+        for mode in modes:
+            with dispatch.fused_mode(mode):
+                runs = batches if mode == "kvstat" else batches[:1]
+                by_path[f"generation_{tag}_{mode}"], \
+                    timing[f"s/request {tag} {mode}"] = run_slice(
+                        preset, pipe, runs, mode)
+                check_path_calls(preset, pipe, batches[0], mode)
+                profile_guided_step(preset, pipe, batches[0], mode)
+        del pipe
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1538,16 +1770,19 @@ def main() -> None:
         f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
     check_autograd()
     by_path, timing = {}, {}
+    log("routes no bf16 preset reaches, at forced shapes:")
+    check_forced_routes(by_path)
     preset, pipe, batches = set_up()
     for mode in dispatch.FUSED_MODES:
         with dispatch.fused_mode(mode):
             by_path[f"generation_{mode}"], timing[f"s/request {mode}"] = \
                 run_slice(preset, pipe, batches, mode)
-            check_path_calls(pipe, batches[0], mode)
-            check_eps(pipe, batches[0], mode)
-            profile_guided_step(pipe, batches[0], mode)
+            check_path_calls(preset, pipe, batches[0], mode)
+            check_eps(preset, pipe, batches[0], mode)
+            profile_guided_step(preset, pipe, batches[0], mode)
     del pipe
     torch.cuda.empty_cache()
+    run_hires(by_path, timing)
     for mode in dispatch.FUSED_MODES:
         with dispatch.fused_mode(mode):
             setup, by_path[f"training_{mode}"], run = run_training(mode=mode)

@@ -61,6 +61,10 @@ class BEVControlNetConfig:
     uncond_cam_in_dim: Tuple[int, int] = (3, 7)
     map_size: Tuple[int, int, int] = (8, 200, 200)  # (C, H, W)
     map_embedder_out_channels: Tuple[int, ...] = (16, 32, 96, 256)
+    # the hi-res map embedder: stride 1 at its first stage, then an adaptive
+    # average pool to ``map_embedder_plus_size`` (h, w)
+    use_map_embedder_plus: bool = False
+    map_embedder_plus_size: Tuple[int, int] = (34, 92)
     bbox: BBoxEmbedderConfig = dataclasses.field(
         default_factory=BBoxEmbedderConfig)
     # training: views whose conditioning is dropped lose their boxes too
@@ -103,6 +107,9 @@ class PipelineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelPreset:
+    """``map_hw`` and ``map_channels`` are the BEV map a request carries,
+    which the fixture data is made at; ``controlnet.map_size`` is the same
+    map as the embedder reads it."""
     name: str
     unet: UNetConfig
     controlnet: BEVControlNetConfig
@@ -110,6 +117,8 @@ class ModelPreset:
     clip: CLIPTextConfig
     pipeline: PipelineConfig
     image_size: Tuple[int, int]  # (H, W)
+    map_hw: Tuple[int, int] = (200, 200)
+    map_channels: int = 8
     bbox_max_len: int = 160
 
 
@@ -127,6 +136,44 @@ def sd15mv_rawbox_224x400() -> ModelPreset:
         vae=VAEConfig(), clip=CLIPTextConfig(),
         pipeline=PipelineConfig(latent_height=28, latent_width=50),
         image_size=(224, 400),
+    )
+
+
+def sd15mv_rawbox_272x736() -> ModelPreset:
+    """The hi-res model with the Plus map embedder
+    (ref:configs/exp/272x736.yaml): latent 34x92, map 200x200."""
+    unet = UNetConfig(neighboring_view_pair=NUSCENES_NEIGHBORS)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        map_size=(8, 200, 200),
+        use_map_embedder_plus=True,
+        map_embedder_plus_size=(34, 92),
+        bbox=BBoxEmbedderConfig(mode="all-xyz"),
+    )
+    return ModelPreset(
+        name="SDv1.5mv-rawbox-272x736", unet=unet, controlnet=cn,
+        vae=VAEConfig(), clip=CLIPTextConfig(),
+        pipeline=PipelineConfig(latent_height=34, latent_width=92),
+        image_size=(272, 736),
+    )
+
+
+def sd15mv_rawbox_424x800() -> ModelPreset:
+    """The released visualization-quality model
+    (ref:configs/exp/424x800.yaml): latent 53x100, a 400x400 map through
+    the standard embedder (400x400 -> 53x100)."""
+    unet = UNetConfig(neighboring_view_pair=NUSCENES_NEIGHBORS)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        map_size=(8, 400, 400),
+        map_embedder_out_channels=(16, 32, 96, 256),
+        bbox=BBoxEmbedderConfig(mode="all-xyz"),
+    )
+    return ModelPreset(
+        name="SDv1.5mv-rawbox-424x800", unet=unet, controlnet=cn,
+        vae=VAEConfig(), clip=CLIPTextConfig(),
+        pipeline=PipelineConfig(latent_height=53, latent_width=100),
+        image_size=(424, 800), map_hw=(400, 400),
     )
 
 

@@ -2,13 +2,15 @@
 ``core/attention.py``).
 
 Shapes with Lq*Lk >= 90 000 and a head depth of at most 128 go to a
-projection-fused kernel (``kernels.dispatch.attention_route``): K1, whose
-output is out-projected here, or K8 under ``MAGICDRIVE_FUSED_MODE=auto``
-where it fits, which out-projects in the kernel and leaves the bias to this
-module; their gradients come from ``kernels.autograd``. Every other
-attention projects q/k/v with ``nn.Linear`` and runs
-``F.scaled_dot_product_attention``, as the JAX package left those shapes
-to XLA.
+kernel (``kernels.dispatch.attention_route``): K1, whose output is
+out-projected here, or K8 under ``MAGICDRIVE_FUSED_MODE=auto`` where it
+fits, which out-projects in the kernel and leaves the bias to this module;
+where neither projection-fused kernel fits, the projected route: q/k/v by
+the module's linears, then K5 (the JAX package's lane-padded projections
+and flash kernel; the padding is a TPU layout and is left out). Their
+gradients come from ``kernels.autograd``. Every other attention projects
+q/k/v with ``nn.Linear`` and runs ``F.scaled_dot_product_attention``, as
+the JAX package left those shapes to XLA.
 """
 from __future__ import annotations
 
@@ -75,6 +77,10 @@ class Attention(nn.Module):
         if route == "kvstat":
             o = autograd.kvstat_attention(x, context, *w, self.heads,
                                           self.scale)
+        elif route == "projected":
+            o = autograd.flash_attention(self.to_q(x), self.to_k(context),
+                                         self.to_v(context), self.heads,
+                                         self.scale)
         else:
             o = sdpa(self.to_q(x), self.to_k(context), self.to_v(context),
                      self.heads, self.scale)

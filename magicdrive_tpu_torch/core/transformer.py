@@ -111,26 +111,41 @@ class BasicTransformerBlock(nn.Module):
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
         """Sum over the two ring neighbours of separate attentions, out-
-        projected once with the bias counted twice (ref:blocks.py:213-217):
-        by K2 and ``project_out``, by the K8 pair, or by SDPA."""
+        projected with the bias counted twice (ref:blocks.py:213-217): by
+        K2 and ``project_out``, by the K8 pair, or, where the pair's rule
+        fails, one attention per neighbour summed in the working dtype (JAX
+        ``core/transformer.py`` ``_cross_view``): K1's outputs then
+        ``project_out``, K8's out-projected outputs then the bias twice, or
+        the projected route's (or SDPA's) outputs then ``project_out``."""
         a = self.attn4
         s1, s2, n = self.shifts
         L = h.shape[-2]
         route = dispatch.pair_route(L, h.shape[-1], a.dim_head,
                                     h.element_size())
         w = (a.to_q.weight, a.to_k.weight, a.to_v.weight)
-        if route == "out":
-            lin = a.to_out[0]
-            y = autograd.fused_qkv_out_attention_pair(
-                h, *w, lin.weight, a.heads, a.scale, self.shifts)
+        lin = a.to_out[0]
+        if route in ("out", "out_loop"):
+            if route == "out":
+                y = autograd.fused_qkv_out_attention_pair(
+                    h, *w, lin.weight, a.heads, a.scale, self.shifts)
+            else:
+                y = sum(autograd.fused_qkv_out_attention(
+                    h, ring_views(h, s, n), *w, lin.weight, a.heads, a.scale)
+                    for s in (s1, s2))
             return y if lin.bias is None else y + 2 * lin.bias
         if route == "kvstat":
             o = autograd.kvstat_attention_pair(h, *w, a.heads, a.scale,
                                                self.shifts)
+        elif route == "kvstat_loop":
+            o = sum(autograd.kvstat_attention(h, ring_views(h, s, n), *w,
+                                              a.heads, a.scale)
+                    for s in (s1, s2))
         else:
+            attend = autograd.flash_attention if route == "projected_loop" \
+                else sdpa
             q, k, v = a.to_q(h), a.to_k(h), a.to_v(h)
-            o = sum(sdpa(q, ring_views(k, s, n), ring_views(v, s, n),
-                         a.heads, a.scale) for s in (s1, s2))
+            o = sum(attend(q, ring_views(k, s, n), ring_views(v, s, n),
+                           a.heads, a.scale) for s in (s1, s2))
         return a.project_out(o, n_summed=2)
 
 

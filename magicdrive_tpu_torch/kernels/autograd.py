@@ -15,6 +15,8 @@ One ``torch.autograd.Function`` per JAX custom VJP:
     runs only when dWout is asked for (``_fused_out_bwd``); the K8 pair
     (``_pair_core_out``) runs that once per ring neighbour, as K2, and sums
     the two dWout; it computes no K8 primal;
+  * K5 (``_flash_core``, the projected route's attention): the backward
+    is K6 on the forward's o and lse;
   * K3 (``_ff_core``) and K4 (``_geglu_core``): plain matrix products, as
     the JAX package leaves them to XLA, with its casts (the bf16 product
     x W1 before the bias, dhv and dhg cast to bf16 before their products,
@@ -262,6 +264,19 @@ class FusedQkvOutAttentionPair(torch.autograd.Function):
             ctx.needs_input_grad[:5]), None, None, None)
 
 
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = dispatch.flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return dispatch.flash_attention_bwd(*ctx.saved_tensors,
+                                            do.contiguous())
+
+
 class FusedGeglu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1):
@@ -298,6 +313,19 @@ def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                           ) -> torch.Tensor:
     """K2 with its gradient (``dispatch.kvstat_attention_pair``)."""
     return KvstatAttentionPair.apply(x, wq, wk, wv, heads, scale, shifts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    heads: int, scale: float) -> torch.Tensor:
+    """The projected route's attention (``flash_attention``'s function) with
+    its gradient: q, k, v (B, L, H*D) projections -> (B, Lq, H*D). q is
+    scaled in fp32 and cast back outside the kernel, as the JAX entry folds
+    the scale in, so autograd carries the scale into dq; K5 runs the
+    heads, K6 their backward."""
+    qs = (q.float() * scale).to(q.dtype)
+    o = FlashAttention.apply(_to_bh(qs, heads), _to_bh(k, heads),
+                             _to_bh(v, heads))
+    return _from_bh(o, heads)
 
 
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor,

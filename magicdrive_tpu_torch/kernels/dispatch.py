@@ -18,8 +18,10 @@ ints, so both packages send each shape to the same kernel:
     at most 128 (``core/attention.py`` ``_pallas_route``), else SDPA;
   * ``fused_mode_for`` then picks K1 ("kvstat") or K8 ("out") by the JAX
     package's VMEM fit rules under ``FUSED_MODE`` (``core/attention.py``
-    ``fused_mode_for``); the cross-view pair takes K2 or the K8 pair where
-    its own rule holds (``core/transformer.py`` ``_cross_view``);
+    ``fused_mode_for``), or neither: the projected route, the module's
+    projections and then K5; the cross-view pair takes K2 or the K8 pair
+    where its own rule holds, else one K1, K8 or projected attention per
+    neighbour (``core/transformer.py`` ``_cross_view``);
   * K3 takes the FeedForward where ``ff_full_fusion_fits`` holds, K4 every
     other one (``core/transformer.py`` ``FeedForward``).
 """
@@ -169,31 +171,26 @@ def fused_mode_for(Lq: int, Lk: int, C: int, dim_head: int,
 
 def attention_route(Lq: int, Lk: int, C: int, dim_head: int,
                     esize: int) -> Optional[str]:
-    """The kernel of an attention: None (SDPA), "kvstat" (K1) or "out"
-    (K8). Raises for the projected route, which is not ported."""
+    """The kernel of an attention: None (SDPA), "kvstat" (K1), "out" (K8)
+    or "projected" (the module's projections, then K5), where neither fused
+    kernel's rule holds (``core/attention.py`` ``Attention.__call__``)."""
     if Lq * Lk < MIN_LOGITS or dim_head > MAX_HEAD_DIM:
         return None
-    mode = fused_mode_for(Lq, Lk, C, dim_head, esize)
-    if mode is None:
-        raise NotImplementedError(
-            f"attention Lq={Lq} Lk={Lk} C={C} D={dim_head} esize={esize} "
-            "takes the projected route (lane-padded projections with the "
-            "flash kernel), not ported yet: ROADMAP Queue A, "
-            "'the projected attention route'")
-    return mode
+    return fused_mode_for(Lq, Lk, C, dim_head, esize) or "projected"
 
 
 def pair_route(L: int, C: int, dim_head: int, esize: int) -> Optional[str]:
     """The kernel of the cross-view pair ("add" mode, two ring neighbours):
-    None (SDPA), "kvstat" (K2) or "out" (the K8 pair). Raises where JAX
-    runs one attention per neighbour, which is not ported."""
+    None (SDPA), "kvstat" (K2) or "out" (the K8 pair) where the pair's own
+    rule holds, else one attention per neighbour, summed in the working
+    dtype (``core/transformer.py`` ``_cross_view``): "kvstat_loop" (K1
+    twice), "out_loop" (K8 twice) or "projected_loop" (K5 twice)."""
     mode = attention_route(L, L, C, dim_head, esize)
+    if mode == "projected":
+        return "projected_loop"
     fits = {"kvstat": kvstat_pair_fits, "out": pair_is_efficient}
     if mode is not None and not fits[mode](L, L, C, dim_head, esize):
-        raise NotImplementedError(
-            f"cross-view pair L={L} C={C} D={dim_head} esize={esize} in mode "
-            f"{mode!r} takes the per-neighbour loop, not ported yet: ROADMAP "
-            "Queue A, 'the per-neighbour cross-view loops'")
+        return mode + "_loop"
     return mode
 
 

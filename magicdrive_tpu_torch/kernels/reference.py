@@ -25,6 +25,26 @@ import torch
 import torch.nn.functional as F
 
 
+# The plain attentions materialise their fp32 logits, so they run over
+# slices of the batch axis whose logits stay within LOGIT_BYTES (12 views of
+# 8 heads at L=5300 hold 10.8 GB of them); the items are independent, so the
+# slices change no value.
+LOGIT_BYTES = 1 << 30
+
+
+def _by_batch(fn, logits_per_item: int, *ts: torch.Tensor):
+    """``fn(*ts)``, run on slices of the leading axis of ``ts`` and
+    concatenated (each output, for a tuple)."""
+    n = ts[0].shape[0]
+    step = max(1, LOGIT_BYTES // (4 * logits_per_item))
+    if step >= n:
+        return fn(*ts)
+    outs = [fn(*(t[i:i + step] for t in ts)) for i in range(0, n, step)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def _linear32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float().t()
 
@@ -37,6 +57,12 @@ def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             heads: int) -> torch.Tensor:
     """softmax(q k^T) v per head; q already scaled. (B, Lq, H*D) fp32."""
+    return _by_batch(lambda *t: _attend_all(*t, heads),
+                     heads * q.shape[1] * k.shape[1], q, k, v)
+
+
+def _attend_all(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                heads: int) -> torch.Tensor:
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
     s = qh.float() @ kh.float().transpose(-1, -2)
     p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -145,6 +171,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5. q (BH, Lq, D) pre-scaled, k/v (BH, Lk, D) -> o (BH, Lq, D) in
     q's dtype and lse (BH, Lq) fp32."""
+    return _by_batch(lambda *t: _flash_fwd(*t, kv_len),
+                     q.shape[1] * k.shape[1], q, k, v)
+
+
+def _flash_fwd(q, k, v, kv_len):
     s = _masked_logits(q, k, kv_len)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -160,6 +191,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6. The gradients of K5's o with respect to (q, k, v) given do,
     from o and lse: dq (BH, Lq, D), dk and dv (BH, Lk, D) in q's dtype."""
+    return _by_batch(lambda *t: _flash_bwd(*t, kv_len),
+                     q.shape[1] * k.shape[1], q, k, v, o, lse, do)
+
+
+def _flash_bwd(q, k, v, o, lse, do, kv_len):
     dt = q.dtype
     p = torch.exp(_masked_logits(q, k, kv_len) - lse[..., None])
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -192,6 +228,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's second launch: dk and dv (BH, Lk, D) from lse and delta, with
     ``flash_attention_bwd``'s cast points."""
+    return _by_batch(lambda *t: _flash_bwd_dkv(*t, kv_len),
+                     q.shape[1] * k.shape[1], q, k, v, lse, delta, do)
+
+
+def _flash_bwd_dkv(q, k, v, lse, delta, do, kv_len):
     dt = q.dtype
     p = torch.exp(_masked_logits(q, k, kv_len) - lse[..., None])
     ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])

@@ -15,7 +15,8 @@ from torch import nn
 
 from magicdrive_tpu_torch.config import BEVControlNetConfig
 from magicdrive_tpu_torch.models.embedders import (
-    BEVMapEmbedder, ContinuousBBoxWithTextEmbedding, embed_camera)
+    BEVMapEmbedder, BEVMapEmbedderPlus, ContinuousBBoxWithTextEmbedding,
+    embed_camera)
 from magicdrive_tpu_torch.models.unet import (CrossAttnDownBlock,
                                               TimestepEmbedding, UNetMidBlock,
                                               time_embed)
@@ -41,8 +42,13 @@ class BEVControlNet(nn.Module):
         self.uncond_cam = nn.Embedding(
             1, cfg.uncond_cam_in_dim[0] * cfg.uncond_cam_in_dim[1])
         self.bbox_embedder = ContinuousBBoxWithTextEmbedding(cfg.bbox)
-        self.controlnet_cond_embedding = BEVMapEmbedder(
-            cfg.map_size[0], cfg.map_embedder_out_channels, boc[0])
+        if cfg.use_map_embedder_plus:
+            self.controlnet_cond_embedding = BEVMapEmbedderPlus(
+                cfg.map_size[0], cfg.map_embedder_out_channels, boc[0],
+                cfg.map_embedder_plus_size)
+        else:
+            self.controlnet_cond_embedding = BEVMapEmbedder(
+                cfg.map_size[0], cfg.map_embedder_out_channels, boc[0])
         self.time_embedding = TimestepEmbedding(boc[0], boc[0] * 4)
         self.conv_in = nn.Conv2d(ucfg.in_channels, boc[0], 3, padding=1)
         self.down_blocks = nn.ModuleList([

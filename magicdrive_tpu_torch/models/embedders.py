@@ -59,7 +59,8 @@ def embed_camera(camera_param: torch.Tensor, num_freqs: int = 4
 class BEVMapEmbedder(nn.Module):
     """BEV map (B, C_map, H, W) -> latent-resolution features: conv_in, six
     SiLU convs with the asymmetric (2, 1) padding of the later stages, and
-    a zero-init conv_out ((8, 200, 200) -> (320, 28, 50))."""
+    a zero-init conv_out ((8, 200, 200) -> (320, 28, 50) for the 224x400
+    model, (8, 400, 400) -> (320, 53, 100) for the 424x800 one)."""
 
     def __init__(self, in_channels: int, block_out_channels: Tuple[int, ...],
                  out_channels: int):
@@ -84,3 +85,36 @@ class BEVMapEmbedder(nn.Module):
         for conv in self.blocks:
             h = F.silu(conv(h))
         return self.conv_out(h)
+
+
+class BEVMapEmbedderPlus(nn.Module):
+    """The hi-res map embedder (ref:map_embedder.py:79-127): conv_in and six
+    SiLU convs with symmetric padding 1 and stride 1 at the first stage,
+    then an adaptive average pool to ``out_hw`` and the zero-init conv_out
+    ((8, 200, 200) -> (320, 34, 92) for the 272x736 model). The pool's bins
+    are torch's, [floor(i * in / out), ceil((i + 1) * in / out)), as the JAX
+    package restates them."""
+
+    def __init__(self, in_channels: int, block_out_channels: Tuple[int, ...],
+                 out_channels: int, out_hw: Tuple[int, int]):
+        super().__init__()
+        boc = block_out_channels
+        self.out_hw = tuple(out_hw)
+        self.conv_in = nn.Conv2d(in_channels, boc[0], 3, padding=1)
+        specs = []  # (in, out, stride (h, w))
+        for i in range(len(boc) - 2):
+            specs.append((boc[i], boc[i], (1, 1)))
+            specs.append((boc[i], boc[i + 1], (1, 1) if i == 0 else (2, 2)))
+        specs.append((boc[-2], boc[-2], (1, 1)))
+        specs.append((boc[-2], boc[-1], (2, 1)))
+        self.blocks = nn.ModuleList([
+            nn.Conv2d(ci, co, 3, stride=s, padding=1) for ci, co, s in specs])
+        self.conv_out = nn.Conv2d(boc[-1], out_channels, 3, padding=1)
+        nn.init.zeros_(self.conv_out.weight)
+        nn.init.zeros_(self.conv_out.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.conv_in(x))
+        for conv in self.blocks:
+            h = F.silu(conv(h))
+        return self.conv_out(F.adaptive_avg_pool2d(h, self.out_hw))

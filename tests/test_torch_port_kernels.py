@@ -144,13 +144,17 @@ def _jax_pair_route(monkeypatch, mode, L, C, D, esize):
     return route
 
 
+# the port's per-neighbour loops under the names _jax_route and
+# _jax_pair_route give the JAX package's branches
+_JAX_NAME = {"kvstat_loop": "loops", "out_loop": "loops",
+             "projected_loop": "projected"}
+
+
 def _port_route(fn, *args):
-    """The port's route, with its NotImplementedError for the unported
-    branches named as _jax_route names them."""
-    try:
-        return fn(*args)
-    except NotImplementedError as e:
-        return "projected" if "projected route" in str(e) else "loops"
+    """The port's route, its loop names mapped onto JAX's "loops" and
+    "projected"."""
+    route = fn(*args)
+    return _JAX_NAME.get(route, route)
 
 
 def test_routing_matches_jax_rules_224x400(monkeypatch):
@@ -214,8 +218,8 @@ def _attention_shapes(preset):
 @pytest.mark.parametrize("name", _JAX_PRESETS)
 def test_routing_matches_jax_every_preset(name, monkeypatch):
     """Both fused modes, bf16 and fp32 elements: the port picks the JAX
-    package's kernel at every attention shape, and raises exactly where JAX
-    takes a branch the port has not ported."""
+    package's kernel at every attention shape, the per-neighbour loops and
+    the projected route included."""
     from magicdrive_tpu.config import presets as jp
 
     preset = getattr(jp, name)()
@@ -238,27 +242,48 @@ def test_routing_matches_jax_every_preset(name, monkeypatch):
                     routes.add((mode, esize, kind, Lq, got))
     if name == "sd15mv_rawbox_424x800":
         # the level-0 pair does not fit K2's rule: JAX runs one K1 per
-        # neighbour, which the port does not port yet
+        # neighbour, and so does the port; at fp32 its attn1 there takes
+        # the projected route
         assert ("kvstat", 2, "attn4", 5300, "loops") in routes
+        assert dispatch.pair_route(5300, 320, 40, 2) == "kvstat_loop"
+        assert ("kvstat", 4, "attn1", 5300, "projected") in routes
+
+
+# the routes the port's modules take (core/attention.py Attention.forward,
+# core/transformer.py BasicTransformerBlock._cross_view)
+_MODULE_ROUTES = {None, "kvstat", "out", "projected"}
+_MODULE_PAIR_ROUTES = {None, "kvstat", "out", "kvstat_loop", "out_loop",
+                       "projected_loop"}
 
 
 def test_port_presets_reach_no_unported_route():
-    """The port's presets route every attention to SDPA or a ported kernel
-    in both modes: 224x400 in bf16, the type it runs in on the card (in
-    fp32 its level-0 pair would take the per-neighbour loop), tiny_debug in
-    bf16 and in fp32, the CPU tests' type."""
+    """The port's presets route every attention to SDPA or a route its
+    modules take, in both modes: 224x400, 272x736 and 424x800 in bf16, the
+    type they run in on the card, tiny_debug in bf16 and in fp32, the CPU
+    tests' type. The hi-res presets reach the per-neighbour K1 loop at bf16
+    (424x800 level 0) and, at fp32, the projected route and its loop."""
     from magicdrive_tpu_torch import config
 
+    seen = set()
     for preset, esizes in ((config.sd15mv_rawbox_224x400(), (2,)),
+                           (config.sd15mv_rawbox_272x736(), (2, 4)),
+                           (config.sd15mv_rawbox_424x800(), (2, 4)),
                            (config.tiny_debug(), (2, 4))):
         for mode in dispatch.FUSED_MODES:
             with dispatch.fused_mode(mode):
                 for esize in esizes:
                     for kind, Lq, Lk, C, D in _attention_shapes(preset):
                         if kind == "attn4":
-                            dispatch.pair_route(Lq, C, D, esize)
+                            route = dispatch.pair_route(Lq, C, D, esize)
+                            assert route in _MODULE_PAIR_ROUTES, route
                         else:
-                            dispatch.attention_route(Lq, Lk, C, D, esize)
+                            route = dispatch.attention_route(Lq, Lk, C, D,
+                                                             esize)
+                            assert route in _MODULE_ROUTES, route
+                        seen.add((preset.name, esize, route))
+    assert ("SDv1.5mv-rawbox-424x800", 2, "kvstat_loop") in seen
+    assert ("SDv1.5mv-rawbox-424x800", 4, "projected_loop") in seen
+    assert ("SDv1.5mv-rawbox-272x736", 4, "projected") in seen
 
 
 def test_fused_mode_is_read_once_and_switchable(monkeypatch):

@@ -77,7 +77,8 @@ def test_presets_match_jax():
 
     from magicdrive_tpu_torch import config as tp
 
-    for name in ("sd15mv_rawbox_224x400", "tiny_debug"):
+    for name in ("sd15mv_rawbox_224x400", "sd15mv_rawbox_272x736",
+                 "sd15mv_rawbox_424x800", "tiny_debug"):
         j, t = getattr(jp, name)(), getattr(tp, name)()
         for part in ("unet", "vae", "clip"):
             jc, tc = getattr(j, part), getattr(t, part)
@@ -97,8 +98,9 @@ def test_presets_match_jax():
                   "conditioning_scale", "latent_height", "latent_width",
                   "n_cam"):
             assert getattr(t.pipeline, f) == getattr(j.pipeline, f), f
-        for f in ("image_size", "bbox_max_len"):
-            assert getattr(t, f) == getattr(j, f), f
+        for f in ("name", "image_size", "map_hw", "map_channels",
+                  "bbox_max_len"):
+            assert getattr(t, f) == getattr(j, f), (name, f)
 
 
 def test_embeddings():

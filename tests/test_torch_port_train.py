@@ -227,24 +227,9 @@ def _step_calls(mode):
     modules, cfg, state, batch = _tiny_setup()
     names = set(chip_smoke.training_calls("kvstat")) | \
         set(chip_smoke.training_calls("auto"))
-    calls = dict.fromkeys(names, 0)
-    saved = {n: getattr(dispatch, n) for n in calls}
-
-    def counted(name):
-        def call(*args):
-            calls[name] += 1
-            return saved[name](*args)
-        return call
-
-    try:
-        for n in calls:
-            setattr(dispatch, n, counted(n))
-        with dispatch.fused_mode(mode):
-            train_step(modules, state, batch, cfg,
-                       generator=torch.Generator().manual_seed(0))
-    finally:
-        for n, fn in saved.items():
-            setattr(dispatch, n, fn)
+    with chip_smoke.counted_calls(names) as calls, dispatch.fused_mode(mode):
+        train_step(modules, state, batch, cfg,
+                   generator=torch.Generator().manual_seed(0))
     bwd = calls.pop("flash_attention_bwd")
     got = {**dict.fromkeys(dispatch.LAUNCHES, 0), **calls,
            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
@@ -273,3 +258,22 @@ def test_training_calls_match_derived_counts_auto():
     assert want["fused_qkv_out_attention"] == 21
     assert want["fused_qkv_out_attention_pair"] == 10
     assert want["fused_qkv_attention"] == 26
+
+
+def test_training_calls_match_derived_counts_projected(monkeypatch):
+    """With the fused kernels' fit rules made to fail, every kernel
+    attention takes the projected route and every cross-view pair its
+    per-neighbour loop: K5 runs once per forward call (twice a pair), and
+    the backward runs K6 alone on the forward's o and lse, so K5 does not
+    run again; K1, K2, K7 and K8 never run."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    monkeypatch.setattr(dispatch, "fused_mode_for", lambda *a: None)
+    assert dispatch.attention_route(1400, 1400, 8, 4, 4) == "projected"
+    assert dispatch.pair_route(1400, 8, 4, 4) == "projected_loop"
+    got, want = _step_calls("kvstat")
+    assert got == want
+    assert want["kvstat_attention"] == want["kvstat_attention_pair"] == \
+        want["fused_qkv_out_attention"] == want["fused_qkv_attention"] == 0
+    assert want["flash_attention_fwd"] == 41
+    assert want["flash_attention_bwd_dq"] == 40
