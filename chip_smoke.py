@@ -12,7 +12,8 @@ no result line):
      fails the run;
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
-     12 views) and at the shapes the hi-res paths add (_hires_cases: K1 at
+     12 views), K1-K4 at the 16-frame video's (192 views, _video_cases),
+     and at the shapes the hi-res paths add (_hires_cases: K1 at
      L=5300 and 3128, one neighbour's call of the 424x800 K1 loop among
      them, K2 at L=3128 and 1350, K3 at M=12*5300 and 12*3128, K4 at
      M=12*1350, K8 at L=782 in attn1 and attn2 and its pair at L=782), and
@@ -76,6 +77,21 @@ no result line):
      the per-neighbour K1 loop), on fixture batches at their image and map
      sizes, each run's launch counts equal to the derived ones, with the
      per-call check and a profiled guided step of each preset and mode;
+     before them, on the 224x400 weights under "kvstat", the pipeline's
+     options (run_options: a guess-mode request with the per-call check of
+     its step, a DDIM request, a request from the port's own CLIP output
+     as prompt embeddings bitwise equal to the one from the ids, a B=2
+     request from one latent, one guided step with the negative1
+     unconditional map and its per-call check) and given-view generation
+     (run_given_view: view 1 of a request's encoded images given, with
+     sub_noise_pred off and on; the given view bitwise its VAE round trip,
+     the others generated; the per-call check); after them the 16-frame
+     video, sd15mv_rawbox_video_16f at full width (run_video: B=1, 16
+     frames of 6 views, N_REQUESTS requests under "kvstat", the peak
+     memory, the per-call check at the UNet batch of 192, a profiled guided
+     step with the temporal attention's SDPA time); K1-K4 are also checked
+     and timed at the video's shapes in phase 3 (_video_cases), and every
+     path's launch counts equal the derived ones;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -98,8 +114,9 @@ no result line):
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
-path runs of phases 4-6 (the forced routes, the generation and training
-paths) and "launches_by_path" gives each. The
+path runs of phases 4-6 (the forced routes, the generation paths, the
+options, given-view and video paths, and training) and "launches_by_path"
+gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
@@ -302,7 +319,38 @@ def kernel_cases(gen: torch.Generator):
         cases.append(("fused_geglu", f"geglu M=12*{L} C={C}",
                       (rnd(12 * L, C), rnd(8 * C, C, scale=C ** -0.5),
                        rnd(8 * C, scale=0.1))))
-    return cases + _out_cases(rnd) + _hires_cases(rnd)
+    return cases + _out_cases(rnd) + _hires_cases(rnd) + _video_cases(rnd)
+
+
+VIDEO_VIEWS = 2 * 16 * 6  # the 16-frame video's UNet batch: CFG, frames, views
+
+
+def _video_cases(rnd):
+    """K1-K4 at the shapes of the 16-frame video path (VIDEO_VIEWS
+    sequences, 8 heads): K1 at attn1 of levels 0 and 1 and attn2 of level
+    0, K2 at both levels, K3 at level 0 and K4 at levels 1-3."""
+    V, cases = VIDEO_VIEWS, []
+    for L, C in ((1400, 320), (350, 640)):
+        x = rnd(V, L, C)
+        w = [rnd(C, C, scale=C ** -0.5) for _ in range(3)]
+        cases.append(("kvstat_attention", f"video attn1 {V}x L={L} C={C}",
+                      (x, x, *w, 8, (C // 8) ** -0.5)))
+        cases.append(("kvstat_attention_pair",
+                      f"video attn4 {V}x L={L} C={C}",
+                      (x, *w, 8, (C // 8) ** -0.5, (5, 1, 6))))
+    x = rnd(V, 1400, 320)
+    cases.append(("kvstat_attention", f"video attn2 {V}x L=1400 Lk=238",
+                  (x, rnd(V, 238, 768), rnd(320, 320, scale=320 ** -0.5),
+                   rnd(320, 768, scale=768 ** -0.5),
+                   rnd(320, 768, scale=768 ** -0.5), 8, 40 ** -0.5)))
+    cases.append(("fused_ff", f"video ff M={V}*1400 C=320",
+                  (x.reshape(-1, 320), rnd(2560, 320, scale=320 ** -0.5),
+                   rnd(2560, scale=0.1), rnd(320, 1280, scale=1280 ** -0.5))))
+    for L, C in ((350, 640), (91, 1280), (28, 1280)):
+        cases.append(("fused_geglu", f"video geglu M={V}*{L} C={C}",
+                      (rnd(V * L, C), rnd(8 * C, C, scale=C ** -0.5),
+                       rnd(8 * C, scale=0.1))))
+    return cases
 
 
 def _hires_cases(rnd):
@@ -1203,30 +1251,47 @@ def _check_launches(what, want):
     return launches
 
 
+def check_images(img, batch, preset) -> str:
+    """The images of a request: (B or B*F, N, H, W, 3) for the batch's
+    leading size, finite, in [0, 1]; -> their statistics."""
+    want = (len(batch["camera_param"]), preset.pipeline.n_cam,
+            *preset.image_size, 3)
+    if tuple(img.shape) != want:
+        raise AssertionError(f"image shape {tuple(img.shape)}, not {want}")
+    if not torch.isfinite(img).all():
+        raise AssertionError("non-finite image values")
+    lo, hi = img.min().item(), img.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"image values outside [0, 1]: {lo} {hi}")
+    return (f"image min {lo:.3f} max {hi:.3f} mean {img.mean().item():.4f} "
+            f"std {img.std().item():.4f}")
+
+
+def _timed(fn):
+    """(fn(), host-clock seconds to a sync)"""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def run_slice(preset, pipe, batches, mode):
+    """One request per batch through ``pipe`` (a MagicDrivePipeline or a
+    VideoPipeline), the images checked and the launch counts equal to the
+    derived ones."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     dispatch.reset_launches()
     gen = torch.Generator(device="cuda").manual_seed(42)
     seconds = []
     for b in batches:
-        t0 = time.perf_counter()
-        img = pipe(b, generator=gen)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        if tuple(img.shape) != (1, 6, *preset.image_size, 3):
-            raise AssertionError(f"image shape {tuple(img.shape)}")
-        if not torch.isfinite(img).all():
-            raise AssertionError("non-finite image values")
-        lo, hi = img.min().item(), img.max().item()
-        if lo < 0.0 or hi > 1.0:
-            raise AssertionError(f"image values outside [0, 1]: {lo} {hi}")
-        log(f"  request: {seconds[-1]:.3f} s, image min {lo:.3f} max "
-            f"{hi:.3f} mean {img.mean().item():.4f} std "
-            f"{img.std().item():.4f}")
+        img, s = _timed(lambda: pipe(b, generator=gen))
+        seconds.append(s)
+        log(f"  request: {s:.3f} s, {check_images(img, b, preset)}")
     what = f"generation {preset.name} ({mode})"
     launches = _check_launches(what, expected_launches(
-        preset, mode, forwards=len(batches) * pipe.cfg.num_inference_steps))
+        preset, mode,
+        forwards=len(batches) * preset.pipeline.num_inference_steps))
     log(f"{what}: seconds per request {seconds} (the first includes one-time "
         f"setup such as cuDNN algorithm choice)")
     return launches, seconds
@@ -1267,7 +1332,8 @@ def _step_inputs(pipe, batch):
     step the views differ only by their conditioning, and a cross-view
     fault that mixes up neighbours would hardly show."""
     c = pipe.cfg
-    x = torch.randn((1, c.n_cam, 4, c.latent_height, c.latent_width),
+    x = torch.randn((len(batch["camera_param"]), c.n_cam, 4, c.latent_height,
+                     c.latent_width),
                     generator=torch.Generator(device="cuda").manual_seed(7),
                     device="cuda")
     return x, int(pipe.coeffs.timesteps[0]), pipe.conditioning(batch)
@@ -1315,19 +1381,44 @@ def profile_guided_step(preset, pipe, batch, mode, top: int = 8) -> None:
     its kernels' device times (one stream, so the sum is the busy time), the
     device time of the mode's attention (the heads, with the out-projection
     under ``auto``), of the out-projection alone, of the k/v projection, of
-    K3 and K4, and the kernels that take the most."""
+    K3 and K4, and the kernels that take the most; for the video model, the
+    device time of the temporal attention's SDPA calls in one more step."""
     x, t, cond = _step_inputs(pipe, batch)
-    wall, rows = _profiled(lambda: pipe.guided_eps(x, t, cond))
+    step = lambda: pipe.guided_eps(x, t, cond)
+    wall, rows = _profiled(step)
     busy = sum(r[0] for r in rows)
     attention = {"kvstat": "K1+K2", "auto": "K8+pair"}[mode]
     attn_ms = _device_ms(rows, "heads") + _device_ms(rows, "out_project")
+    frames = preset.unet.temporal_frames
+    temporal = "" if not frames else (
+        f"temporal SDPA (Lq = Lk = {frames}) "
+        f"{_sdpa_ms(step, frames):.2f} ms, ")
     log(f"guided step of {preset.name} ({mode}) under the profiler: "
         f"{wall:.1f} ms host "
         f"clock, kernels {busy:.1f} ms (device idle "
         f"{100 * (1 - busy / wall):.1f} %); {attention} {attn_ms:.2f} ms (" +
         _kernel_parts(rows, ("heads", "out_project")) + "), " +
-        _kernel_parts(rows, ("K3", "K4", "kv_project")) + "; top kernels: " +
+        _kernel_parts(rows, ("K3", "K4", "kv_project")) + ", " + temporal +
+        "top kernels: " +
         "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, c, k in rows[:top]))
+
+
+def _sdpa_ms(fn, length: int) -> float:
+    """The device ms, in one call of ``fn`` under torch.profiler with the
+    operators' shapes recorded, of the F.scaled_dot_product_attention calls
+    whose queries (B, H, L, D) have L = ``length``, the kernels of every
+    backend counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total / 1e3
+               for e in prof.key_averages(group_by_input_shape=True)
+               if e.key == "aten::scaled_dot_product_attention"
+               and e.input_shapes and len(e.input_shapes[0]) == 4
+               and e.input_shapes[0][2] == length)
 
 
 def _profiled(fn):
@@ -1514,6 +1605,189 @@ def run_hires(by_path, timing) -> None:
                 profile_guided_step(preset, pipe, batches[0], mode)
         del pipe
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's options, given-view generation and 16-frame video
+# ---------------------------------------------------------------------------
+
+
+def _option_request(what, preset, pipe, batch, by_path, timing, **kwargs):
+    """One request through ``pipe`` under "kvstat", its images checked and
+    its launch counts equal to the derived ones (filed under ``what``)."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    dispatch.reset_launches()
+    img, s = _timed(lambda: pipe(batch, **kwargs))
+    log(f"  {what}: {s:.3f} s, {check_images(img, batch, preset)}")
+    by_path[what] = _check_launches(what, expected_launches(
+        preset, "kvstat", forwards=preset.pipeline.num_inference_steps))
+    timing[f"s/request {what}"] = [s]
+    return img
+
+
+def run_options(preset, pipe, batches, by_path, timing) -> None:
+    """The pipeline's options at full width under "kvstat" on the 224x400
+    pipeline's weights: a guess-mode request (its ControlNet at batch B on
+    the cond branch) with the per-call check of its guided step, a DDIM
+    request, a request from pre-encoded prompt embeddings (the port's own
+    CLIP output) bitwise equal to the one from the ids on the same latents,
+    a B=2 request whose samples start from one latent
+    (``fix_seed_within_batch``), and one guided step of a ControlNet with
+    the negative1 unconditional map, with the per-call check."""
+    import dataclasses
+
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.models.controlnet import BEVControlNet
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+
+    cfg, batch = pipe.cfg, batches[0]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    with dispatch.fused_mode("kvstat"):
+        for what, option in (("options_guess_mode", {"guess_mode": True}),
+                             ("options_ddim", {"sampler": "ddim"})):
+            p = MagicDrivePipeline(pipe.m, dataclasses.replace(cfg, **option))
+            _option_request(what, preset, p, batch, by_path, timing,
+                            generator=gen)
+            if option.get("guess_mode"):
+                check_path_calls(preset, p, batch, "kvstat")
+
+        with torch.no_grad():
+            text, uncond = pipe.encode_text(batch)
+        lat = pipe.prepare_latents(1, gen)
+        by_ids = pipe(batch, latents=lat)
+        by_embeds = _option_request(
+            "options_prompt_embeds", preset, pipe,
+            dict(batch, prompt_embeds=text, uncond_embeds=uncond),
+            by_path, timing, latents=lat)
+        if not torch.equal(by_ids, by_embeds):
+            raise AssertionError("the request from prompt embeddings differs "
+                                 "from the one from their ids")
+        log("  the request from prompt embeddings is bitwise equal to the "
+            "one from the ids")
+
+        batch2 = collate_fn(make_dataset(2, image_hw=preset.image_size,
+                                         map_hw=preset.map_hw),
+                            CollateConfig(bbox_max_len=preset.bbox_max_len))
+        lat = pipe.prepare_latents(2, gen, fix_seed_within_batch=True)
+        if not torch.equal(lat[0], lat[1]):
+            raise AssertionError("fix_seed_within_batch: the samples' "
+                                 "initial latents differ")
+        img = _option_request("options_fixed_seed_b2", preset, pipe, batch2,
+                              by_path, timing, latents=lat)
+        log(f"  B=2 from one initial latent: the two samples' images differ "
+            f"by {(img[0] - img[1]).abs().max().item():.3f} at most (their "
+            f"scenes differ)")
+
+        with torch.device("cuda"):
+            cn = BEVControlNet(dataclasses.replace(
+                preset.controlnet, use_uncond_map="negative1"))
+        got = cn.load_state_dict(pipe.m.controlnet.state_dict(), strict=False)
+        if got.missing_keys != ["uncond_map"] or got.unexpected_keys:
+            raise AssertionError(f"uncond-map ControlNet: {got}")
+        cn.to(dtype=pipe.dtype).eval().requires_grad_(False)
+        if not bool((cn.uncond_map == -1).all()):
+            raise AssertionError("the negative1 map is not -1")
+        p = MagicDrivePipeline(dataclasses.replace(pipe.m, controlnet=cn),
+                               cfg)
+        x, t, cond = _step_inputs(p, batch)
+        if torch.equal(cond.cond_feat[:1], cond.cond_feat[1:]):
+            raise AssertionError("the uncond branch did not take the map")
+        dispatch.reset_launches()
+        p.guided_eps(x, t, cond)
+        by_path["options_uncond_map_step"] = _check_launches(
+            "options: one guided step with the negative1 map",
+            expected_launches(preset, "kvstat", forwards=1))
+        check_path_calls(preset, p, batch, "kvstat")
+    del cn, p
+
+
+def run_given_view(preset, pipe, batches, by_path, timing) -> None:
+    """Given-view generation at full width under "kvstat": one request's
+    images encoded, view 1 given and the other five generated, with
+    sub_noise_pred off and on; the given view's images are bitwise those of
+    the VAE round trip of its latent, the generated ones finite, in
+    [0, 1], and not the round trip's; the launch counts equal the derived
+    ones; then the per-call check of one guided step."""
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.pipeline.given_view import GivenViewPipeline
+
+    batch, n = batches[0], pipe.cfg.n_cam
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    with dispatch.fused_mode("kvstat"):
+        gv = GivenViewPipeline(pipe.m, pipe.cfg)
+        given = gv.encode_views(pipe(batch, generator=gen) * 2 - 1)
+        round_trip = gv.decode(given.permute(0, 1, 4, 2, 3))
+        mask = torch.zeros(n, device="cuda")
+        mask[1] = 1.0
+        dispatch.reset_launches()
+        seconds = []
+        for sub in (False, True):
+            gv = GivenViewPipeline(pipe.m, pipe.cfg, sub_noise_pred=sub)
+            img, s = _timed(lambda: gv(batch, given, mask, generator=gen))
+            seconds.append(s)
+            stats = check_images(img, batch, preset)
+            if not torch.equal(img[0, 1], round_trip[0, 1]):
+                raise AssertionError("the given view is not its VAE round "
+                                     "trip")
+            moved = min((img[0, v] - round_trip[0, v]).abs().max().item()
+                        for v in range(n) if v != 1)
+            if not moved > 1e-3:
+                raise AssertionError(f"a generated view is its round trip "
+                                     f"({moved})")
+            log(f"  given view 1, sub_noise_pred {sub}: {s:.3f} s, {stats}; "
+                f"view 1 bitwise its round trip, the others at least "
+                f"{moved:.3f} from theirs")
+        by_path["given_view"] = _check_launches(
+            "given view (kvstat)", expected_launches(
+                preset, "kvstat", forwards=2 * pipe.cfg.num_inference_steps))
+        timing["s/request given view"] = seconds
+        check_path_calls(preset, gv, batch, "kvstat")
+
+
+def video_set_up():
+    """The full-width 16-frame video pipeline on seeded weights and
+    N_REQUESTS requests of one 16-frame clip each (B=1, the frames folded
+    into the batch)."""
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_video_16f
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.pipeline.video import VideoPipeline
+
+    preset = sd15mv_rawbox_video_16f()
+    frames = preset.unet.temporal_frames
+    t0 = time.perf_counter()
+    modules = _new_modules(preset).to("cuda", preset.pipeline.dtype)
+    pipe = VideoPipeline(modules, preset.pipeline, n_frames=frames)
+    torch.cuda.synchronize()
+    log(f"video: {preset.name}, {frames} frames, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clip = collate_fn(make_dataset(frames, image_hw=preset.image_size,
+                                   map_hw=preset.map_hw),
+                      CollateConfig(bbox_max_len=preset.bbox_max_len))
+    return preset, pipe, [clip] * N_REQUESTS
+
+
+def run_video(by_path, timing) -> None:
+    """The 16-frame video at full width under "kvstat": N_REQUESTS requests
+    (the first cold) with their launch counts (the temporal blocks launch
+    none of K1-K8), the peak memory, the per-call check and a profiled
+    guided step."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    preset, pipe, batches = video_set_up()
+    torch.cuda.reset_peak_memory_stats()
+    with dispatch.fused_mode("kvstat"):
+        by_path["video_16f_kvstat"], timing["s/request video 16f"] = \
+            run_slice(preset, pipe, batches, "kvstat")
+        log(f"video: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB")
+        check_path_calls(preset, pipe.pipe, batches[0], "kvstat")
+        profile_guided_step(preset, pipe.pipe, batches[0], "kvstat")
+    del pipe
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1780,9 +2054,14 @@ def main() -> None:
             check_path_calls(preset, pipe, batches[0], mode)
             check_eps(preset, pipe, batches[0], mode)
             profile_guided_step(preset, pipe, batches[0], mode)
+    log("the pipeline's options (kvstat):")
+    run_options(preset, pipe, batches, by_path, timing)
+    log("given-view generation (kvstat):")
+    run_given_view(preset, pipe, batches, by_path, timing)
     del pipe
     torch.cuda.empty_cache()
     run_hires(by_path, timing)
+    run_video(by_path, timing)
     for mode in dispatch.FUSED_MODES:
         with dispatch.fused_mode(mode):
             setup, by_path[f"training_{mode}"], run = run_training(mode=mode)

@@ -29,6 +29,8 @@ class UNetConfig:
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
     # cross-view attention ("add" mode, zero_linear connector) when set
     neighboring_view_pair: Optional[Tuple[Tuple[int, int], ...]] = None
+    # video: attention over this many frames in every transformer block
+    temporal_frames: Optional[int] = None
 
     @property
     def up_block_has_attn(self) -> Tuple[bool, ...]:
@@ -69,6 +71,9 @@ class BEVControlNetConfig:
         default_factory=BBoxEmbedderConfig)
     # training: views whose conditioning is dropped lose their boxes too
     drop_cam_with_box: bool = False
+    # the unconditional map (ref:unet_addon_rawbox.py:188-202): None |
+    # negative1 | random | learnable
+    use_uncond_map: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +104,13 @@ class PipelineConfig:
     num_inference_steps: int = 20
     guidance_scale: float = 2.0
     conditioning_scale: float = 1.0
+    sampler: str = "unipc"  # unipc | ddim
+    use_zero_map_as_unconditional: bool = False
+    # ControlNet guess mode (ref:pipeline_bev_controlnet.py:361-405): the
+    # ControlNet runs on the conditional CFG branch only, with logspace
+    # residual scaling; the unconditional branch gets zero residuals and the
+    # uncond token sequence
+    guess_mode: bool = False
     latent_height: int = 28
     latent_width: int = 50
     n_cam: int = 6
@@ -177,12 +189,25 @@ def sd15mv_rawbox_424x800() -> ModelPreset:
     )
 
 
-def tiny_debug() -> ModelPreset:
-    """CPU-sized model with the 224x400 geometry, for tests."""
+def sd15mv_rawbox_video_16f() -> ModelPreset:
+    """The 16-frame multi-view video model: the 224x400 model with temporal
+    attention in every transformer block of the UNet; the ControlNet's
+    stays without (SURVEY.md §2.5, the MagicDrive-t capability)."""
+    base = sd15mv_rawbox_224x400()
+    return dataclasses.replace(
+        base, name="SDv1.5mv-rawbox-video16",
+        unet=dataclasses.replace(base.unet, temporal_frames=16))
+
+
+def tiny_debug(n_cam: int = 6) -> ModelPreset:
+    """CPU-sized model with the 224x400 geometry, for tests; ``n_cam``
+    cameras on a ring."""
+    neighbors = NUSCENES_NEIGHBORS if n_cam == 6 else tuple(
+        ((i - 1) % n_cam, (i + 1) % n_cam) for i in range(n_cam))
     unet = UNetConfig(
         block_out_channels=(8, 16, 16, 16), num_attention_heads=2,
         cross_attention_dim=16, norm_num_groups=4,
-        neighboring_view_pair=NUSCENES_NEIGHBORS)
+        neighboring_view_pair=neighbors)
     cn = BEVControlNetConfig(
         unet=dataclasses.replace(unet, neighboring_view_pair=None),
         camera_out_dim=16, map_size=(8, 200, 200),
@@ -196,6 +221,16 @@ def tiny_debug() -> ModelPreset:
         clip=CLIPTextConfig(vocab_size=49408, hidden_size=16, num_layers=2,
                             num_heads=2, intermediate_size=32),
         pipeline=PipelineConfig(latent_height=28, latent_width=50,
-                                num_inference_steps=4, dtype=torch.float32),
+                                num_inference_steps=4, n_cam=n_cam,
+                                dtype=torch.float32),
         image_size=(224, 400), bbox_max_len=8,
     )
+
+
+def tiny_video_debug(n_frames: int = 4, n_cam: int = 6) -> ModelPreset:
+    """CPU-sized video model: ``tiny_debug`` with temporal attention over
+    ``n_frames`` frames in the UNet."""
+    base = tiny_debug(n_cam=n_cam)
+    return dataclasses.replace(
+        base, name="tiny-video-debug",
+        unet=dataclasses.replace(base.unet, temporal_frames=n_frames))

@@ -3,7 +3,8 @@
 
 Each leaf of the JAX ``init_params`` tree, given as nested dicts of numpy
 arrays, maps to one diffusers/transformers state_dict key:
-  * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+  * conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), the
+    ControlNet's unconditional map (H, W, C) -> (C, H, W);
   * ``scale`` / ``kernel`` / ``embedding`` -> ``weight``;
   * flax scope names -> torch module paths (``_PRE_RULES``, list indices,
     ``to_out`` -> ``to_out.0``) and the special keys (``_SPECIALS``).
@@ -90,6 +91,8 @@ def _transform(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
         return value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
     if path == ("uncond_cam",):
         return value.reshape(1, -1)  # Embedding(1, 21)
+    if path == ("uncond_map",):
+        return value.transpose(2, 0, 1)  # (H, W, C) -> (C, H, W)
     return value
 
 

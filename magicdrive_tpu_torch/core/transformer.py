@@ -4,6 +4,9 @@ of ``core/transformer.py``).
 Sequences arrive flattened as (B*N_cam, L, C) with the views innermost.
 The cross-view attention runs in "add" mode over ring neighbours (view v
 reads views (v + s1) % n and (v + s2) % n) with a zero_linear connector.
+The video model's temporal attention runs over the frames of each view
+and position, the batch then laid out (B*F*N_cam) with views innermost,
+through a zero_linear connector of its own.
 """
 from __future__ import annotations
 
@@ -66,16 +69,27 @@ def ring_shift(idx: Sequence[int], n: int) -> Optional[int]:
     return s if all(j == (i + s) % n for i, j in enumerate(idx)) else None
 
 
+def _zero_linear(dim: int) -> nn.Linear:
+    lin = nn.Linear(dim, dim)
+    nn.init.zeros_(lin.weight)
+    nn.init.zeros_(lin.bias)
+    return lin
+
+
 class BasicTransformerBlock(nn.Module):
     """Self-attention, text cross-attention, optional cross-view attention
     (``attn4``, between attn2 and the FF, through a zero-init linear
-    ``connector``) and the GEGLU feed-forward, each pre-normed and
-    residual."""
+    ``connector``), optional temporal attention over ``temporal_frames``
+    frames (``attn_temp``, after the cross-view one, through the zero-init
+    ``connector_temp``) and the GEGLU feed-forward, each pre-normed and
+    residual. At init the zero connectors make the block the stock SD
+    block."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  cross_attention_dim: int,
                  neighboring_view_pair: Optional[
-                     Tuple[Tuple[int, int], ...]] = None):
+                     Tuple[Tuple[int, int], ...]] = None,
+                 temporal_frames: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
         self.attn1 = Attention(dim, n_heads, d_head)
@@ -96,9 +110,15 @@ class BasicTransformerBlock(nn.Module):
             self.norm4 = LayerNorm32(dim)
             self.attn4 = Attention(dim, n_heads, d_head,
                                    cross_attention_dim=dim)
-            self.connector = nn.Linear(dim, dim)
-            nn.init.zeros_(self.connector.weight)
-            nn.init.zeros_(self.connector.bias)
+            self.connector = _zero_linear(dim)
+        self.frames = None
+        if temporal_frames is not None and temporal_frames > 1:
+            # (frames, views): the batch is (B*F*n) with the views innermost
+            self.frames = (temporal_frames, len(neighboring_view_pair)
+                           if neighboring_view_pair else 1)
+            self.norm_temp = LayerNorm32(dim)
+            self.attn_temp = Attention(dim, n_heads, d_head)
+            self.connector_temp = _zero_linear(dim)
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
@@ -107,7 +127,22 @@ class BasicTransformerBlock(nn.Module):
         x = self.attn2(self.norm2(x), context) + x
         if self.shifts is not None:
             x = self.connector(self._cross_view(self.norm4(x))) + x
+        if self.frames is not None:
+            x = self.connector_temp(self._temporal(self.norm_temp(x))) + x
         return self.ff(self.norm3(x)) + x
+
+    def _temporal(self, h: torch.Tensor) -> torch.Tensor:
+        """Self-attention over the frames at each view and position:
+        (b f n) l c -> (b n l) f c, ``attn_temp`` (Lq = Lk = F, under the
+        kernels' threshold: SDPA, as the JAX package leaves it to XLA), and
+        back (JAX ``core/transformer.py`` ``_temporal``)."""
+        f, n = self.frames
+        bfn, L, C = h.shape
+        b = bfn // (f * n)
+        h = h.reshape(b, f, n, L, C).permute(0, 2, 3, 1, 4)
+        o = self.attn_temp(h.reshape(b * n * L, f, C))
+        return o.reshape(b, n, L, f, C).permute(0, 3, 1, 2, 4).reshape(
+            bfn, L, C)
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
         """Sum over the two ring neighbours of separate attentions, out-
@@ -156,13 +191,15 @@ class Transformer2DModel(nn.Module):
     def __init__(self, n_heads: int, d_head: int, cross_attention_dim: int,
                  norm_num_groups: int,
                  neighboring_view_pair: Optional[
-                     Tuple[Tuple[int, int], ...]] = None):
+                     Tuple[Tuple[int, int], ...]] = None,
+                 temporal_frames: Optional[int] = None):
         super().__init__()
         c = n_heads * d_head
         self.norm = GroupNorm(norm_num_groups, c, eps=1e-6)
         self.proj_in = nn.Conv2d(c, c, 1)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
-            c, n_heads, d_head, cross_attention_dim, neighboring_view_pair)])
+            c, n_heads, d_head, cross_attention_dim, neighboring_view_pair,
+            temporal_frames)])
         self.proj_out = nn.Conv2d(c, c, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:

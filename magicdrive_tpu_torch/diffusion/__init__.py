@@ -1,2 +1,3 @@
 from .schedules import NoiseSchedule
-from .samplers import UniPCCoeffs, make_unipc_coeffs
+from .samplers import (DDIMCoeffs, UniPCCoeffs, make_ddim_coeffs,
+                       make_sampler_coeffs, make_unipc_coeffs)

@@ -1,20 +1,44 @@
-"""UniPC-2 (B(h)=bh2) as a precomputed per-step coefficient table and a
-branchless step on torch tensors (counterpart of ``diffusion/samplers.py``).
+"""The samplers as precomputed per-step coefficient tables and a branchless
+step on torch tensors (counterpart of ``diffusion/samplers.py``): UniPC-2
+(B(h)=bh2), the shipped default, and eta=0 DDIM.
 
-Every scalar of the UniPC multistep update is a function of the static
-timestep grid only, so the predictor/corrector algebra (order warm-up,
+Every scalar of the multistep update is a function of the static timestep
+grid only, so the predictor/corrector algebra (order warm-up,
 lower-order-final, bh2 B(h), the 2x2 rho solve) folds into (K,) float64
 arrays built once in numpy; the step is a handful of multiply-adds.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .schedules import NoiseSchedule
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMCoeffs:
+    """x_{i+1} = a[i] * x + b[i] * eps (eta=0 DDIM)."""
+
+    timesteps: np.ndarray  # (K,) int
+    a: np.ndarray
+    b: np.ndarray
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.timesteps)
+
+    @staticmethod
+    def init_state(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def step(self, i: int, x: torch.Tensor, eps: torch.Tensor,
+             state: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return float(self.a[i]) * x + float(self.b[i]) * eps.to(x.dtype), \
+            state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,3 +149,32 @@ def make_unipc_coeffs(schedule: NoiseSchedule, num_inference_steps: int,
                 out["c_e"][i] = alpha[t] * B_hc * rhos[1]
 
     return UniPCCoeffs(timesteps=ts, **out)
+
+
+def make_ddim_coeffs(schedule: NoiseSchedule, num_inference_steps: int,
+                     timesteps: Optional[np.ndarray] = None) -> DDIMCoeffs:
+    """``timesteps`` (descending ints) overrides the grid, e.g. diffusers'
+    "leading" spacing instead of the default linspace spacing."""
+    ts = np.asarray(timesteps) if timesteps is not None else \
+        schedule.inference_timesteps(num_inference_steps)
+    alpha, sigma = schedule.alpha_t, schedule.sigma_t
+    a, b = np.zeros(len(ts)), np.zeros(len(ts))
+    for i in range(len(ts)):
+        t = int(ts[i])
+        # the last step goes to the clean sample: alpha 1, sigma 0
+        a_prev, s_prev = (alpha[int(ts[i + 1])], sigma[int(ts[i + 1])]) \
+            if i < len(ts) - 1 else (1.0, 0.0)
+        a[i] = a_prev / alpha[t]
+        b[i] = s_prev - a_prev * sigma[t] / alpha[t]
+    return DDIMCoeffs(timesteps=ts, a=a, b=b)
+
+
+def make_sampler_coeffs(schedule: NoiseSchedule, num_inference_steps: int,
+                        sampler: str = "unipc"
+                        ) -> Union[UniPCCoeffs, DDIMCoeffs]:
+    """The coefficient table of ``sampler``: "unipc" or "ddim"."""
+    if sampler == "unipc":
+        return make_unipc_coeffs(schedule, num_inference_steps)
+    if sampler == "ddim":
+        return make_ddim_coeffs(schedule, num_inference_steps)
+    raise ValueError(f"sampler {sampler!r}: unipc or ddim")

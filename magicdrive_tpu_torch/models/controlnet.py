@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,6 +67,23 @@ class BEVControlNet(nn.Module):
         self.controlnet_down_blocks = nn.ModuleList(
             [_zero_conv(ch) for ch in res_channels])
         self.controlnet_mid_block = _zero_conv(boc[-1])
+        # the unconditional map (ref:unet_addon_rawbox.py:188-202), (C, H,
+        # W): a buffer for negative1 and random, a parameter for learnable,
+        # as the JAX package files it under "buffers" or "params". The JAX
+        # package draws the random map from its own PRNG, which this module
+        # cannot repeat; converted weights carry its values
+        u = cfg.use_uncond_map
+        if u == "negative1":
+            self.register_buffer("uncond_map", -torch.ones(cfg.map_size))
+        elif u == "random":
+            self.register_buffer("uncond_map", torch.randn(
+                cfg.map_size, device="cpu", generator=torch.Generator(
+                ).manual_seed(20230325)).to(self.conv_in.weight.device))
+        elif u == "learnable":
+            self.uncond_map = nn.Parameter(torch.randn(cfg.map_size))
+        elif u is not None:
+            raise ValueError(f"use_uncond_map {u!r}: None, negative1, "
+                             "random or learnable")
 
     def uncond_camera(self) -> torch.Tensor:
         """The learned unconditional camera as a (3, 7) parameter."""
@@ -110,6 +128,34 @@ class BEVControlNet(nn.Module):
         box = self.bbox_embedder(bboxes, classes, masks)
         return torch.cat([tokens, box.expand(B, N, *box.shape[2:])], dim=2)
 
+    def uncond_tokens(self, encoder_hidden_states_uncond: torch.Tensor,
+                      n_box_tokens: int) -> torch.Tensor:
+        """The CFG negative branch's tokens in guess mode, (1 + 77 +
+        n_box_tokens, d): the uncond camera token, the uncond text (1, 77,
+        d) and null boxes (ref:unet_addon_rawbox.py:684-702)."""
+        dt = self.cam2token.weight.dtype
+        head = torch.cat([self.uncond_cam_token()[None],
+                          encoder_hidden_states_uncond[0].to(dt)])
+        dev = head.device
+        null = self.bbox_embedder(
+            torch.zeros((n_box_tokens, self.cfg.bbox.n_points, 3),
+                        device=dev),
+            torch.zeros((n_box_tokens,), dtype=torch.long, device=dev),
+            torch.zeros((n_box_tokens,), device=dev))
+        return torch.cat([head, null])
+
+    def substitute_with_uncond_map(self, controlnet_cond: torch.Tensor,
+                                   mask: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+        """Maps (B, C, H, W) with those of the samples where ``mask`` (B,)
+        is 1 (all when None) replaced by the unconditional map
+        (ref:unet_addon_rawbox.py:378-412)."""
+        u = self.uncond_map[None]
+        if mask is None:
+            return u.expand(controlnet_cond.shape)
+        m = mask.reshape(-1, 1, 1, 1).to(controlnet_cond.dtype)
+        return controlnet_cond * (1 - m) + u.to(controlnet_cond.dtype) * m
+
     def embed_map(self, controlnet_cond: torch.Tensor) -> torch.Tensor:
         """BEV map (B, C_map, H, W) -> (B, 320, h, w)."""
         return self.controlnet_cond_embedding(
@@ -126,12 +172,16 @@ class BEVControlNet(nn.Module):
                 tokens: Optional[torch.Tensor] = None,
                 cond_feat: Optional[torch.Tensor] = None,
                 encoder_hidden_states_uncond: Optional[torch.Tensor] = None,
-                drop_mask: Optional[torch.Tensor] = None
+                drop_mask: Optional[torch.Tensor] = None,
+                guess_mode: bool = False
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
         """sample (B, N, 4, h, w), timesteps (B,) or (B*N,). ``tokens`` and
         ``cond_feat`` may be precomputed (they do not change across sampler
         steps) with :meth:`assemble_tokens` / :meth:`embed_map`; otherwise
-        the tokens take the condition drop of ``drop_mask``.
+        the tokens take the condition drop of ``drop_mask``. In
+        ``guess_mode`` the residuals are scaled by a logspace from 0.1 (the
+        first) to 1 (the mid block's) times ``conditioning_scale``
+        (ref:unet_addon_rawbox.py:897-904).
         Returns (down residuals, mid residual, tokens)."""
         B, N = sample.shape[:2]
         dt = self.conv_in.weight.dtype
@@ -155,7 +205,10 @@ class BEVControlNet(nn.Module):
             x, r = block(x, temb, ctx)
             res.extend(r)
         x = self.mid_block(x, temb, ctx)
-        down = [conv(r) * conditioning_scale
-                for conv, r in zip(self.controlnet_down_blocks, res,
-                                   strict=True)]
-        return down, self.controlnet_mid_block(x) * conditioning_scale, tokens
+        scales = (np.logspace(-1, 0, len(res) + 1) if guess_mode
+                  else np.ones(len(res) + 1)) * conditioning_scale
+        down = [conv(r) * float(s) for conv, r, s in
+                zip(self.controlnet_down_blocks, res, scales[:-1],
+                    strict=True)]
+        return (down, self.controlnet_mid_block(x) * float(scales[-1]),
+                tokens)

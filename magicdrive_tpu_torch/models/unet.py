@@ -1,7 +1,8 @@
 """SD-v1.5 UNet with the multi-view (cross-view) attention (counterpart of
 ``models/unet.py``), NCHW, diffusers state_dict names.
 
-The batch axis is (B * n_cam); ControlNet residuals enter additively at the
+The batch axis is (B * n_cam), or (B * F * n_cam) for the video model,
+whose transformers regroup the frames; ControlNet residuals enter additively at the
 skip connections and after the mid block
 (ref:unet_2d_condition_multiview.py:464-473,487-488).
 """
@@ -24,7 +25,7 @@ def _transformer(cfg: UNetConfig, ch: int) -> Transformer2DModel:
     return Transformer2DModel(
         cfg.num_attention_heads, ch // cfg.num_attention_heads,
         cfg.cross_attention_dim, cfg.norm_num_groups,
-        cfg.neighboring_view_pair)
+        cfg.neighboring_view_pair, cfg.temporal_frames)
 
 
 class CrossAttnDownBlock(nn.Module):

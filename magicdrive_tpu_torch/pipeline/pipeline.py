@@ -1,25 +1,34 @@
 """Generation pipeline: CFG denoise loop + VAE decode (counterpart of
 ``pipeline/pipeline.py``; ref:magicdrive/pipeline/pipeline_bev_controlnet.py).
 
-Kept from the JAX pipeline's default branch:
+Kept from the JAX pipeline, with its options:
   * CFG batch layout: uncond first, cond second;
-  * one initial latent per sample, shared by its views;
+  * one initial latent per sample, shared by its views (with
+    ``fix_seed_within_batch``, one for the whole batch);
+  * the text from ``input_ids`` through CLIP, or pre-encoded
+    ``prompt_embeds`` and ``uncond_embeds``;
   * the uncond branch takes the learned uncond camera, the uncond text,
-    all-null boxes and the same map;
-  * conditioning (CLIP, tokens, map features) computed once, outside the
+    all-null boxes and a map: the ControlNet's unconditional map where it
+    has one (``use_uncond_map``), else zeros with
+    ``use_zero_map_as_unconditional``, else the same map;
+  * guess mode: the ControlNet runs on the cond branch only, with logspace
+    residual scaling; the uncond branch gets the uncond token sequence and
+    zero residuals;
+  * the sampler's coefficients (UniPC or DDIM) precomputed, and the
+    conditioning (CLIP, tokens, map features) computed once, outside the
     loop.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from magicdrive_tpu_torch.config import ModelPreset, PipelineConfig
 from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from magicdrive_tpu_torch.diffusion import NoiseSchedule, make_unipc_coeffs
+from magicdrive_tpu_torch.diffusion import NoiseSchedule, make_sampler_coeffs
 from magicdrive_tpu_torch.models.clip_text import CLIPTextModel
 from magicdrive_tpu_torch.models.controlnet import BEVControlNet
 from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
@@ -62,6 +71,22 @@ class MagicDriveModules:
         return self
 
 
+# images per VAE decode call. The decoder treats each image alone, so the
+# chunks compute the same function; at once, the 16-frame video's 96 images
+# would hold activations of 96 * 256 * 224 * 400 > 2**31 elements (fp32 in
+# the GroupNorms) in the decoder's last two levels.
+DECODE_CHUNK = 12
+
+
+class Conditioning(NamedTuple):
+    """The loop-invariant conditioning of a request: tokens (2B, N, L, d),
+    uncond first, and map features (2B, 320, h, w), or (B, ...) of the cond
+    branch alone in ``guess_mode``."""
+    tokens: torch.Tensor
+    cond_feat: torch.Tensor
+    guess_mode: bool
+
+
 class MagicDrivePipeline:
     """Callable generation pipeline over :class:`MagicDriveModules` (already
     on their device and in the working dtype)."""
@@ -69,59 +94,121 @@ class MagicDrivePipeline:
     def __init__(self, modules: MagicDriveModules, cfg: PipelineConfig):
         self.m = modules
         self.cfg = cfg
-        self.coeffs = make_unipc_coeffs(NoiseSchedule.create(),
-                                        cfg.num_inference_steps)
+        self.schedule = NoiseSchedule.create()
+        self.coeffs = make_sampler_coeffs(self.schedule,
+                                          cfg.num_inference_steps,
+                                          cfg.sampler)
         p = next(modules.unet.parameters())
         self.device, self.dtype = p.device, p.dtype
 
     def prepare_latents(self, batch_size: int,
-                        generator: Optional[torch.Generator]) -> torch.Tensor:
+                        generator: Optional[torch.Generator],
+                        fix_seed_within_batch: bool = False) -> torch.Tensor:
         """One latent per sample replicated over its views:
-        (B, N, h, w, 4) float32 (the JAX package's layout)."""
+        (B, N, h, w, 4) float32 (the JAX package's layout). With
+        ``fix_seed_within_batch`` every sample starts from the same latent
+        (the reference's per-sample re-seeded generators,
+        ref:misc/test_utils.py:224-238)."""
         c = self.cfg
-        lat = torch.randn((batch_size, 1, c.latent_height, c.latent_width, 4),
+        lat = torch.randn((1 if fix_seed_within_batch else batch_size, 1,
+                           c.latent_height, c.latent_width, 4),
                           generator=generator, device=self.device)
-        return lat.expand(-1, c.n_cam, -1, -1, -1)
+        return lat.expand(batch_size, c.n_cam, -1, -1, -1)
 
     def _tensor(self, v, dtype=None) -> torch.Tensor:
         return torch.as_tensor(v, device=self.device, dtype=dtype)
 
-    @torch.no_grad()
-    def conditioning(self, batch: Mapping[str, object]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The loop-invariant CFG conditioning, uncond first: tokens
-        (2B, N, L, d) and map features (2B, 320, h, w)."""
-        m, f32 = self.m, torch.float32
-        cam = self._tensor(batch["camera_param"], f32)
+    def _layout(self, batch: Mapping[str, object]):
+        """camera (B, N, 3, 7), the map (B, C, H, W), boxes (B, N, L, P, 3),
+        classes and masks (B, N, L) as tensors on the device."""
+        f32 = torch.float32
+        return (self._tensor(batch["camera_param"], f32),
+                self._tensor(batch["bev_map"], f32).permute(0, 3, 1, 2),
+                self._tensor(batch["bboxes"], f32),
+                self._tensor(batch["classes"], torch.long),
+                self._tensor(batch["masks"], f32))
+
+    def encode_text(self, batch: Mapping[str, object]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(text (B, 77, d), uncond text (1, 77, d)): the batch's
+        ``prompt_embeds`` and ``uncond_embeds`` where it has them
+        (ref:pipeline_bev_controlnet.py:129-131), else CLIP of
+        ``input_ids`` and ``uncond_ids``."""
+        if "prompt_embeds" in batch:
+            return (self._tensor(batch["prompt_embeds"]),
+                    self._tensor(batch["uncond_embeds"]))
+        clip = self.m.clip
+        return (clip(self._tensor(batch["input_ids"], torch.long))[0],
+                clip(self._tensor(batch["uncond_ids"], torch.long))[0])
+
+    def unconditional_map(self, bev: torch.Tensor) -> torch.Tensor:
+        """The uncond branch's map: the ControlNet's unconditional map takes
+        precedence over the zero map (ref:pipeline_bev_controlnet.py:296-300,
+        330-343), else the same map."""
+        cn = self.m.controlnet
+        if cn.cfg.use_uncond_map:
+            return cn.substitute_with_uncond_map(bev).to(bev.dtype)
+        if self.cfg.use_zero_map_as_unconditional:
+            return torch.zeros_like(bev)
+        return bev
+
+    def cfg_conditioning(self, layout, text: torch.Tensor,
+                         uncond_text: torch.Tensor,
+                         uncond_map: torch.Tensor) -> Conditioning:
+        """Both CFG branches, uncond first: the uncond camera, the uncond
+        text, null boxes and ``uncond_map`` against the request's own
+        (``layout``: :meth:`_layout` of the batch)."""
+        cam, bev, bboxes, classes, masks = layout
         B, N = cam.shape[:2]
-        bev = self._tensor(batch["bev_map"], f32).permute(0, 3, 1, 2)
-        bboxes = self._tensor(batch["bboxes"], f32)
-        classes = self._tensor(batch["classes"], torch.long)
-        masks = self._tensor(batch["masks"], f32)
-        text, _ = m.clip(self._tensor(batch["input_ids"], torch.long))
-        uncond_text, _ = m.clip(self._tensor(batch["uncond_ids"], torch.long))
-        cn = m.controlnet
+        cn = self.m.controlnet
         tokens_c = cn.assemble_tokens(cam, text, bboxes, classes, masks)
         tokens_u = cn.assemble_tokens(
             cn.uncond_camera().float().expand(B, N, -1, -1),
             uncond_text.expand(B, -1, -1), torch.zeros_like(bboxes),
             torch.zeros_like(classes), torch.zeros_like(masks))
-        return (torch.cat([tokens_u, tokens_c]),
-                cn.embed_map(torch.cat([bev, bev])))
+        return Conditioning(torch.cat([tokens_u, tokens_c]),
+                            cn.embed_map(torch.cat([uncond_map, bev])),
+                            False)
+
+    @torch.no_grad()
+    def conditioning(self, batch: Mapping[str, object]) -> Conditioning:
+        """The loop-invariant conditioning of ``batch`` under the config."""
+        text, uncond_text = self.encode_text(batch)
+        layout = self._layout(batch)
+        if not self.cfg.guess_mode:
+            return self.cfg_conditioning(layout, text, uncond_text,
+                                         self.unconditional_map(layout[1]))
+        cam, bev, bboxes, classes, masks = layout
+        cn = self.m.controlnet
+        tokens_c = cn.assemble_tokens(cam, text, bboxes, classes, masks)
+        tokens_u = cn.uncond_tokens(uncond_text, bboxes.shape[2])
+        return Conditioning(
+            torch.cat([tokens_u.expand(tokens_c.shape), tokens_c]),
+            cn.embed_map(bev), True)
 
     @torch.no_grad()
     def guided_eps(self, x: torch.Tensor, t: int,
-                   cond: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                   cond: Conditioning) -> torch.Tensor:
         """One ControlNet + UNet evaluation of both CFG branches on latents
-        x (B, N, 4, h, w) at timestep t, combined at the guidance scale."""
+        x (B, N, 4, h, w) at timestep t, combined at the guidance scale; in
+        guess mode the ControlNet runs at batch B on the cond branch and the
+        uncond branch takes zero residuals."""
         m, cfg = self.m, self.cfg
-        tokens2, cond_feat2 = cond
+        tokens2 = cond.tokens
         B, N = x.shape[:2]
         lat2 = torch.cat([x, x]).to(self.dtype)
         t2 = torch.full((2 * B,), int(t), device=self.device)
-        down, mid, _ = m.controlnet(
-            lat2, t2, conditioning_scale=cfg.conditioning_scale,
-            tokens=tokens2, cond_feat=cond_feat2)
+        if cond.guess_mode:
+            down, mid, _ = m.controlnet(
+                x.to(self.dtype), t2[B:], guess_mode=True,
+                conditioning_scale=cfg.conditioning_scale,
+                tokens=tokens2[B:], cond_feat=cond.cond_feat)
+            down = [torch.cat([torch.zeros_like(d), d]) for d in down]
+            mid = torch.cat([torch.zeros_like(mid), mid])
+        else:
+            down, mid, _ = m.controlnet(
+                lat2, t2, conditioning_scale=cfg.conditioning_scale,
+                tokens=tokens2, cond_feat=cond.cond_feat)
         eps = m.unet(lat2.reshape(2 * B * N, *lat2.shape[2:]),
                      t2.repeat_interleave(N),
                      tokens2.reshape(2 * B * N, *tokens2.shape[2:]),
@@ -131,25 +218,41 @@ class MagicDrivePipeline:
         return eps_u + cfg.guidance_scale * (eps_c - eps_u)
 
     @torch.no_grad()
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        """Latents (B, N, 4, h, w) -> images (B, N, H, W, 3) float32 in
+        [0, 1], DECODE_CHUNK images per VAE call."""
+        B, N = x.shape[:2]
+        flat = x.reshape(B * N, *x.shape[2:]).contiguous()
+        imgs = torch.cat([self.m.vae.decode(z).float()
+                          for z in flat.split(DECODE_CHUNK)])
+        imgs = imgs.reshape(B, N, *imgs.shape[1:])
+        return (imgs / 2 + 0.5).clamp(0.0, 1.0).permute(0, 1, 3, 4, 2)
+
+    def initial_latents(self, batch: Mapping[str, object],
+                        generator: Optional[torch.Generator],
+                        latents) -> torch.Tensor:
+        """``latents`` (B, N, h, w, 4), else drawn from ``generator``, as
+        (B, N, 4, h, w) float32 on the device."""
+        if latents is None:
+            latents = self.prepare_latents(
+                np.shape(batch["camera_param"])[0], generator)
+        return self._tensor(latents, torch.float32).permute(0, 1, 4, 2, 3)
+
+    @torch.no_grad()
     def __call__(self, batch: Mapping[str, object],
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """batch: the ``collate_fn`` dict (numpy or tensors) minus
-        ``pixel_values``: input_ids (B, 77), uncond_ids (1, 77),
+        ``pixel_values``: input_ids (B, 77), uncond_ids (1, 77) (or
+        prompt_embeds (B, 77, d) and uncond_embeds (1, 77, d)),
         camera_param (B, N, 3, 7), bev_map (B, H, W, C), bboxes
         (B, N, L, P, 3), classes (B, N, L), masks (B, N, L).
         latents: (B, N, h, w, 4), else drawn from ``generator``.
         Returns images (B, N, H, W, 3) float32 in [0, 1]."""
         co = self.coeffs
-        B, N = np.shape(batch["camera_param"])[:2]
-        if latents is None:
-            latents = self.prepare_latents(B, generator)
-        # NCHW inside: (B, N, 4, h, w)
-        x = self._tensor(latents, torch.float32).permute(0, 1, 4, 2, 3)
+        x = self.initial_latents(batch, generator, latents)
         cond = self.conditioning(batch)
         state = co.init_state(x)
         for i, t in enumerate(co.timesteps):
             x, state = co.step(i, x, self.guided_eps(x, t, cond), state)
-        imgs = self.m.vae.decode(x.reshape(B * N, *x.shape[2:]))
-        imgs = imgs.float().reshape(B, N, *imgs.shape[1:])
-        return (imgs / 2 + 0.5).clamp(0.0, 1.0).permute(0, 1, 3, 4, 2)
+        return self.decode(x)

@@ -23,7 +23,7 @@ import torch
 import chip_smoke
 from magicdrive_tpu_torch.kernels import dispatch
 from test_torch_port_modules import (ATOL, RTOL, close, init_random, load,
-                                     nchw, randomized, to_nhwc)
+                                     nchw, shaped, to_nhwc)
 
 torch.set_num_threads(1)
 
@@ -55,13 +55,6 @@ def _tiny_hires(config, name):
         p, unet=unet, controlnet=cn, map_hw=map_hw,
         image_size=(8 * h, 8 * w), pipeline=dataclasses.replace(
             p.pipeline, latent_height=h, latent_width=w, n_cam=3))
-
-
-def _shaped(tree, rs):
-    """Seeded normals (``randomized``) on the shapes of an abstract
-    variable tree from ``jax.eval_shape``: no forward runs to make them."""
-    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tree)
-    return randomized(zeros, rs)
 
 
 def test_map_embedder_plus_matches_jax():
@@ -155,7 +148,8 @@ def hires_eps(request):
     from magicdrive_tpu_torch.models.controlnet import BEVControlNet as TCN
     from magicdrive_tpu_torch.models.unet import UNet2DConditionModel as TU
     from magicdrive_tpu_torch.models.vae import AutoencoderKL
-    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
+    from magicdrive_tpu_torch.pipeline.pipeline import (Conditioning,
+                                                        MagicDriveModules,
                                                         MagicDrivePipeline)
 
     jp = _tiny_hires(jconfig, request.param)
@@ -166,12 +160,12 @@ def hires_eps(request):
     rs = np.random.RandomState(34)
     key = jax.random.PRNGKey(0)
     z = jnp.zeros
-    cn_vars = _shaped(jax.eval_shape(
+    cn_vars = shaped(jax.eval_shape(
         BEVControlNet(jp.controlnet, dtype=jnp.float32).init, key,
         z((1, N, h, w, 4)), z((1,), jnp.int32), z((1, N, 3, 7)),
         z((1, 77, d)), z((1, mh, mw, 8)), z((1, N, L, 8, 3)),
         z((1, N, L), jnp.int32), z((1, N, L))), rs)
-    unet_vars = _shaped(jax.eval_shape(
+    unet_vars = shaped(jax.eval_shape(
         UNet2DConditionModel(jp.unet, dtype=jnp.float32).init, key,
         z((N, h, w, 4)), z((N,), jnp.int32), z((N, 1 + 77 + L, d))), rs)
 
@@ -196,8 +190,8 @@ def hires_eps(request):
         if isinstance(m, BasicTransformerBlock):
             m.register_forward_hook(
                 lambda m, a, out: lengths.append(tuple(a[0].shape[1:])))
-    cond = (torch.from_numpy(tokens2),
-            mods.controlnet.embed_map(nchw(bev2)))
+    cond = Conditioning(torch.from_numpy(tokens2),
+                        mods.controlnet.embed_map(nchw(bev2)), False)
     with torch.no_grad(), \
             chip_smoke.counted_calls(dispatch.LAUNCHES) as calls:
         got = pipe.guided_eps(
@@ -269,7 +263,7 @@ def _block_pair(rs, C, H, D, Cc=24):
     jm = J(C, H, D, cross_attention_dim=Cc,
            neighboring_view_pair=NUSCENES_NEIGHBORS)
     zeros = (jnp.zeros((6, 8, C)), jnp.zeros((6, 7, Cc)))
-    v = _shaped(jax.eval_shape(jm.init, jax.random.PRNGKey(0), *zeros), rs)
+    v = shaped(jax.eval_shape(jm.init, jax.random.PRNGKey(0), *zeros), rs)
     return jm, v, load(T(C, H, D, Cc, NUSCENES_NEIGHBORS), v)
 
 

@@ -44,6 +44,13 @@ def randomized(tree, rs):
     return out
 
 
+def shaped(tree, rs):
+    """Seeded normals (``randomized``) on the shapes of an abstract
+    variable tree from ``jax.eval_shape``: no forward runs to make them."""
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tree)
+    return randomized(zeros, rs)
+
+
 def init_random(module, seed, *args, **kwargs):
     variables = module.init(jax.random.PRNGKey(0), *args, **kwargs)
     return randomized(variables, np.random.RandomState(seed))
@@ -78,7 +85,8 @@ def test_presets_match_jax():
     from magicdrive_tpu_torch import config as tp
 
     for name in ("sd15mv_rawbox_224x400", "sd15mv_rawbox_272x736",
-                 "sd15mv_rawbox_424x800", "tiny_debug"):
+                 "sd15mv_rawbox_424x800", "sd15mv_rawbox_video_16f",
+                 "tiny_debug", "tiny_video_debug"):
         j, t = getattr(jp, name)(), getattr(tp, name)()
         for part in ("unet", "vae", "clip"):
             jc, tc = getattr(j, part), getattr(t, part)
@@ -92,11 +100,16 @@ def test_presets_match_jax():
         for f in dataclasses.fields(t.controlnet.bbox):
             assert getattr(t.controlnet.bbox, f.name) == \
                 getattr(j.controlnet.bbox, f.name), (name, f.name)
+        for f in dataclasses.fields(t.controlnet.unet):
+            assert getattr(t.controlnet.unet, f.name) == \
+                getattr(j.controlnet.unet, f.name), (name, f.name)
         assert t.controlnet.unet == dataclasses.replace(
-            t.unet, neighboring_view_pair=None)
+            t.unet, neighboring_view_pair=None,
+            temporal_frames=t.controlnet.unet.temporal_frames)
         for f in ("num_inference_steps", "guidance_scale",
-                  "conditioning_scale", "latent_height", "latent_width",
-                  "n_cam"):
+                  "conditioning_scale", "sampler",
+                  "use_zero_map_as_unconditional", "guess_mode",
+                  "latent_height", "latent_width", "n_cam"):
             assert getattr(t.pipeline, f) == getattr(j.pipeline, f), f
         for f in ("name", "image_size", "map_hw", "map_channels",
                   "bbox_max_len"):

@@ -103,20 +103,19 @@ def test_tiny_pipeline_matches_jax_auto(tiny_images):
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
-def test_converter_consumes_every_leaf(tiny_jax):
-    """Every leaf of the tiny_debug tree becomes exactly one state_dict
-    entry, under the key the JAX package's torch->JAX converter reads it
-    from, and the port's modules load them strictly."""
+def assert_converts_every_leaf(params, port_preset):
+    """Every leaf of a JAX ``init_params`` tree becomes exactly one
+    state_dict entry, under the key the JAX package's torch->JAX converter
+    reads it from, and the port's modules of ``port_preset`` load them
+    strictly."""
     from magicdrive_tpu.convert.torch_weights import (
         _SPECIALS, _clip_prefix_key, _flax_path_to_torch_key,
         _strip_collection)
     from flax import traverse_util
 
-    from magicdrive_tpu_torch.config import tiny_debug
     from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
 
-    _, _, params = tiny_jax
     sds = jax_params_to_state_dicts(jax.tree_util.tree_map(np.asarray,
                                                            params))
     for name, tree in params.items():
@@ -132,7 +131,15 @@ def test_converter_consumes_every_leaf(tiny_jax):
             want[key] = int(np.size(leaf))
         assert len(want) == len(flat), name
         assert {k: v.size for k, v in sds[name].items()} == want, name
-    MagicDriveModules.create(tiny_debug(), device="cpu").load_state_dicts(sds)
+    MagicDriveModules.create(port_preset, device="cpu").load_state_dicts(sds)
+    return sds
+
+
+def test_converter_consumes_every_leaf(tiny_jax):
+    """Every leaf of the tiny_debug tree converts and loads strictly."""
+    from magicdrive_tpu_torch.config import tiny_debug
+
+    assert_converts_every_leaf(tiny_jax[2], tiny_debug())
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -202,9 +209,10 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_imports_no_jax():
-    """A process that imports the port (its training modules included),
-    makes a request batch, runs a tiny forward and the backward of a
-    transformer block through the kernels' autograd never loads jax, flax
+    """A process that imports the port (its training modules and the
+    given-view and video pipelines included), makes a request batch, runs a
+    tiny forward and the backward of a transformer block through the
+    kernels' autograd and a temporal block's forward never loads jax, flax
     or the JAX package."""
     code = textwrap.dedent("""
         import sys
@@ -216,10 +224,13 @@ def test_port_imports_no_jax():
             BasicTransformerBlock)
         from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                                make_dataset)
-        from magicdrive_tpu_torch.diffusion import ddpm
+        from magicdrive_tpu_torch.diffusion import ddpm, make_sampler_coeffs
         from magicdrive_tpu_torch.kernels import autograd, build, dispatch
+        from magicdrive_tpu_torch.pipeline.given_view import (
+            GivenViewPipeline)
         from magicdrive_tpu_torch.pipeline.pipeline import (
             MagicDriveModules, MagicDrivePipeline)
+        from magicdrive_tpu_torch.pipeline.video import VideoPipeline
         from magicdrive_tpu_torch.train import (Runner, TrainConfig,
                                                 create_train_state,
                                                 train_step)
@@ -234,6 +245,11 @@ def test_port_imports_no_jax():
         x = torch.randn(6, 320, 16, requires_grad=True)
         blk(x, torch.randn(6, 7, 16)).square().mean().backward()
         assert x.grad.abs().max() > 0
+        vid = BasicTransformerBlock(16, 2, 8, 16, ((2, 1), (0, 2), (1, 0)),
+                                    temporal_frames=2)
+        with torch.no_grad():
+            assert vid(torch.randn(6, 10, 16),
+                       torch.randn(6, 7, 16)).shape == (6, 10, 16)
         state = create_train_state(
             MagicDriveModules.create(tiny_debug(), device="cpu"),
             TrainConfig(), device="cpu")
