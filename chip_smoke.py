@@ -91,7 +91,19 @@ no result line):
      memory, the per-call check at the UNet batch of 192, a profiled guided
      step with the temporal attention's SDPA time); K1-K4 are also checked
      and timed at the video's shapes in phase 3 (_video_cases), and every
-     path's launch counts equal the derived ones;
+     path's launch counts equal the derived ones; between the 224x400
+     paths and the hi-res ones, the generation CLI as a user runs it
+     (run_generate_cli): a synthetic nuScenes-format tree and a run
+     directory of the full-width 224x400 model on seeded weights (the
+     port's save_params, about 5.6 GB) in a temporary directory, then
+     ``cli.generate.main`` under "kvstat" on 2 samples with the default
+     runner (20 UniPC steps, 2 variants, boxes drawn): the PNGs decode to
+     their shapes and hold the images, the images are finite and in
+     [0, 1], the launch counts equal the derived ones, and the CLI's batch
+     through a MagicDrivePipeline on the script's own modules from the
+     CLI's latents gives the CLI's images (KERNEL_TOL); the npz's size, its
+     save and load seconds, each CLI request's seconds and the peak memory
+     are printed with the card;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -115,10 +127,10 @@ The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
 path runs of phases 4-6 (the forced routes, the generation paths, the
-options, given-view and video paths, and training) and "launches_by_path"
-gives each. The
-whole K6's rows (time, bound, library time) are logged on a line of their
-own before it. The last line is {"ok": true, "device": {...}}.
+options, given-view, generation CLI and video paths, and training) and
+"launches_by_path" gives each. The whole K6's rows (time, bound, library
+time) are logged on a line of their own before it. The last line is
+{"ok": true, "device": {...}}.
 
 ``compare_trees(other)`` (not run by ``main``) times the REDESIGNED kernels
 (K1-K4, K7, K8 and the pair; K8's out-projection alone where the tree has
@@ -1297,22 +1309,39 @@ def run_slice(preset, pipe, batches, mode):
     return launches, seconds
 
 
-def _call_checker(stats):
+def _call_checker(stats, bf16_floor: bool = False):
     """``make`` for ``patched_kernels``: each call runs the kernel, then
     the plain version in fp32 on the same inputs, and raises if an output
-    is off by more than KERNEL_TOL * its max|ref|."""
+    is off by more than KERNEL_TOL * its max|ref|. With ``bf16_floor`` the
+    plain version also runs on the kernel's own inputs, at the cast points
+    it shares with the JAX kernels: the kernel must be within KERNEL_TOL of
+    that, and within KERNEL_TOL of fp32 or no farther from fp32 than that
+    plain bf16 version is (GRAD_TOL's rule for the forward: the kernel then
+    adds nothing to what its bf16 casts cost)."""
     def make(name, kern, plain):
         def call(*args):
             out = kern(*args)
-            err, scale = _worst(out, plain(*map(_f32, args)))
-            rel = err / max(scale, 1e-30)
-            s = stats.setdefault(name, [0, 0.0])
+            ref = plain(*map(_f32, args))
+            err, scale = _worst(out, ref)
+            rel, limit = err / max(scale, 1e-30), KERNEL_TOL
+            s = stats.setdefault(name, [0, 0.0] + [0.0, 0.0] * bf16_floor)
             s[0], s[1] = s[0] + 1, max(s[1], rel)
-            if not (np.isfinite(rel) and rel <= KERNEL_TOL):
+            if bf16_floor:
+                bf = plain(*args)
+                cast = _worst(bf, ref)[0] / max(scale, 1e-30)
+                own = _worst(out, bf)[0] / max(scale, 1e-30)
+                s[2], s[3] = max(s[2], own), max(s[3], cast)
+                limit = max(KERNEL_TOL, cast)
+                if not (np.isfinite(own) and own <= KERNEL_TOL):
+                    raise AssertionError(
+                        f"{name} on the path, input {tuple(args[0].shape)}: "
+                        f"{own:.3e} * max|ref| from its plain bf16 version "
+                        f"> {KERNEL_TOL}")
+            if not (np.isfinite(rel) and rel <= limit):
                 raise AssertionError(
                     f"{name} on the path, input {tuple(args[0].shape)}: max "
                     f"abs err {err:.3e} = {rel:.3e} * max|ref| > "
-                    f"{KERNEL_TOL}")
+                    f"{limit:.3e}")
             return out
         return call
     return make
@@ -1320,8 +1349,9 @@ def _call_checker(stats):
 
 def _report_calls(what, stats, names):
     log(f"path calls of {what}, kernel vs fp32 plain version: " +
-        ", ".join(f"{n} {c} calls, worst {r:.3e} * max|ref|"
-                  for n, (c, r) in stats.items()))
+        ", ".join(f"{n} {st[0]} calls, worst {st[1]:.3e} * max|ref|" + (
+            f" (vs plain bf16 {st[2]:.3e}; plain bf16 vs fp32 {st[3]:.3e})"
+            if len(st) > 2 else "") for n, st in stats.items()))
     if set(stats) != set(names):
         raise AssertionError(f"kernels not called in {what}: "
                              f"{set(names) - set(stats)}")
@@ -1339,13 +1369,17 @@ def _step_inputs(pipe, batch):
     return x, int(pipe.coeffs.timesteps[0]), pipe.conditioning(batch)
 
 
-def check_path_calls(preset, pipe, batch, mode) -> None:
+def check_path_calls(preset, pipe, batch, mode,
+                     bf16_floor: bool = False) -> None:
     """Every kernel call of one guided step against its plain version in
-    fp32 on the inputs the path gave it."""
+    fp32 on the inputs the path gave it (``bf16_floor``: see
+    ``_call_checker``)."""
     x, t, cond = _step_inputs(pipe, batch)
-    stats = {}  # kernel -> [calls, worst max|err| / max|ref|]
+    # kernel -> [calls, worst max|err| / max|ref|], with bf16_floor then the
+    # worst against the plain bf16 version and the plain bf16's own
+    stats = {}
     names = path_calls(preset, mode)
-    with patched_kernels(_call_checker(stats), names):
+    with patched_kernels(_call_checker(stats, bf16_floor), names):
         pipe.guided_eps(x, t, cond)
     _report_calls(f"one guided step of {preset.name} ({mode})", stats, names)
 
@@ -1747,6 +1781,146 @@ def run_given_view(preset, pipe, batches, by_path, timing) -> None:
         check_path_calls(preset, gv, batch, "kvstat")
 
 
+CLI_INDICES = (0, 1)
+
+
+def run_generate_cli(by_path, timing, card: str) -> None:
+    """The generation CLI as a user runs it, at full width under "kvstat":
+    a synthetic nuScenes-format tree (the port's make_mini_nuscenes) and a
+    run directory of the 224x400 model on seeded weights, written with the
+    port's save_params, in a temporary directory; then
+    ``cli.generate.main`` on samples CLI_INDICES of the tree with the
+    default runner (20 UniPC steps, runner.validation_times = 2 variants of
+    the batch, boxes drawn). Gates: the samples came from the nuScenes
+    dataset, their unsliced maps with the object channels filled; every
+    PNG exists and decodes to its shape, its generated row equal to the
+    variant's quantized images; the images finite and in [0, 1]; the launch
+    counts equal to the derived ones for the variants' steps; every kernel
+    call of one guided step of the CLI's own pipeline on its batch (B=2,
+    24 UNet images) within KERNEL_TOL of its plain version at its own bf16
+    casts, and of fp32 or no farther than that plain bf16 version; the
+    CLI's batch through a
+    MagicDrivePipeline on this script's own modules (not loaded from the
+    run directory) from the CLI's latents within KERNEL_TOL * max|ref| of
+    the CLI's images. Prints the npz's size, the seconds to save and load
+    it, each CLI request's seconds (the first cold) and the peak memory,
+    with the card."""
+    from PIL import Image
+
+    from magicdrive_tpu_torch.cli import generate
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose, save_run_config
+    from magicdrive_tpu_torch.convert import (iter_leaves,
+                                              modules_to_jax_params)
+    from magicdrive_tpu_torch.data.nuscenes import NuScenesDataset
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+    from magicdrive_tpu_torch.utils.serialization import (load_params,
+                                                          save_params)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
+        overrides = ["exp=224x400"]
+        cfg = compose(generate.CONFIG_DIR, overrides=overrides)
+        preset = preset_from_config(cfg)
+        run_dir = os.path.join(tmp, "run")
+        save_run_config(cfg, run_dir, overrides)
+        modules = _new_modules(preset)
+        weights = os.path.join(run_dir, "weights")
+        t0 = time.perf_counter()
+        save_params(modules_to_jax_params(modules), weights)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(weights, "params.npz"))
+        t0 = time.perf_counter()
+        n_leaves = len(list(iter_leaves(load_params(weights))))
+        load_s = time.perf_counter() - t0
+        log(f"generate CLI: run weights {size / 2**30:.3f} GiB "
+            f"({size} bytes, {n_leaves} arrays), saved in {save_s:.1f} s, "
+            f"loaded in {load_s:.1f} s ({card})")
+
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        # the overrides go before --indices, which takes all that follows it
+        argv = ["--run_dir", run_dir, f"dataset.dataset_root={root}",
+                f"dataset.version={version}", "--indices",
+                *map(str, CLI_INDICES)]
+        with dispatch.fused_mode("kvstat"):
+            t0 = time.perf_counter()
+            made = generate.main(argv)
+            main_s = time.perf_counter() - t0
+        steps = preset.pipeline.num_inference_steps
+        times = cfg["runner"]["validation_times"]
+        by_path["generate_cli"] = _check_launches(
+            "generate CLI (kvstat)", expected_launches(
+                preset, "kvstat", forwards=times * steps))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        timing["s/request generate CLI"] = made.seconds
+        log(f"generate CLI: main {main_s:.1f} s, requests (B="
+            f"{len(CLI_INDICES)}, {steps} steps) {made.seconds} s (the "
+            f"first cold), peak memory {peak:.2f} GiB ({card})")
+
+        # the samples came through the nuScenes index, raster and collate,
+        # not the fixture scenes that build_datasets falls back to
+        if not isinstance(made.dataset, NuScenesDataset):
+            raise AssertionError(f"the CLI read {type(made.dataset)}")
+        dc = cfg["dataset"]
+        n_static, n_obj = len(dc["map_classes"]), len(dc["object_classes"])
+        maps = [made.dataset[i]["bev_map"] for i in CLI_INDICES]
+        n_map = n_static + n_obj + 8  # and the 8 aux channels
+        if any(m.shape != (*preset.map_hw, n_map) for m in maps) or not any(
+                m[..., n_static:n_static + n_obj].any() for m in maps):
+            raise AssertionError("the nuScenes maps hold no object channel: "
+                                 f"{[m.shape for m in maps]}")
+        batch = made.batch
+        # nuScenes' intrinsics make context tokens of |x| ~ 95, where K1's
+        # plain version at its bf16 casts is itself 1.1e-2 * max|ref| from
+        # fp32 (PERF.md): hence the bf16 floor
+        with dispatch.fused_mode("kvstat"):
+            check_path_calls(preset, made.pipe, batch, "kvstat",
+                             bf16_floor=True)
+        if tuple(batch["bev_map"].shape) != (len(CLI_INDICES),
+                                             *preset.map_hw,
+                                             preset.map_channels):
+            raise AssertionError(f"CLI batch map {batch['bev_map'].shape}")
+        if not batch["masks"].any():
+            raise AssertionError("no box of the tree is in the CLI batch")
+        H, W = preset.image_size
+        n = preset.pipeline.n_cam
+        rows = 2 if cfg["runner"]["validation_show_box"] else 1
+        for ti, imgs in enumerate(made.images):
+            suffix = f"_t{ti}" if times > 1 else ""
+            log(f"  variant {ti}: "
+                f"{check_images(torch.from_numpy(imgs), batch, preset)}")
+            for bi, i in enumerate(CLI_INDICES):
+                name = f"{i}_gen{suffix}.png"
+                png = np.asarray(Image.open(os.path.join(made.out_dir, name)))
+                if png.shape != (rows * H, n * W, 3):
+                    raise AssertionError(f"{name} {png.shape}")
+                want = (np.clip(np.concatenate(list(imgs[bi]), axis=1), 0, 1)
+                        * 255).astype(np.uint8)
+                if not np.array_equal(png[:H], want):
+                    raise AssertionError(f"{name} is not the variant's "
+                                         "images")
+        for i in CLI_INDICES:
+            png = np.asarray(Image.open(os.path.join(made.out_dir,
+                                                     f"{i}_map.png")))
+            if png.ndim != 3 or png.shape[2] != 3 or png.shape[0] < 400:
+                raise AssertionError(f"{i}_map.png {png.shape}")
+
+        direct = MagicDrivePipeline(
+            modules.to("cuda", preset.pipeline.dtype), preset.pipeline)
+        for ti, (lat, imgs) in enumerate(zip(made.latents, made.images)):
+            got = direct(batch, latents=lat)
+            err, scale = _worst(torch.from_numpy(imgs).cuda(), got)
+            _gate("generate CLI images", f"variant {ti}", err, scale,
+                  KERNEL_TOL, note="vs MagicDrivePipeline on the script's "
+                  f"modules; bitwise equal: "
+                  f"{torch.equal(got.cpu(), torch.from_numpy(imgs))}")
+    del made, direct, modules
+    torch.cuda.empty_cache()
+
+
 def video_set_up():
     """The full-width 16-frame video pipeline on seeded weights and
     N_REQUESTS requests of one 16-frame clip each (B=1, the frames folded
@@ -2032,7 +2206,7 @@ def compare_trees(other: str, requests: int = 2) -> None:
 def main() -> None:
     from magicdrive_tpu_torch.kernels import dispatch
 
-    environment()
+    card = environment()
     build_kernels()
     log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
     rows = check_kernels()
@@ -2060,6 +2234,8 @@ def main() -> None:
     run_given_view(preset, pipe, batches, by_path, timing)
     del pipe
     torch.cuda.empty_cache()
+    log("the generation CLI (kvstat):")
+    run_generate_cli(by_path, timing, card)
     run_hires(by_path, timing)
     run_video(by_path, timing)
     for mode in dispatch.FUSED_MODES:

@@ -234,3 +234,83 @@ def tiny_video_debug(n_frames: int = 4, n_cam: int = 6) -> ModelPreset:
     return dataclasses.replace(
         base, name="tiny-video-debug",
         unet=dataclasses.replace(base.unet, temporal_frames=n_frames))
+
+
+# values of the JAX package's model config that the port implements; a
+# config naming another raises rather than building a different model
+_PORTED = {
+    ("unet", "neighboring_attn_type"): ("add",),
+    ("unet", "zero_module_type"): ("zero_linear",),
+    ("bbox_embedder_param", "trainable_class_token"): (False,),
+    ("bbox_embedder_param", "minmax_normalize"): (False,),
+}
+
+
+def _check_ported(mc) -> None:
+    for (section, key), ok in _PORTED.items():
+        v = mc[section].get(key, ok[0])
+        if v not in ok:
+            raise NotImplementedError(
+                f"model.{section}.{key}={v!r}: the port implements only "
+                f"{ok} (ROADMAP Queue A)")
+
+
+def preset_from_config(cfg) -> ModelPreset:
+    """A ModelPreset from a composed config tree (``config_loader.compose``
+    over the repository's ``configs/``), as the JAX package's
+    ``preset_from_config`` builds it. The UNet's launch-layout and
+    gradient-checkpointing keys and the ControlNet's training drop ratios
+    (the port's ``TrainConfig``) have no field here."""
+    mc, dc, rc = cfg["model"], cfg["dataset"], cfg["runner"]
+    _check_ported(mc)
+    H, W = dc["image_size"]
+    neighbors = tuple(tuple(p) for p in dc["neighboring_view_pair"])
+    u = mc["unet"]
+    unet = UNetConfig(
+        block_out_channels=tuple(u["block_out_channels"]),
+        layers_per_block=u["layers_per_block"],
+        num_attention_heads=u["num_attention_heads"],
+        cross_attention_dim=u["cross_attention_dim"],
+        norm_num_groups=u["norm_num_groups"],
+        neighboring_view_pair=neighbors)
+    cn_c = mc["controlnet"]
+    be = mc["bbox_embedder_param"]
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        camera_in_dim=cn_c["camera_in_dim"],
+        camera_out_dim=cn_c["camera_out_dim"],
+        cam_num_freqs=cn_c["cam_num_freqs"],
+        map_size=tuple(cn_c["map_size"]),
+        map_embedder_out_channels=tuple(cn_c["map_embedder_out_channels"]),
+        use_map_embedder_plus=bool(cn_c["use_map_embedder_plus"]),
+        map_embedder_plus_size=tuple(cn_c["map_embedder_plus_size"])
+        if cn_c.get("map_embedder_plus_size") else (34, 92),
+        bbox=BBoxEmbedderConfig(
+            n_classes=be["n_classes"],
+            class_token_dim=be["class_token_dim"],
+            embedder_num_freq=be["embedder_num_freq"],
+            proj_dims=tuple(be["proj_dims"]),
+            mode=mc["bbox_mode"]),
+        drop_cam_with_box=cn_c["drop_cam_with_box"],
+        use_uncond_map=cn_c.get("use_uncond_map"))
+    pp = rc["pipeline_param"]
+    pipeline = PipelineConfig(
+        num_inference_steps=pp["num_inference_steps"],
+        guidance_scale=pp["guidance_scale"],
+        conditioning_scale=pp["controlnet_conditioning_scale"],
+        sampler=pp["sampler"],
+        use_zero_map_as_unconditional=pp["use_zero_map_as_unconditional"],
+        guess_mode=bool(pp.get("guess_mode", False)),
+        latent_height=H // 8, latent_width=W // 8,
+        n_cam=len(neighbors))
+    map_c, map_h, map_w = cn_c["map_size"]
+    vae_cfg = VAEConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in mc["vae"].items()}) \
+        if mc.get("vae") else VAEConfig()
+    clip_cfg = CLIPTextConfig(**mc["clip"]) if mc.get("clip") \
+        else CLIPTextConfig()
+    return ModelPreset(
+        name=f"{mc['name']}-{H}x{W}", unet=unet, controlnet=cn,
+        vae=vae_cfg, clip=clip_cfg, pipeline=pipeline,
+        image_size=(H, W), map_hw=(map_h, map_w), map_channels=map_c,
+        bbox_max_len=rc["bbox_max_length"])

@@ -9,7 +9,8 @@ arrays, maps to one diffusers/transformers state_dict key:
   * flax scope names -> torch module paths (``_PRE_RULES``, list indices,
     ``to_out`` -> ``to_out.0``) and the special keys (``_SPECIALS``).
 The whole tree converts, the VAE's encoder included; ``trainable_keys``
-names the keys the train step updates.
+names the keys the train step updates. ``modules_to_jax_params`` is the
+inverse: the port's modules as the JAX tree, for ``utils.serialization``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import re
 from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
+
+from magicdrive_tpu_torch.utils.serialization import as_numpy
 
 _PRE_RULES = (
     (r"/LayerNorm_0", ""),
@@ -102,7 +105,7 @@ def iter_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
         if isinstance(v, Mapping):
             yield from iter_leaves(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v)
+            yield prefix + (k,), as_numpy(v)
 
 
 def module_state_dict(variables: Mapping[str, Any], clip: bool = False
@@ -141,3 +144,96 @@ def jax_params_to_state_dicts(params_np: Mapping[str, Any]
     each {collection: tree} of numpy arrays) -> {name: state_dict}."""
     return {n: module_state_dict(params_np[n], clip=n == "clip")
             for n in ("unet", "controlnet", "vae", "clip")}
+
+
+# torch key -> flax path (the inverse of ``torch_key``): the special keys,
+# then the module path with list indices folded back into their names
+_INV_SPECIALS = {v: tuple(k.split("/")) for k, v in _SPECIALS.items()}
+_NORM = re.compile(r"^(norm\d?|norm_temp|conv_norm_out|group_norm|"
+                   r"layer_norm\d|final_layer_norm)$")
+_VAE_STAGES = ("down_blocks_", "up_blocks_", "mid_block")
+
+
+def _fold_indices(mods):
+    """``["down_blocks", "0", "to_out", "0"]`` -> ``["down_blocks_0",
+    "to_out"]``; ``ff.net.0.proj`` -> ``net_0_proj``, ``mlp.fc1`` ->
+    ``mlp_fc1``."""
+    out = []
+    for m in mods:
+        if m.isdigit() and out:
+            out[-1] = f"{out[-1]}_{m}"
+        else:
+            out.append(m)
+    out = ["to_out" if m == "to_out_0" else m for m in out]
+    for i in range(len(out) - 1, 0, -1):
+        if (out[i - 1], out[i]) in (("net_0", "proj"), ("mlp", "fc1"),
+                                    ("mlp", "fc2")):
+            out[i - 1:i + 1] = [f"{out[i - 1]}_{out[i]}"]
+    return out
+
+
+def flax_path(module: str, key: str) -> Tuple[str, ...]:
+    """The JAX package's variable path (collection stripped) of the port's
+    state_dict ``key`` of ``module`` ("unet", "controlnet", "vae", "clip");
+    ``torch_key`` (``clip_torch_key``) of it gives ``key`` back."""
+    if key in _INV_SPECIALS:
+        return _INV_SPECIALS[key]
+    if key == "uncond_map":
+        return ("uncond_map",)
+    if module == "clip":
+        for prefix in ("text_model.embeddings.", "text_model.encoder.",
+                       "text_model."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+    *mods, leaf = key.split(".")
+    mods = _fold_indices(mods)
+    if module == "vae" and len(mods) > 2 and \
+            mods[1].startswith(_VAE_STAGES):
+        # the VAE's blocks are flat scopes: down_blocks_0_resnets_1,
+        # mid_block_attentions_0, up_blocks_2_upsamplers_0_conv
+        n = 3 if mods[2].endswith(("samplers_0",)) else 2
+        mods = [mods[0], "_".join(mods[1:1 + n])] + mods[1 + n:]
+    norm = bool(mods) and bool(_NORM.match(mods[-1]))
+    if norm and len(mods) > 1 and mods[-2].startswith("transformer_blocks_"):
+        mods.append("LayerNorm_0")  # the transformer's fp32 LayerNorm scope
+    if leaf == "weight":
+        leaf = "scale" if norm else (
+            "embedding" if mods and mods[-1] == "token_embedding"
+            else "kernel")
+    return (*mods, leaf)
+
+
+def _jax_value(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    """The inverse of ``_transform``."""
+    if path[-1] == "kernel":
+        return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+    if path == ("uncond_cam",):
+        return value.reshape(-1)
+    if path == ("uncond_map",):
+        return value.transpose(1, 2, 0)
+    return value
+
+
+def modules_to_jax_params(modules) -> Dict[str, Dict[str, Any]]:
+    """The port's modules (``MagicDriveModules``) as the JAX ``init_params``
+    tree ({"unet", "controlnet", "vae", "clip"}, each {"params",
+    "buffers"} of nested dicts of float32 numpy arrays): the tree that
+    ``jax_params_to_state_dicts`` maps back to their state_dicts."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, mod in modules.items():
+        buffers = {k for k, _ in mod.named_buffers()}
+        tree: Dict[str, Any] = {}
+        for key, value in mod.state_dict().items():
+            path = flax_path(name, key)
+            node = tree.setdefault("buffers" if key in buffers else "params",
+                                   {})
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            if path[-1] in node:
+                raise ValueError(f"two state_dict keys map to {path}")
+            node[path[-1]] = np.ascontiguousarray(
+                _jax_value(as_numpy(value).astype(np.float32, copy=False),
+                           path))
+        out[name] = tree
+    return out

@@ -1,103 +1,142 @@
 """Batches with static shapes (counterpart of ``data/collate.py``).
 
-``collate_fn`` turns sample dicts (``fixtures.make_sample``) into the batch
-``MagicDrivePipeline`` and the train step take: pixel_values (B, N, H, W, 3)
-where the samples hold images, input_ids (B, 77), uncond_ids (1, 77),
-camera_param (B, N, 3, 7), bev_map (B, H, W, C), bboxes (B, N, L, 8, 3),
-classes (B, N, L) (-1 padding) and masks (B, N, L). Boxes are kept per view
-where any corner lies in front of the camera, as 8 corners (the "all-xyz"
-mode), padded or clipped to ``bbox_max_len``. Training-time augmentation,
-the 4-corner mode, view-shared boxes and the canvas filter come later.
+``collate_fn`` turns sample dicts (``fixtures.make_sample``, or
+``nuscenes.NuScenesDataset`` items) into the batch ``MagicDrivePipeline``
+and the train step take: pixel_values (B, N, H, W, 3) where the samples
+hold images, input_ids (B, 77), uncond_ids (1, 77), camera_param
+(B, N, 3, 7), bev_map (B, H, W, C), bboxes (B, N_out, L, P, 3), classes
+(B, N_out, L) (-1 padding) and masks (B, N_out, L).
+
+Boxes (ref:magicdrive/dataset/utils.py:253-352): per view, those any corner
+of which lies in front of the camera (``use_3d_filter``) or projects onto
+the canvas, or one view-shared set (N_out = 1); as 8 corners ("all-xyz") or
+4 ("cxyz"); padded or clipped to a static ``bbox_max_len``. In training
+(``is_train``), a sample loses all its boxes with ``bbox_drop_ratio`` and a
+view gains up to ``bbox_add_num`` hidden ones with ``bbox_add_ratio``, drawn
+from the caller's ``np.random.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
-import zlib
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-DEFAULT_TEMPLATE = "A driving scene image at {location}. {description}."
-MAX_LENGTH = 77
-BOS, EOS = 49406, 49407
-
-# mmdet3d corner order of a unit box
-_CORNER_NORM = np.array([
-    (0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0),
-    (1, 1, 0), (1, 1, 1), (1, 0, 1), (1, 0, 0),
-], dtype=np.float64)
+from .bbox import (corners_from_boxes, shift_origin, visible_mask_3d,
+                   visible_mask_canvas)
+from .caption import DEFAULT_TEMPLATE, HashTokenizer, tokenize_captions
 
 
 @dataclasses.dataclass
 class CollateConfig:
     template: str = DEFAULT_TEMPLATE
+    bbox_mode: str = "all-xyz"       # all-xyz (8 pts) | cxyz (4 pts)
     bbox_max_len: int = 160
+    bbox_view_shared: bool = False
+    use_3d_filter: bool = True
+    canvas_hw: tuple = (224, 400)
+    is_train: bool = True
+    # training augmentation (ref:configs/runner/default.yaml:2-4)
+    bbox_drop_ratio: float = 0.0
+    bbox_add_ratio: float = 0.0
+    bbox_add_num: int = 0
 
 
-def tokenize(texts: Sequence[str]) -> np.ndarray:
-    """Offline stand-in for the CLIP tokenizer with its framing: BOS, one
-    id per lower-cased word, EOS, EOS padding to 77. Ids are a CRC32 of the
-    word, so they are the same in every process."""
-    out = np.full((len(texts), MAX_LENGTH), EOS, np.int32)
-    for i, t in enumerate(texts):
-        words = t.lower().split()[:MAX_LENGTH - 2]
-        ids = [BOS] + [zlib.crc32(w.encode()) % 49000 + 300
-                       for w in words] + [EOS]
-        out[i, :len(ids)] = ids
-    return out
+# cxyz mode picks corners [x1y1z1, x1y0z1, x1y1z0, x0y1z1] of the mmdet3d
+# order (ref:dataset/utils.py:210-212)
+_CXYZ_IDX = (6, 5, 7, 2)
 
 
-def corners_from_boxes(boxes: np.ndarray, origin=(0.5, 0.5, 0.0)
-                       ) -> np.ndarray:
-    """(N, 7) boxes [x, y, z, dx, dy, dz, yaw] -> (N, 8, 3) corners."""
-    center, dims, yaw = boxes[:, :3], boxes[:, 3:6], boxes[:, 6]
-    corners = (_CORNER_NORM[None] - np.asarray(origin)) * dims[:, None]
-    c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
-    x = corners[..., 0] * c - corners[..., 1] * s
-    y = corners[..., 0] * s + corners[..., 1] * c
-    return np.stack([x, y, corners[..., 2]], axis=-1) + center[:, None]
+def _select_points(corners: np.ndarray, mode: str) -> np.ndarray:
+    if mode == "all-xyz":
+        return corners
+    if mode == "cxyz":
+        return corners[:, list(_CXYZ_IDX)]
+    raise ValueError(mode)
 
 
-def _in_front(corners: np.ndarray, lidar2camera: np.ndarray) -> np.ndarray:
-    """Any corner with z > 0 in the camera frame."""
-    z = corners @ lidar2camera[2, :3] + lidar2camera[2, 3]
-    return (z > 0).any(axis=-1)
+def _view_masks(s: dict, boxes7: np.ndarray, cfg: CollateConfig,
+                rng: np.random.Generator):
+    """One visibility mask per view, filtered on the boxes' corners at the
+    gravity-centre-shifted origin (ref box_center_shift)."""
+    corners_c = corners_from_boxes(
+        shift_origin(boxes7, (0.5, 0.5, 0.0), (0.5, 0.5, 0.0)),
+        origin=(0.5, 0.5, 0.0))
+    masks = []
+    for v in range(len(s["lidar2image"])):
+        if cfg.use_3d_filter:
+            m = visible_mask_3d(corners_c, s["lidar2camera"][v])
+        else:
+            m = visible_mask_canvas(corners_c, s["lidar2image"][v],
+                                    s["img_aug_matrix"][v], cfg.canvas_hw)
+        if cfg.is_train and cfg.bbox_add_ratio > 0 and \
+                rng.random() < cfg.bbox_add_ratio:
+            hidden = np.where(~m)[0]
+            rng.shuffle(hidden)
+            m = m.copy()
+            m[hidden[:cfg.bbox_add_num]] = True
+        masks.append(m)
+    return masks
 
 
-def _boxes(samples: Sequence[dict], L: int) -> Dict[str, np.ndarray]:
-    B, N = len(samples), len(samples[0]["lidar2camera"])
-    bboxes = np.zeros((B, N, L, 8, 3), np.float32)
-    classes = -np.ones((B, N, L), np.int32)
-    masks = np.zeros((B, N, L), np.float32)
+def preprocess_bbox(samples: Sequence[dict], cfg: CollateConfig,
+                    rng: Optional[np.random.Generator] = None
+                    ) -> Dict[str, np.ndarray]:
+    """bboxes (B, N_out, L, P, 3), classes (B, N_out, L) int32 (-1 pad),
+    masks (B, N_out, L) float32."""
+    rng = rng or np.random.default_rng()
+    B = len(samples)
+    N_out = 1 if cfg.bbox_view_shared else len(samples[0]["lidar2image"])
+    L = cfg.bbox_max_len
+    n_pts = 8 if cfg.bbox_mode == "all-xyz" else 4
+
+    bboxes = np.zeros((B, N_out, L, n_pts, 3), np.float32)
+    classes = -np.ones((B, N_out, L), np.int32)
+    masks = np.zeros((B, N_out, L), np.float32)
     for b, s in enumerate(samples):
-        boxes = np.asarray(s["boxes"], np.float64).reshape(-1, 7)
-        if not len(boxes):
+        arr = np.asarray(s["boxes"], np.float64)
+        boxes7 = (arr.reshape(len(arr), -1)[:, :7] if arr.size
+                  else np.zeros((0, 7)))  # velocity columns dropped
+        labels = np.asarray(s["labels"], np.int64).reshape(-1)
+        if len(boxes7) == 0 or (cfg.is_train and cfg.bbox_drop_ratio > 0
+                                and rng.random() < cfg.bbox_drop_ratio):
             continue
-        labels = np.asarray(s["labels"]).reshape(-1)
-        corners = corners_from_boxes(boxes)
-        for v in range(N):
-            idx = np.where(_in_front(corners, s["lidar2camera"][v]))[0][:L]
-            bboxes[b, v, :len(idx)] = corners[idx]
-            classes[b, v, :len(idx)] = labels[idx]
-            masks[b, v, :len(idx)] = 1.0
+        pts = _select_points(corners_from_boxes(boxes7), cfg.bbox_mode)
+        view_masks = [np.ones(len(boxes7), bool)] if cfg.bbox_view_shared \
+            else _view_masks(s, boxes7, cfg, rng)
+        for v, m in enumerate(view_masks):
+            idx = np.where(m)[0][:L]
+            n = len(idx)
+            bboxes[b, v, :n] = pts[idx]
+            classes[b, v, :n] = labels[idx]
+            masks[b, v, :n] = 1.0
     return {"bboxes": bboxes, "classes": classes, "masks": masks}
 
 
-def collate_fn(samples: Sequence[dict], cfg: CollateConfig
+def collate_fn(samples: Sequence[dict], cfg: CollateConfig, tokenizer=None,
+               rng: Optional[np.random.Generator] = None
                ) -> Dict[str, np.ndarray]:
-    out = {}
+    """A static-shape batch from per-frame sample dicts: img (N, H, W, 3)
+    in [-1, 1] (optional), boxes (Nb, 7+), labels (Nb,), bev_map
+    (H_m, W_m, C), camera_intrinsics, camera2lidar, lidar2camera,
+    lidar2image and img_aug_matrix (N, 4, 4), metas {location,
+    description}. ``tokenizer`` defaults to ``HashTokenizer``."""
+    tokenizer = tokenizer or HashTokenizer()
+    out: Dict[str, np.ndarray] = {}
     if "img" in samples[0]:
         out["pixel_values"] = np.stack([np.asarray(s["img"], np.float32)
                                         for s in samples])
     out["bev_map"] = np.stack([np.asarray(s["bev_map"], np.float32)
                                for s in samples])
     # camera_param = K[:3, :3] beside camera2lidar[:3, :4]
+    # (ref:dataset/utils.py:294-297)
     out["camera_param"] = np.stack([np.concatenate(
         [np.asarray(s["camera_intrinsics"], np.float32)[:, :3, :3],
          np.asarray(s["camera2lidar"], np.float32)[:, :3, :4]], axis=-1)
         for s in samples])
-    ids = tokenize([cfg.template.format(**s["metas"]) for s in samples]
-                   + [""])
-    out["input_ids"], out["uncond_ids"] = ids[:-1], ids[-1:]
-    out.update(_boxes(samples, cfg.bbox_max_len))
+    input_ids, uncond_ids = tokenize_captions(
+        [s["metas"] for s in samples], tokenizer, cfg.template)
+    out["input_ids"] = np.asarray(input_ids, np.int32)
+    out["uncond_ids"] = np.asarray(uncond_ids, np.int32)
+    out.update(preprocess_bbox(samples, cfg, rng))
     return out

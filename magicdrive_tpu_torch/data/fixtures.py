@@ -48,6 +48,8 @@ def make_sample(seed: int = 0, image_hw=(224, 400), map_hw=(200, 200),
         "camera_intrinsics": np.stack([c[0] for c in cams]),
         "camera2lidar": np.stack([c[1] for c in cams]),
         "lidar2camera": np.stack([c[2] for c in cams]),
+        "lidar2image": np.stack([c[3] for c in cams]),
+        "img_aug_matrix": np.stack([np.eye(4)] * len(cams)),
         "metas": {"location": "singapore-onenorth",
                   "description": "synthetic fixture scene with parked cars"},
     }

@@ -44,6 +44,15 @@ def randomized(tree, rs):
     return out
 
 
+def scaled_kernels(tree, gain):
+    """Copy of a variable tree with every ``kernel`` leaf times ``gain``.
+    At half the fan-in scale the random network stops amplifying fp32
+    rounding: see the files that use it."""
+    return {k: scaled_kernels(v, gain) if isinstance(v, Mapping)
+            else v * np.float32(gain) if k == "kernel" else v
+            for k, v in tree.items()}
+
+
 def shaped(tree, rs):
     """Seeded normals (``randomized``) on the shapes of an abstract
     variable tree from ``jax.eval_shape``: no forward runs to make them."""

@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_modules import randomized
+from test_torch_port_modules import randomized, scaled_kernels
 
 torch.set_num_threads(1)
 
@@ -57,12 +57,6 @@ def _jax_loss_fn(train_step_fn):
     return cells["loss_fn"]
 
 
-def _scaled_kernels(tree):
-    return {k: _scaled_kernels(v) if isinstance(v, dict)
-            else v * KERNEL_GAIN if k == "kernel" else v
-            for k, v in tree.items()}
-
-
 @pytest.fixture(scope="module")
 def jax_step():
     from magicdrive_tpu.config.presets import init_params, tiny_debug
@@ -77,9 +71,9 @@ def jax_step():
     modules = preset.modules(dtype=jnp.float32)
     shapes = jax.eval_shape(lambda k: init_params(preset, modules, k),
                             jax.random.PRNGKey(0))
-    params = _scaled_kernels(randomized(jax.tree_util.tree_map(
+    params = scaled_kernels(randomized(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), shapes),
-        np.random.RandomState(0)))
+        np.random.RandomState(0)), KERNEL_GAIN)
     # drop 3 of the 6 views' conditioning, so both sides of the blend run;
     # no warm-up, so the first update moves the weights
     tcfg = TrainConfig(learning_rate=LR, lr_warmup_steps=0,
