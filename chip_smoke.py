@@ -92,18 +92,31 @@ no result line):
      step with the temporal attention's SDPA time); K1-K4 are also checked
      and timed at the video's shapes in phase 3 (_video_cases), and every
      path's launch counts equal the derived ones; between the 224x400
-     paths and the hi-res ones, the generation CLI as a user runs it
-     (run_generate_cli): a synthetic nuScenes-format tree and a run
-     directory of the full-width 224x400 model on seeded weights (the
-     port's save_params, about 5.6 GB) in a temporary directory, then
-     ``cli.generate.main`` under "kvstat" on 2 samples with the default
-     runner (20 UniPC steps, 2 variants, boxes drawn): the PNGs decode to
+     paths and the hi-res ones, the evaluation chain as a user runs it
+     (run_evaluation, in a temporary directory): the full-width 224x400
+     model on seeded weights written as the released SD-v1.5 and
+     MagicDrive trees and converted by ``cli.convert_weights`` into a run
+     directory (every leaf bitwise the modules'); on that run the
+     generation CLI (run_generate_cli: ``cli.generate.main`` under
+     "kvstat" on 2 samples of a synthetic nuScenes tree with the default
+     runner, 20 UniPC steps, 2 variants, boxes drawn: the PNGs decode to
      their shapes and hold the images, the images are finite and in
-     [0, 1], the launch counts equal the derived ones, and the CLI's batch
-     through a MagicDrivePipeline on the script's own modules from the
-     CLI's latents gives the CLI's images (KERNEL_TOL); the npz's size, its
-     save and load seconds, each CLI request's seconds and the peak memory
-     are printed with the card;
+     [0, 1], the launch counts equal the derived ones, the per-call check
+     of one guided step, and the CLI's batch through a MagicDrivePipeline
+     on the script's own modules from the CLI's latents gives the CLI's
+     images, KERNEL_TOL); ``cli.val_set_gen`` at B=4 on an 8-sample tree
+     (its PNGs, launch counts, the per-call check of a B=4 guided step and
+     its first batch against a MagicDrivePipeline); ``cli.fid`` in both
+     modes with a random Inception file; and a B=2 training step with a
+     learnable unconditional map and the map drop (its launch counts,
+     the per-call check, the map's gradient through the kernels within
+     EPS_TOL of the plain versions' in bf16 and in fp32, and exactly zero
+     without the drop).
+     The trees' sizes,
+     the write and convert seconds, the npz's load seconds, each CLI
+     request's and val-set batch's seconds, 6-view frames/s at B=4, the
+     peak memory, FID seconds and Inception images/s are printed with the
+     card;
   6. training, per mode: the full-width model in bf16 over fp32 masters
      (the recipe's AdamW, clip 1.0, drop_cond_ratio 0.25), one fixture
      batch with images at B=1 (6 views), N_TRAIN_STEPS steps through the
@@ -127,7 +140,8 @@ The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
 path runs of phases 4-6 (the forced routes, the generation paths, the
-options, given-view, generation CLI and video paths, and training) and
+options, given-view, generation CLI, val-set, map-drop and video paths,
+and training) and
 "launches_by_path" gives each. The whole K6's rows (time, bound, library
 time) are logged on a line of their own before it. The last line is
 {"ok": true, "device": {...}}.
@@ -161,7 +175,12 @@ KERNEL_TOL = 1e-2   # max|kernel - ref| <= KERNEL_TOL * max|ref|
 # L=1400 is itself 1.012e-2 * max|ref| from fp32, from the bf16 products
 # and casts the kernel route shares with it (PERF.md).
 GRAD_TOL = 1e-2
-EPS_TOL = 2e-2      # relative L2 of the guided eps, kernels vs plain
+# Relative L2 of a whole-network bf16 result through the kernels against the
+# plain versions: the guided eps, and the unconditional map's gradient of a
+# training step. Measured on an H100, that gradient through the plain bf16
+# versions is itself 1.05e-2 from the plain fp32 one: bf16's floor there,
+# not the kernels', and a larger gain of the map embedder does not lower it.
+EPS_TOL = 2e-2
 # Scale of the random weights of rank >= 2 (times 1/sqrt(fan_in)). At full
 # width with random weights the bf16 network amplifies rounding: measured
 # on an H100, at gain 1.0 a 1e-3 relative perturbation of the latent moves
@@ -185,6 +204,11 @@ def environment() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
     log(smi)
+    try:
+        import scipy
+        log(f"scipy {scipy.__version__} (FID's sqrtm)")
+    except ImportError:
+        log("scipy: not importable (FID's sqrtm needs it)")
     torch.cuda.set_device(0)  # the autograd engine's thread finds it set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1784,11 +1808,12 @@ def run_given_view(preset, pipe, batches, by_path, timing) -> None:
 CLI_INDICES = (0, 1)
 
 
-def run_generate_cli(by_path, timing, card: str) -> None:
+def run_generate_cli(by_path, timing, card: str, tmp: str, run_dir: str,
+                     modules) -> None:
     """The generation CLI as a user runs it, at full width under "kvstat":
-    a synthetic nuScenes-format tree (the port's make_mini_nuscenes) and a
-    run directory of the 224x400 model on seeded weights, written with the
-    port's save_params, in a temporary directory; then
+    a synthetic nuScenes-format tree (the port's make_mini_nuscenes) in
+    ``tmp`` and ``run_dir``, the 224x400 run that run_evaluation converted
+    from the released trees of this script's seeded ``modules``; then
     ``cli.generate.main`` on samples CLI_INDICES of the tree with the
     default runner (20 UniPC steps, runner.validation_times = 2 variants of
     the batch, boxes drawn). Gates: the samples came from the nuScenes
@@ -1799,125 +1824,496 @@ def run_generate_cli(by_path, timing, card: str) -> None:
     call of one guided step of the CLI's own pipeline on its batch (B=2,
     24 UNet images) within KERNEL_TOL of its plain version at its own bf16
     casts, and of fp32 or no farther than that plain bf16 version; the
-    CLI's batch through a
-    MagicDrivePipeline on this script's own modules (not loaded from the
-    run directory) from the CLI's latents within KERNEL_TOL * max|ref| of
-    the CLI's images. Prints the npz's size, the seconds to save and load
-    it, each CLI request's seconds (the first cold) and the peak memory,
-    with the card."""
+    CLI's batch through a MagicDrivePipeline on ``modules`` (not loaded
+    from the run directory; left in bf16) from the CLI's latents within
+    KERNEL_TOL * max|ref| of the CLI's images. Prints the npz's size and
+    the seconds to load it, each CLI request's seconds (the first cold) and
+    the peak memory, with the card."""
     from PIL import Image
 
     from magicdrive_tpu_torch.cli import generate
     from magicdrive_tpu_torch.config import preset_from_config
-    from magicdrive_tpu_torch.config_loader import compose, save_run_config
-    from magicdrive_tpu_torch.convert import (iter_leaves,
-                                              modules_to_jax_params)
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.convert import iter_leaves
     from magicdrive_tpu_torch.data.nuscenes import NuScenesDataset
     from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
     from magicdrive_tpu_torch.kernels import dispatch
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
-    from magicdrive_tpu_torch.utils.serialization import (load_params,
-                                                          save_params)
+    from magicdrive_tpu_torch.utils.serialization import load_params
+
+    root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes_cli"))
+    cfg = compose(generate.CONFIG_DIR, overrides=["exp=224x400"])
+    preset = preset_from_config(cfg)
+    weights = os.path.join(run_dir, "weights")
+    size = os.path.getsize(os.path.join(weights, "params.npz"))
+    t0 = time.perf_counter()
+    n_leaves = len(list(iter_leaves(load_params(weights))))
+    load_s = time.perf_counter() - t0
+    log(f"generate CLI: run weights {size / 2**30:.3f} GiB "
+        f"({size} bytes, {n_leaves} arrays), loaded in {load_s:.1f} s "
+        f"({card})")
+
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    # the overrides go before --indices, which takes all that follows it
+    argv = ["--run_dir", run_dir, f"dataset.dataset_root={root}",
+            f"dataset.version={version}", "--indices",
+            *map(str, CLI_INDICES)]
+    with dispatch.fused_mode("kvstat"):
+        t0 = time.perf_counter()
+        made = generate.main(argv)
+        main_s = time.perf_counter() - t0
+    steps = preset.pipeline.num_inference_steps
+    times = cfg["runner"]["validation_times"]
+    by_path["generate_cli"] = _check_launches(
+        "generate CLI (kvstat)", expected_launches(
+            preset, "kvstat", forwards=times * steps))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timing["s/request generate CLI"] = made.seconds
+    log(f"generate CLI: main {main_s:.1f} s, requests (B="
+        f"{len(CLI_INDICES)}, {steps} steps) {made.seconds} s (the "
+        f"first cold), peak memory {peak:.2f} GiB ({card})")
+
+    # the samples came through the nuScenes index, raster and collate,
+    # not the fixture scenes that build_datasets falls back to
+    if not isinstance(made.dataset, NuScenesDataset):
+        raise AssertionError(f"the CLI read {type(made.dataset)}")
+    dc = cfg["dataset"]
+    n_static, n_obj = len(dc["map_classes"]), len(dc["object_classes"])
+    maps = [made.dataset[i]["bev_map"] for i in CLI_INDICES]
+    n_map = n_static + n_obj + 8  # and the 8 aux channels
+    if any(m.shape != (*preset.map_hw, n_map) for m in maps) or not any(
+            m[..., n_static:n_static + n_obj].any() for m in maps):
+        raise AssertionError("the nuScenes maps hold no object channel: "
+                             f"{[m.shape for m in maps]}")
+    batch = made.batch
+    # nuScenes' intrinsics make context tokens of |x| ~ 95, where K1's
+    # plain version at its bf16 casts is itself 1.1e-2 * max|ref| from
+    # fp32 (PERF.md): hence the bf16 floor
+    with dispatch.fused_mode("kvstat"):
+        check_path_calls(preset, made.pipe, batch, "kvstat",
+                         bf16_floor=True)
+    if tuple(batch["bev_map"].shape) != (len(CLI_INDICES),
+                                         *preset.map_hw,
+                                         preset.map_channels):
+        raise AssertionError(f"CLI batch map {batch['bev_map'].shape}")
+    if not batch["masks"].any():
+        raise AssertionError("no box of the tree is in the CLI batch")
+    H, W = preset.image_size
+    n = preset.pipeline.n_cam
+    rows = 2 if cfg["runner"]["validation_show_box"] else 1
+    for ti, imgs in enumerate(made.images):
+        suffix = f"_t{ti}" if times > 1 else ""
+        log(f"  variant {ti}: "
+            f"{check_images(torch.from_numpy(imgs), batch, preset)}")
+        for bi, i in enumerate(CLI_INDICES):
+            name = f"{i}_gen{suffix}.png"
+            png = np.asarray(Image.open(os.path.join(made.out_dir, name)))
+            if png.shape != (rows * H, n * W, 3):
+                raise AssertionError(f"{name} {png.shape}")
+            want = (np.clip(np.concatenate(list(imgs[bi]), axis=1), 0, 1)
+                    * 255).astype(np.uint8)
+            if not np.array_equal(png[:H], want):
+                raise AssertionError(f"{name} is not the variant's "
+                                     "images")
+    for i in CLI_INDICES:
+        png = np.asarray(Image.open(os.path.join(made.out_dir,
+                                                 f"{i}_map.png")))
+        if png.ndim != 3 or png.shape[2] != 3 or png.shape[0] < 400:
+            raise AssertionError(f"{i}_map.png {png.shape}")
+
+    direct = MagicDrivePipeline(
+        modules.to("cuda", preset.pipeline.dtype), preset.pipeline)
+    for ti, (lat, imgs) in enumerate(zip(made.latents, made.images)):
+        got = direct(batch, latents=lat)
+        err, scale = _worst(torch.from_numpy(imgs).cuda(), got)
+        _gate("generate CLI images", f"variant {ti}", err, scale,
+              KERNEL_TOL, note="vs MagicDrivePipeline on the script's "
+              f"modules; bitwise equal: "
+              f"{torch.equal(got.cpu(), torch.from_numpy(imgs))}")
+    del made, direct
+    torch.cuda.empty_cache()
+
+
+EVAL_SAMPLES = 8     # the val-set tree: two batches of 4
+EVAL_BATCH = 4       # val_set_gen's default batch, the North star's B
+OLD_VAE_NAMES = {".to_q.": ".query.", ".to_k.": ".key.", ".to_v.": ".value.",
+                 ".to_out.0.": ".proj_attn."}
+POOL3_TOL = 1e-3     # card vs CPU pool3, * max|CPU| (fp32, TF32 off)
+
+
+def _write_safetensors(sd, path) -> None:
+    """A ``.safetensors`` file (an 8-byte little-endian header length, the
+    JSON header, the raw buffers) of numpy arrays."""
+    names = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}
+    header, offset = {}, 0
+    for k, a in sd.items():
+        header[k] = {"dtype": names[a.dtype], "shape": list(a.shape),
+                     "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little"))
+        f.write(h)
+        for a in sd.values():
+            f.write(np.ascontiguousarray(a).data)
+
+
+def write_released_trees(modules, root) -> dict:
+    """The script's modules as the two released trees, in the layouts a
+    user downloads: SD-v1.5 (``unet/`` safetensors without the multiview
+    modules, ``vae/`` .bin under the old attention names,
+    ``text_encoder/`` .bin with transformers' ``position_ids``) and
+    MagicDrive (``controlnet/`` .bin, ``unet/`` safetensors); -> {tree:
+    bytes}."""
+    from magicdrive_tpu_torch.cli.convert_weights import MULTIVIEW
+
+    sds = {n: {k: v.detach().cpu().numpy() for k, v in m.state_dict().items()}
+           for n, m in modules.items()}
+    vae = {}
+    for k, v in sds["vae"].items():
+        if ".attentions." in k:
+            for new, old in OLD_VAE_NAMES.items():
+                k = k.replace(new, old)
+        vae[k] = v
+    clip = dict(sds["clip"])
+    clip["text_model.embeddings.position_ids"] = np.arange(77)[None]
+    files = {
+        "sd15/unet/diffusion_pytorch_model.safetensors":
+            {k: v for k, v in sds["unet"].items()
+             if not any(m in k for m in MULTIVIEW)},
+        "sd15/vae/diffusion_pytorch_model.bin": vae,
+        "sd15/text_encoder/pytorch_model.bin": clip,
+        "magicdrive/controlnet/diffusion_pytorch_model.bin":
+            sds["controlnet"],
+        "magicdrive/unet/diffusion_pytorch_model.safetensors": sds["unet"],
+    }
+    sizes = {}
+    for rel, sd in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        if path.endswith(".safetensors"):
+            _write_safetensors(sd, path)
+        else:
+            torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+        tree = rel.split("/")[0]
+        sizes[tree] = sizes.get(tree, 0) + os.path.getsize(path)
+    return sizes
+
+
+@contextlib.contextmanager
+def recorded_requests(calls, seconds=None):
+    """Each ``MagicDrivePipeline`` call in the block appended to ``calls``
+    as (batch, latents, images), and its host-clock seconds to the card's
+    end to ``seconds`` where given."""
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+
+    real = MagicDrivePipeline.__call__
+
+    def call(self, batch, generator=None, latents=None):
+        t0 = time.perf_counter()
+        out = real(self, batch, generator, latents)
+        if seconds is not None:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        calls.append((dict(batch), latents, out))
+        return out
+
+    MagicDrivePipeline.__call__ = call
+    try:
+        yield calls
+    finally:
+        MagicDrivePipeline.__call__ = real
+
+
+def write_inception_weights(path: str, seed: int = 0) -> None:
+    """A random Inception in pytorch-fid's file layout: convolutions
+    N(0, 2 / fan_in), so that the features stay of order 1 and differ from
+    image to image; random batch-norm affines and statistics; the unused
+    ``fc`` layer."""
+    from magicdrive_tpu_torch.eval.inception import (FrozenBatchNorm,
+                                                     load_inception)
+
+    model = load_inception(device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.normal_(0.0, (2 / m.weight[0].numel()) ** 0.5,
+                             generator=g)
+        elif isinstance(m, FrozenBatchNorm):
+            m.weight.uniform_(0.7, 1.3, generator=g)
+            m.bias.uniform_(-0.1, 0.1, generator=g)
+            m.running_mean.uniform_(-0.2, 0.2, generator=g)
+            m.running_var.uniform_(0.6, 1.4, generator=g)
+    sd = dict(model.state_dict())
+    sd["fc.weight"] = torch.zeros(1008, 2048)
+    sd["fc.bias"] = torch.zeros(1008)
+    torch.save(sd, path)
+
+
+def run_evaluation(by_path, timing, card: str) -> None:
+    """The evaluation chain as a user runs it, at full width (224x400), in
+    a temporary directory:
+      1. weight conversion: the script's seeded modules written as the
+         SD-v1.5 and MagicDrive release trees (write_released_trees), then
+         ``cli.convert_weights.main`` in sd15 mode and in magicdrive mode
+         with --sd15, into a run directory. Gate: every leaf of the run's
+         weights equals ``modules_to_jax_params`` of the script's modules,
+         bitwise. The generation CLI's phase (run_generate_cli) runs on
+         that run directory;
+      2. ``cli.val_set_gen.main`` on a synthetic nuScenes tree of
+         EVAL_SAMPLES samples with a JPEG per camera, at its default batch
+         of EVAL_BATCH, 20 UniPC steps, under "kvstat". Gates: every
+         ``<stem>_gen0.png`` of every sample and camera at (224, 400, 3);
+         the launch counts equal the derived ones; every kernel call of one
+         guided step of its pipeline on its first batch (B=4, 48 UNet
+         images) within KERNEL_TOL of its plain version at its own bf16
+         casts and of fp32 or no farther than that (``bf16_floor``:
+         nuScenes camera tokens, as in run_generate_cli); the first batch's
+         images within KERNEL_TOL of a MagicDrivePipeline on the script's
+         modules (in bf16 since run_generate_cli) from the same latents;
+         one guided step of that batch under the profiler;
+      3. ``cli.fid.main`` (random Inception weights in pytorch-fid's
+         layout, write_inception_weights) in tokens mode, the
+         generated tree against the tree's JPEGs, and in paths mode, the
+         generated tree against itself. Gates: the pair count is samples x
+         6, the FIDs finite and the self FID about 0; the pool3 features of
+         8 images on the card within POOL3_TOL of the same module on the CPU;
+      4. the map drop (Queue C's C3) on the card (run_map_drop_step).
+    Prints the trees' sizes and the seconds to write and to convert them,
+    the seconds per batch from asking the loader to the last PNG (the first
+    cold), 6-view frames/s at B=4, the peak memory above what the script
+    holds, FID seconds and Inception images/s, with the card."""
+    from PIL import Image
+
+    from magicdrive_tpu_torch.cli import convert_weights, fid, val_set_gen
+    from magicdrive_tpu_torch.cli.generate import CONFIG_DIR
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose, save_run_config
+    from magicdrive_tpu_torch.convert import iter_leaves, modules_to_jax_params
+    from magicdrive_tpu_torch.data.nuscenes import NuScenesIndex
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+    from magicdrive_tpu_torch.eval.fid import (ActivationExtractor,
+                                               list_images,
+                                               pair_real_generated)
+    from magicdrive_tpu_torch.eval.inception import load_inception
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+    from magicdrive_tpu_torch.utils.serialization import load_params
 
     with tempfile.TemporaryDirectory() as tmp:
-        root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
         overrides = ["exp=224x400"]
-        cfg = compose(generate.CONFIG_DIR, overrides=overrides)
+        cfg = compose(CONFIG_DIR, overrides=overrides)
         preset = preset_from_config(cfg)
+        modules = _new_modules(preset)
+        t0 = time.perf_counter()
+        sizes = write_released_trees(modules, os.path.join(tmp, "released"))
+        write_s = time.perf_counter() - t0
         run_dir = os.path.join(tmp, "run")
         save_run_config(cfg, run_dir, overrides)
-        modules = _new_modules(preset)
         weights = os.path.join(run_dir, "weights")
         t0 = time.perf_counter()
-        save_params(modules_to_jax_params(modules), weights)
-        save_s = time.perf_counter() - t0
-        size = os.path.getsize(os.path.join(weights, "params.npz"))
+        convert_weights.main(["sd15", "--src", os.path.join(
+            tmp, "released", "sd15"), "--out", os.path.join(tmp, "sd15")])
+        sd15_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        n_leaves = len(list(iter_leaves(load_params(weights))))
-        load_s = time.perf_counter() - t0
-        log(f"generate CLI: run weights {size / 2**30:.3f} GiB "
-            f"({size} bytes, {n_leaves} arrays), saved in {save_s:.1f} s, "
-            f"loaded in {load_s:.1f} s ({card})")
+        convert_weights.main(["magicdrive", "--src", os.path.join(
+            tmp, "released", "magicdrive"), "--sd15",
+            os.path.join(tmp, "sd15"), "--out", weights])
+        md_s = time.perf_counter() - t0
+        want = dict(iter_leaves(modules_to_jax_params(modules)))
+        got = dict(iter_leaves(load_params(weights)))
+        if got.keys() != want.keys() or any(
+                not np.array_equal(got[k], w) for k, w in want.items()):
+            raise AssertionError("the converted run's weights are not the "
+                                 "script's modules")
+        del got, want
+        log(f"evaluation: released trees {sizes} bytes written in "
+            f"{write_s:.1f} s; converted sd15 in {sd15_s:.1f} s, magicdrive "
+            f"--sd15 in {md_s:.1f} s; every leaf of the run bitwise the "
+            f"modules' ({card})")
+        timing["s convert sd15, magicdrive"] = [sd15_s, md_s]
+        log("the generation CLI (kvstat) on the converted run:")
+        run_generate_cli(by_path, timing, card, tmp, run_dir, modules)
 
+        root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"),
+                                           n_samples=EVAL_SAMPLES,
+                                           images_per_sample=True)
+        out = os.path.join(tmp, "generated")
+        calls, pipe_s = [], []
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the script's own modules
         dispatch.reset_launches()
-        # the overrides go before --indices, which takes all that follows it
-        argv = ["--run_dir", run_dir, f"dataset.dataset_root={root}",
-                f"dataset.version={version}", "--indices",
-                *map(str, CLI_INDICES)]
-        with dispatch.fused_mode("kvstat"):
+        with dispatch.fused_mode("kvstat"), recorded_requests(calls, pipe_s):
             t0 = time.perf_counter()
-            made = generate.main(argv)
+            made = val_set_gen.main(
+                ["--run_dir", run_dir, "--out", out,
+                 f"dataset.dataset_root={root}", f"dataset.version={version}"])
             main_s = time.perf_counter() - t0
         steps = preset.pipeline.num_inference_steps
-        times = cfg["runner"]["validation_times"]
-        by_path["generate_cli"] = _check_launches(
-            "generate CLI (kvstat)", expected_launches(
-                preset, "kvstat", forwards=times * steps))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        timing["s/request generate CLI"] = made.seconds
-        log(f"generate CLI: main {main_s:.1f} s, requests (B="
-            f"{len(CLI_INDICES)}, {steps} steps) {made.seconds} s (the "
-            f"first cold), peak memory {peak:.2f} GiB ({card})")
-
-        # the samples came through the nuScenes index, raster and collate,
-        # not the fixture scenes that build_datasets falls back to
-        if not isinstance(made.dataset, NuScenesDataset):
-            raise AssertionError(f"the CLI read {type(made.dataset)}")
-        dc = cfg["dataset"]
-        n_static, n_obj = len(dc["map_classes"]), len(dc["object_classes"])
-        maps = [made.dataset[i]["bev_map"] for i in CLI_INDICES]
-        n_map = n_static + n_obj + 8  # and the 8 aux channels
-        if any(m.shape != (*preset.map_hw, n_map) for m in maps) or not any(
-                m[..., n_static:n_static + n_obj].any() for m in maps):
-            raise AssertionError("the nuScenes maps hold no object channel: "
-                                 f"{[m.shape for m in maps]}")
-        batch = made.batch
-        # nuScenes' intrinsics make context tokens of |x| ~ 95, where K1's
-        # plain version at its bf16 casts is itself 1.1e-2 * max|ref| from
-        # fp32 (PERF.md): hence the bf16 floor
+        n_batches = -(-EVAL_SAMPLES // EVAL_BATCH)
+        by_path["val_set_gen"] = _check_launches(
+            "val_set_gen (kvstat)", expected_launches(
+                preset, "kvstat", forwards=n_batches * steps))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        warm = made.seconds[1:]
+        timing["s/batch val_set_gen B=4"] = made.seconds
+        log(f"val_set_gen: main {main_s:.1f} s, s/batch (B={EVAL_BATCH}, "
+            f"{steps} steps, from asking the loader to the last PNG) "
+            f"{made.seconds} (the first cold; the pipeline's calls "
+            f"{pipe_s}), {EVAL_BATCH / np.mean(warm):.3f} 6-view frames/s "
+            f"warm, peak "
+            f"memory {peak:.2f} GiB above the script's own {held / 2**30:.2f}"
+            f" GiB ({card})")
+        if len(made.dataset) != EVAL_SAMPLES:
+            raise AssertionError(f"val_set_gen read {len(made.dataset)}")
+        for i in range(len(made.dataset)):
+            for f in made.dataset[i]["metas"]["filename"]:
+                stem = os.path.splitext(os.path.basename(f))[0]
+                png = np.asarray(Image.open(os.path.join(
+                    out, f"{stem}_gen0.png")))
+                if png.shape != (*preset.image_size, 3):
+                    raise AssertionError(f"{stem}_gen0.png {png.shape}")
+        batch, latents, imgs = calls[0]
+        log(f"  first batch: {check_images(imgs, batch, preset)}")
+        # nuScenes camera tokens, as in run_generate_cli: hence the floor
         with dispatch.fused_mode("kvstat"):
             check_path_calls(preset, made.pipe, batch, "kvstat",
                              bf16_floor=True)
-        if tuple(batch["bev_map"].shape) != (len(CLI_INDICES),
-                                             *preset.map_hw,
-                                             preset.map_channels):
-            raise AssertionError(f"CLI batch map {batch['bev_map'].shape}")
-        if not batch["masks"].any():
-            raise AssertionError("no box of the tree is in the CLI batch")
-        H, W = preset.image_size
-        n = preset.pipeline.n_cam
-        rows = 2 if cfg["runner"]["validation_show_box"] else 1
-        for ti, imgs in enumerate(made.images):
-            suffix = f"_t{ti}" if times > 1 else ""
-            log(f"  variant {ti}: "
-                f"{check_images(torch.from_numpy(imgs), batch, preset)}")
-            for bi, i in enumerate(CLI_INDICES):
-                name = f"{i}_gen{suffix}.png"
-                png = np.asarray(Image.open(os.path.join(made.out_dir, name)))
-                if png.shape != (rows * H, n * W, 3):
-                    raise AssertionError(f"{name} {png.shape}")
-                want = (np.clip(np.concatenate(list(imgs[bi]), axis=1), 0, 1)
-                        * 255).astype(np.uint8)
-                if not np.array_equal(png[:H], want):
-                    raise AssertionError(f"{name} is not the variant's "
-                                         "images")
-        for i in CLI_INDICES:
-            png = np.asarray(Image.open(os.path.join(made.out_dir,
-                                                     f"{i}_map.png")))
-            if png.ndim != 3 or png.shape[2] != 3 or png.shape[0] < 400:
-                raise AssertionError(f"{i}_map.png {png.shape}")
+            log(f"  a guided step at B={EVAL_BATCH} ({EVAL_BATCH * 12} UNet "
+                "images):")
+            profile_guided_step(preset, made.pipe, batch, "kvstat")
+            direct = MagicDrivePipeline(modules, preset.pipeline)
+            ref = direct(batch, latents=latents)
+        err, scale = _worst(imgs, ref)
+        _gate("val_set_gen images", "first batch", err, scale, KERNEL_TOL,
+              note="vs MagicDrivePipeline on the script's modules; bitwise "
+              f"equal: {torch.equal(imgs, ref)}")
+        del made, direct, modules, calls, imgs, ref
+        torch.cuda.empty_cache()
 
-        direct = MagicDrivePipeline(
-            modules.to("cuda", preset.pipeline.dtype), preset.pipeline)
-        for ti, (lat, imgs) in enumerate(zip(made.latents, made.images)):
-            got = direct(batch, latents=lat)
-            err, scale = _worst(torch.from_numpy(imgs).cuda(), got)
-            _gate("generate CLI images", f"variant {ti}", err, scale,
-                  KERNEL_TOL, note="vs MagicDrivePipeline on the script's "
-                  f"modules; bitwise equal: "
-                  f"{torch.equal(got.cpu(), torch.from_numpy(imgs))}")
-    del made, direct, modules
+        inception = os.path.join(tmp, "pt_inception.pth")
+        write_inception_weights(inception)
+        t0 = time.perf_counter()
+        fid_tokens = fid.main(["tokens", "--dataroot", root, "--version",
+                               version, "--gen_root", out, "--weights",
+                               inception])
+        tokens_s = time.perf_counter() - t0
+        fid_self = fid.main(["paths", out, out, "--no_crop", "--weights",
+                             inception])
+        gen_files = list_images(out)
+        pairs = pair_real_generated(NuScenesIndex(root, version), out)
+        if len(gen_files) != EVAL_SAMPLES * 6 or \
+                len(pairs[0]) != EVAL_SAMPLES * 6:
+            raise AssertionError(f"{len(gen_files)} generated images, "
+                                 f"{len(pairs[0])} pairs")
+        if not (np.isfinite(fid_tokens) and fid_tokens > 0 and
+                abs(fid_self) <= 1e-3 * fid_tokens):
+            raise AssertionError(f"FID tokens {fid_tokens}, self {fid_self}")
+        ext = ActivationExtractor(inception)
+        ext.from_files(gen_files[:ext.batch_size])  # cuDNN's first choices
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = ext.from_files(gen_files)
+        torch.cuda.synchronize()
+        rate = len(gen_files) / (time.perf_counter() - t0)
+        cpu = load_inception(inception, device="cpu")
+        x = torch.from_numpy(np.stack([ext._prep(Image.open(f))
+                                       for f in gen_files[:8]]))
+        with torch.no_grad():
+            want = cpu(x)
+        err, scale = _worst(torch.from_numpy(feats[:8]), want)
+        _gate("Inception pool3", "8 images, card vs CPU", err, scale,
+              POOL3_TOL)
+        log(f"FID: tokens mode {fid_tokens:.4f} over {len(pairs[0])} pairs "
+            f"in {tokens_s:.1f} s, paths mode self {fid_self:.3e}; "
+            f"Inception {rate:.1f} images/s at batch {ext.batch_size}, the "
+            f"files' decode and resize included ({card})")
+        timing["s FID tokens"] = [tokens_s]
+    run_map_drop_step(by_path)
+
+
+def run_map_drop_step(by_path) -> None:
+    """C3 on the card: a full-width training step at B=2 with a learnable
+    unconditional map and the map drop [1, 0] (sample 0 takes the
+    unconditional map) under "kvstat"; its launches counted. The same step
+    with every kernel call held to its plain version, then through the
+    plain versions alone in bf16 and in fp32: the map's gradient through
+    the kernels within EPS_TOL (relative L2) of both. With the map drop
+    [0, 0] the map's gradient is exactly zero: it arrives by the drop's
+    route alone."""
+    import dataclasses
+
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_sample)
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+    from magicdrive_tpu_torch.train.train_step import (batch_tensors,
+                                                       loss_and_grads)
+
+    preset = sd15mv_rawbox_224x400()
+    preset = dataclasses.replace(preset, controlnet=dataclasses.replace(
+        preset.controlnet, use_uncond_map="learnable"))
+    modules = _new_modules(preset)
+    cfg = TrainConfig()
+    state = create_train_state(modules, cfg, dtype=torch.bfloat16)
+    batch = collate_fn([make_sample(i, with_images=True) for i in range(2)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    draws = _fixed_draws(cfg, batch, 11)
+    draws.map_drop_mask = torch.tensor([1.0, 0.0], device="cuda")
+    tensors = batch_tensors(batch, "cuda")
+    schedule = NoiseSchedule.create()
+    key = "controlnet.uncond_map"
+    with dispatch.fused_mode("kvstat"):
+        dispatch.reset_launches()
+        loss, grads = loss_and_grads(modules, state, tensors, draws, cfg,
+                                     schedule)
+        by_path["train_map_drop"] = _check_launches(
+            "map-drop training step (kvstat)",
+            expected_launches(preset, "kvstat", steps=1))
+        g = grads[key]
+        names = training_calls("kvstat")
+        stats = {}
+        with patched_kernels(_call_checker(stats), names):
+            loss_and_grads(modules, state, tensors, draws, cfg, schedule)
+        _report_calls("the map-drop training step (kvstat)", stats, names)
+        draws.map_drop_mask = torch.zeros(2, device="cuda")
+        _, grads_0 = loss_and_grads(modules, state, tensors, draws, cfg,
+                                    schedule)
+        g0 = grads_0[key].abs().max().item()
+        draws.map_drop_mask = torch.tensor([1.0, 0.0], device="cuda")
+        plain = {}  # the fp32 state runs the modules in fp32 from here
+        with patched_kernels(lambda name, kern, plain: plain, names):
+            loss_p, plain["bf16"] = loss_and_grads(modules, state, tensors,
+                                                   draws, cfg, schedule)
+            fp32 = create_train_state(modules, cfg, dtype=torch.float32)
+            plain["fp32"] = loss_and_grads(modules, fp32, tensors, draws, cfg,
+                                           schedule)[1]
+        plain = {k: v[key] for k, v in plain.items()}
+        rel = {k: ((g - v).norm() / v.norm()).item()
+               for k, v in plain.items()}
+        floor = ((plain["bf16"] - plain["fp32"]).norm()
+                 / plain["fp32"].norm()).item()
+    log(f"map drop step (B=2, learnable uncond map, mask [1, 0]): loss "
+        f"{float(loss):.5f} (plain versions {float(loss_p):.5f}), uncond "
+        f"map grad max|g| {g.abs().max().item():.3e} (plain fp32 "
+        f"{plain['fp32'].abs().max().item():.3e}); kernels vs plain bf16 "
+        f"relative L2 {rel['bf16']:.3e}, vs plain fp32 {rel['fp32']:.3e} "
+        f"(limit {EPS_TOL}; plain bf16 vs plain fp32 {floor:.3e}); mask "
+        f"[0, 0]: max|g| {g0:.3e}")
+    if not np.isfinite(float(loss)) or not g.abs().max() > 0:
+        raise AssertionError("the map drop step's loss or the uncond "
+                             "map's gradient")
+    if not all(np.isfinite(r) and r <= EPS_TOL for r in rel.values()):
+        raise AssertionError(f"the uncond map's gradient through the "
+                             f"kernels: relative L2 {rel}")
+    if g0 != 0:
+        raise AssertionError(f"the uncond map's gradient without the map "
+                             f"drop: max|g| {g0:.3e}")
+    del modules, state, fp32, grads, plain, grads_0
     torch.cuda.empty_cache()
 
 
@@ -2234,8 +2630,9 @@ def main() -> None:
     run_given_view(preset, pipe, batches, by_path, timing)
     del pipe
     torch.cuda.empty_cache()
-    log("the generation CLI (kvstat):")
-    run_generate_cli(by_path, timing, card)
+    log("the evaluation chain: conversion, the generation CLI, val-set "
+        "generation, FID; the map drop:")
+    run_evaluation(by_path, timing, card)
     run_hires(by_path, timing)
     run_video(by_path, timing)
     for mode in dispatch.FUSED_MODES:

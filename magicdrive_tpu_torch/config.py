@@ -236,6 +236,35 @@ def tiny_video_debug(n_frames: int = 4, n_cam: int = 6) -> ModelPreset:
         unet=dataclasses.replace(base.unet, temporal_frames=n_frames))
 
 
+def small_parity(n_cam: int = 6) -> ModelPreset:
+    """Every key pattern of the released checkpoints (4 UNet and 4 VAE
+    blocks, CLIP's layout) at narrow widths: the converter's self-test
+    architecture (``cli.convert_weights --arch small-test``). The standard
+    map embedder maps the 200x200 BEV to the 28x50 latent."""
+    unet = UNetConfig(
+        block_out_channels=(32, 32, 64, 64), layers_per_block=2,
+        num_attention_heads=4, cross_attention_dim=32, norm_num_groups=8,
+        neighboring_view_pair=NUSCENES_NEIGHBORS)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        camera_out_dim=32, map_size=(8, 200, 200),
+        map_embedder_out_channels=(4, 8, 16, 16),
+        bbox=BBoxEmbedderConfig(n_classes=10, class_token_dim=32,
+                                proj_dims=(32, 16, 16, 32)),
+    )
+    return ModelPreset(
+        name="small-parity", unet=unet, controlnet=cn,
+        vae=VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                      norm_num_groups=8),
+        clip=CLIPTextConfig(vocab_size=49408, hidden_size=32, num_layers=2,
+                            num_heads=4, intermediate_size=64),
+        pipeline=PipelineConfig(latent_height=28, latent_width=50,
+                                num_inference_steps=2, n_cam=n_cam,
+                                dtype=torch.float32),
+        image_size=(224, 400), bbox_max_len=8,
+    )
+
+
 # values of the JAX package's model config that the port implements; a
 # config naming another raises rather than building a different model
 _PORTED = {

@@ -15,7 +15,14 @@ import numpy as np
 
 # approximate azimuths (deg) of the nuScenes camera order
 VIEW_AZIMUTH_DEG = (55.0, 0.0, -55.0, -110.0, 180.0, 110.0)
-N_OBJECT_CLASSES = 10
+OBJECT_CLASSES = (
+    "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+    "motorcycle", "bicycle", "pedestrian", "traffic_cone",
+)
+MAP_CLASSES = (
+    "drivable_area", "ped_crossing", "walkway", "stop_line", "carpark_area",
+    "road_divider", "lane_divider", "road_block",
+)
 
 
 def camera_matrices(image_hw=(224, 400)):
@@ -62,7 +69,7 @@ def make_sample(seed: int = 0, image_hw=(224, 400), map_hw=(200, 200),
     dims = rng.uniform([1.5, 3.5, 1.4], [2.2, 5.5, 2.2], (n_boxes, 3))
     yaw = rng.uniform(-np.pi, np.pi, (n_boxes, 1))
     sample["boxes"] = np.concatenate([xy, z, dims, yaw], axis=1)
-    sample["labels"] = rng.integers(0, N_OBJECT_CLASSES, n_boxes)
+    sample["labels"] = rng.integers(0, len(OBJECT_CLASSES), n_boxes)
 
     m = np.zeros((*map_hw, map_channels), np.float32)
     for c in range(map_channels):

@@ -1,0 +1,92 @@
+"""Host-side batching data loader with background prefetch (counterpart of
+``data/loader.py``; ref:magicdrive/runner/base_runner.py:116-146).
+
+A thread pool maps the (numpy) sample pipeline and batches with
+:func:`collate_fn`, and a bounded queue holds the ready batches so that the
+card does not wait on the host. The samples are taken in order; each
+batch's collate draws (training augmentation only) come from its first
+index, so the batches are the same on every pass.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Sequence
+
+import numpy as np
+
+from .collate import CollateConfig, collate_fn
+
+
+class DataLoader:
+    """Iterable over collated numpy batches of ``batch_size``, in the
+    dataset's order; with ``drop_last`` an incomplete tail batch is
+    dropped, so every batch has the same shapes."""
+
+    def __init__(self, dataset, batch_size: int, cfg: CollateConfig,
+                 num_workers: int = 4, prefetch: int = 2,
+                 drop_last: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.cfg = cfg
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = len(self.dataset) // self.batch_size
+        if not self.drop_last and len(self.dataset) % self.batch_size:
+            n += 1
+        return n
+
+    def _batches(self):
+        for i in range(0, len(self.dataset), self.batch_size):
+            idx = range(i, min(i + self.batch_size, len(self.dataset)))
+            if self.drop_last and len(idx) < self.batch_size:
+                return
+            yield idx
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def make_batch(idx):
+            return collate_fn([self.dataset[j] for j in idx], self.cfg,
+                              rng=np.random.default_rng(idx[0]))
+
+        def producer():
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                futures = [pool.submit(make_batch, idx)
+                           for idx in self._batches()]
+                for fut in futures:
+                    if stop.is_set():
+                        fut.cancel()
+                        continue
+                    try:
+                        q.put(fut.result())
+                    except Exception as e:  # surface worker errors
+                        q.put(e)
+                        return
+            q.put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+def shard_for_process(indices: Sequence[int], process_index: int,
+                      process_count: int) -> list:
+    """Strided sharding of sample indices across processes, the analogue
+    of accelerate's distributed sampler
+    (ref:perception/data_prepare/val_set_gen.py:79)."""
+    return list(indices)[process_index::process_count]

@@ -430,6 +430,12 @@ class NuScenesDataset:
     def __len__(self):
         return len(self.ids)
 
+    def filenames(self, i: int) -> List[str]:
+        """Sample ``i``'s image paths in the view order, as its
+        ``metas["filename"]``, without loading the sample."""
+        info = self.index.infos[self.ids[i]]
+        return [info.image_paths[j] for j in self.order]
+
     def __getitem__(self, i: int) -> dict:
         info = self.index.infos[self.ids[i]]
         o = self.order
@@ -453,7 +459,7 @@ class NuScenesDataset:
                 "description": info.description,
                 "timeofday": info.timeofday,
                 "token": info.token,
-                "filename": [info.image_paths[j] for j in o],
+                "filename": self.filenames(i),
             },
         }
 
@@ -484,3 +490,17 @@ class NuScenesDataset:
         if "gt_aux_bev" in out:
             masks = np.concatenate([masks, out["gt_aux_bev"]], axis=0)
         return np.ascontiguousarray(masks.transpose(1, 2, 0))
+
+
+class ListSetWrapper:
+    """Subset by explicit indices (ref:dataset_wrapper.py:9-18)."""
+
+    def __init__(self, dataset, indices: Sequence[int]):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]

@@ -173,12 +173,16 @@ class BEVControlNet(nn.Module):
                 cond_feat: Optional[torch.Tensor] = None,
                 encoder_hidden_states_uncond: Optional[torch.Tensor] = None,
                 drop_mask: Optional[torch.Tensor] = None,
-                guess_mode: bool = False
+                guess_mode: bool = False,
+                map_drop_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
         """sample (B, N, 4, h, w), timesteps (B,) or (B*N,). ``tokens`` and
         ``cond_feat`` may be precomputed (they do not change across sampler
         steps) with :meth:`assemble_tokens` / :meth:`embed_map`; otherwise
-        the tokens take the condition drop of ``drop_mask``. In
+        the tokens take the condition drop of ``drop_mask``, and the map,
+        where ``map_drop_mask`` (B,) is 1 and the ControlNet has
+        ``use_uncond_map``, is the unconditional map (training's map drop,
+        ref:unet_addon_rawbox.py:397-412). In
         ``guess_mode`` the residuals are scaled by a logspace from 0.1 (the
         first) to 1 (the mid block's) times ``conditioning_scale``
         (ref:unet_addon_rawbox.py:897-904).
@@ -190,6 +194,9 @@ class BEVControlNet(nn.Module):
                 camera_param, encoder_hidden_states, bboxes, classes, masks,
                 encoder_hidden_states_uncond, drop_mask)
         if cond_feat is None:
+            if map_drop_mask is not None and self.cfg.use_uncond_map:
+                controlnet_cond = self.substitute_with_uncond_map(
+                    controlnet_cond, map_drop_mask)
             cond_feat = self.embed_map(controlnet_cond)
         x = sample.reshape(B * N, *sample.shape[2:]).to(dt)
         ctx = tokens.reshape(B * N, *tokens.shape[2:])

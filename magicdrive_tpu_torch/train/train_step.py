@@ -29,6 +29,8 @@ class StepDraws:
     noise: torch.Tensor                # (B, N, 4, h, w)
     timesteps: torch.Tensor            # (B,), one per sample, all views
     drop_mask: Optional[torch.Tensor]  # (B, N), 1 -> uncond cam and text
+    # (B,), 1 -> the ControlNet's unconditional map
+    map_drop_mask: Optional[torch.Tensor] = None
 
 
 def make_drop_mask(generator: torch.Generator, batch: int, n_cam: int,
@@ -45,7 +47,12 @@ def make_drop_mask(generator: torch.Generator, batch: int, n_cam: int,
 
 def sample_draws(cfg: TrainConfig, schedule: NoiseSchedule, B: int, N: int,
                  latent_hw: Tuple[int, int], generator: torch.Generator,
-                 device=None) -> StepDraws:
+                 device=None, use_uncond_map: Optional[str] = None
+                 ) -> StepDraws:
+    """The draws of one step. With ``drop_cond_ratio`` > 0 the condition
+    drop mask, and where the ControlNet has ``use_uncond_map``, the map
+    drop: each sample's map becomes the unconditional map with probability
+    ``drop_cond_ratio`` (JAX ``train/train_step.py:90-100``)."""
     h, w = latent_hw
     vae_noise = torch.randn((B * N, 4, h, w), generator=generator,
                             device=device)
@@ -53,11 +60,14 @@ def sample_draws(cfg: TrainConfig, schedule: NoiseSchedule, B: int, N: int,
                               device)
     noise = ddpm.noise_with_offset(generator, (B, N, 4, h, w),
                                    cfg.noise_offset, device)
-    drop = None
+    drop = map_drop = None
     if cfg.drop_cond_ratio > 0:
         drop = make_drop_mask(generator, B, N, cfg.drop_cond_ratio,
                               cfg.drop_cam_num, device)
-    return StepDraws(vae_noise, noise, t, drop)
+        if use_uncond_map:
+            map_drop = (torch.rand((B,), generator=generator, device=device)
+                        < cfg.drop_cond_ratio).float()
+    return StepDraws(vae_noise, noise, t, drop, map_drop)
 
 
 def batch_tensors(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -90,7 +100,8 @@ def loss_fn(modules, batch: Mapping[str, torch.Tensor], draws: StepDraws,
         noisy, t, batch["camera_param"], text,
         batch["bev_map"].permute(0, 3, 1, 2), batch["bboxes"],
         batch["classes"], batch["masks"],
-        encoder_hidden_states_uncond=uncond_text, drop_mask=draws.drop_mask)
+        encoder_hidden_states_uncond=uncond_text, drop_mask=draws.drop_mask,
+        map_drop_mask=draws.map_drop_mask)
     eps = m.unet(noisy.reshape(B * N, *noisy.shape[2:]), t_full.reshape(-1),
                  tokens.reshape(B * N, *tokens.shape[2:]),
                  down_block_additional_residuals=down,
@@ -131,6 +142,7 @@ def train_step(modules, state: TrainState, batch: Mapping[str, Any],
         B, N, H, W = batch["pixel_values"].shape[:4]
         f = 2 ** (len(modules.vae.cfg.block_out_channels) - 1)
         draws = sample_draws(cfg, schedule, B, N, (H // f, W // f),
-                             generator, device)
+                             generator, device,
+                             modules.controlnet.cfg.use_uncond_map)
     loss, grads = loss_and_grads(modules, state, batch, draws, cfg, schedule)
     return {"loss": loss, "grad_norm": state.apply_gradients(grads)}

@@ -95,7 +95,7 @@ def test_presets_match_jax():
 
     for name in ("sd15mv_rawbox_224x400", "sd15mv_rawbox_272x736",
                  "sd15mv_rawbox_424x800", "sd15mv_rawbox_video_16f",
-                 "tiny_debug", "tiny_video_debug"):
+                 "tiny_debug", "tiny_video_debug", "small_parity"):
         j, t = getattr(jp, name)(), getattr(tp, name)()
         for part in ("unet", "vae", "clip"):
             jc, tc = getattr(j, part), getattr(t, part)

@@ -218,7 +218,8 @@ def test_chip_smoke_imports_only_the_port():
 def test_port_imports_no_jax():
     """A process that imports the port (its training modules, the
     given-view and video pipelines, the config loader, the nuScenes data
-    path, the viz, the run weights and the generation CLI included), makes
+    path, the viz, the run weights, the weight converter, the loader, the
+    demo fixtures, the FID layer and every CLI included), makes
     a request batch, runs a tiny forward and the backward of a transformer
     block through the kernels' autograd and a temporal block's forward
     never loads jax, flax or the JAX package."""
@@ -227,8 +228,13 @@ def test_port_imports_no_jax():
         import torch
         import magicdrive_tpu_torch
         from magicdrive_tpu_torch import config_loader, viz
-        from magicdrive_tpu_torch.cli import generate
+        from magicdrive_tpu_torch import torch_weights
+        from magicdrive_tpu_torch.cli import (convert_weights, demo, fid,
+                                              generate, interactive,
+                                              prepare_data, val_set_gen)
         from magicdrive_tpu_torch.config import tiny_debug
+        from magicdrive_tpu_torch.data import loader, torch_fixtures
+        from magicdrive_tpu_torch.eval import fid as eval_fid, inception
         from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
         from magicdrive_tpu_torch.core.transformer import (
             BasicTransformerBlock)
@@ -330,3 +336,67 @@ def test_generate_cli_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     assert "--run_dir" in proc.stdout
+
+
+def test_convert_and_fid_clis_import_no_jax():
+    """``cli.convert_weights`` (sd15 mode on an SD-v1.5 tree written from
+    the port's small_parity modules, the VAE under its old attention
+    names) and ``cli.fid`` (paths mode, random Inception weights, on the
+    CPU) run in a process that loads no jax, flax or JAX package module."""
+    code = textwrap.dedent("""
+        import os, runpy, sys, tempfile
+        import numpy as np, torch
+        from PIL import Image
+        from magicdrive_tpu_torch.cli import convert_weights, fid
+        from magicdrive_tpu_torch.config import small_parity
+        from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+        from magicdrive_tpu_torch.utils.serialization import load_params
+        torch.set_num_threads(1)
+        sys.argv = ["fid", "--help"]
+        try:
+            runpy.run_module("magicdrive_tpu_torch.cli.fid",
+                             run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        with tempfile.TemporaryDirectory() as tmp:
+            mods = MagicDriveModules.create(small_parity(), device="cpu")
+            old = {".to_q.": ".query.", ".to_out.0.": ".proj_attn."}
+            for part, mod, name in (
+                    ("unet", mods.unet, "diffusion_pytorch_model.bin"),
+                    ("vae", mods.vae, "diffusion_pytorch_model.bin"),
+                    ("text_encoder", mods.clip, "pytorch_model.bin")):
+                sd = {}
+                for k, v in mod.state_dict().items():
+                    for new, o in old.items():
+                        if part == "vae" and ".attentions." in k:
+                            k = k.replace(new, o)
+                    sd[k] = v
+                os.makedirs(os.path.join(tmp, "sd", part))
+                torch.save(sd, os.path.join(tmp, "sd", part, name))
+            out = convert_weights.main(["sd15", "--src", tmp + "/sd",
+                                        "--out", tmp + "/w", "--arch",
+                                        "small-test"])
+            w = load_params(out)
+            np.testing.assert_array_equal(
+                w["vae"]["params"]["encoder"]["conv_in"]["kernel"],
+                mods.vae.encoder.conv_in.weight.detach().numpy().transpose(
+                    2, 3, 1, 0))
+            for d in ("a", "b"):
+                os.makedirs(os.path.join(tmp, d))
+                for i in range(3):
+                    Image.fromarray(np.random.default_rng(i + ord(d)).integers(
+                        0, 255, (40, 60, 3), np.uint8)).save(
+                        os.path.join(tmp, d, f"{i}.png"))
+            assert np.isfinite(fid.main(["paths", tmp + "/a", tmp + "/b"],
+                                        device="cpu"))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "magicdrive_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert "tokens" in proc.stdout and "converted ->" in proc.stdout
