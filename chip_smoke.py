@@ -135,16 +135,45 @@ no result line):
      device-busy share (the kernels' summed device time over it), the 8
      kernels that take the most and the device time of K5, of K6, of the
      attention heads (K7 among them under "auto"), of the out-projection
-     and of the k/v projection in the step.
+     and of the k/v projection in the step;
+  9. the training entry point as users run it (run_train_cli, under
+     "kvstat", in a temporary directory with a synthetic nuScenes tree):
+     ``cli.train.main`` at full width on this script's seeded weights with
+     the recipe's batch (TRAIN_CLI_ARGS: B=3, 4 steps, a checkpoint every
+     2 with 1 kept, validation at step 4 on 2 samples, step 3 profiled),
+     gated on its launch counts (the derived ones for its steps and the
+     validator's forwards), the kept checkpoint, the two PNGs, K1 in the
+     profiler's trace, weights/ read by the generation loader equal to the
+     masters (trainable) and the weights as built (frozen), the frozen
+     weights as built; then phase 7's per-call check on one step of its
+     own batch (B=3) and on one guided step of its Validator; a second CLI
+     run resumed from its checkpoints to step 6, whose state before step 5
+     is the checkpoint's bitwise; ``cli.generate`` on the first run,
+     bitwise a pipeline on its masters and frozen weights; the TrainConfig
+     options at B=3, 2 steps each (8-bit AdamW with its moments' bytes,
+     gradient accumulation 2, the cosine schedule) and gradient
+     checkpointing ("dots" under both fused modes, K8 and its pair
+     recomputed under "auto", and None: loss and trainable gradient
+     against the same weights without it, the activation peaks, the
+     launches with the recompute; phase 7's check on a "dots" step in
+     each mode, the recompute's calls included); 16-frame video training
+     (96 images, remat "dots", 2 steps: the temporal weights move, the
+     frozen do not; phase 7's check on one more step); and, where h5py
+     imports, ``cli.prepare_cache`` and a training step on the cached maps
+     (bitwise the rasterized ones). Phase 7's comparisons run outside the
+     remat modes (``outside_remat``), so a checked step keeps what it
+     keeps unchecked.
+     The seconds of the build, each step, checkpoint write, validation and
+     export, and the peak memory are printed with the card.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
-path runs of phases 4-6 (the forced routes, the generation paths, the
-options, given-view, generation CLI, val-set, map-drop and video paths,
-and training) and
-"launches_by_path" gives each. The whole K6's rows (time, bound, library
-time) are logged on a line of their own before it. The last line is
-{"ok": true, "device": {...}}.
+path runs of phases 4-6 and 9 (the forced routes, the generation paths,
+the options, given-view, generation CLI, val-set, map-drop and video paths,
+training, and the training CLI's runs, its generation, the options, remat,
+video training and the cache step) and "launches_by_path" gives each. The
+whole K6's rows (time, bound, library time) are logged on a line of their
+own before it. The last line is {"ok": true, "device": {...}}.
 
 ``compare_trees(other)`` (not run by ``main``) times the REDESIGNED kernels
 (K1-K4, K7, K8 and the pair; K8's out-projection alone where the tree has
@@ -157,6 +186,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -204,11 +234,14 @@ def environment() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip()
     log(smi)
-    try:
-        import scipy
-        log(f"scipy {scipy.__version__} (FID's sqrtm)")
-    except ImportError:
-        log("scipy: not importable (FID's sqrtm needs it)")
+    for name, use in (("scipy", "FID's sqrtm"),
+                      ("h5py", "the BEV map cache"),
+                      ("tensorboard", "the trainer's tensorboard scalars")):
+        try:
+            mod = __import__(name)
+            log(f"{name} {mod.__version__} ({use})")
+        except ImportError:
+            log(f"{name}: not importable ({use} needs it)")
     torch.cuda.set_device(0)  # the autograd engine's thread finds it set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1220,7 +1253,7 @@ def _add_calls(n, route, pair: bool, forwards: int) -> None:
 
 
 def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
-                      esize: int = 2):
+                      esize: int = 2, recompute: bool = False):
     """Kernel launches (``dispatch.LAUNCHES``' keys) of ``forwards`` guided
     ControlNet+UNet evaluations and ``steps`` train steps under the fused
     ``mode``, derived from the block structure and the routing rules: per
@@ -1234,25 +1267,32 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     call or branch of a K8 whose Wout trains (the ControlNet's and
     attn4's). The only attention without a backward is attn1 of the UNet's
     first transformer, whose input comes from frozen weights alone (the
-    trainable tokens enter at its attn2)."""
+    trainable tokens enter at its attn2). With ``recompute`` (gradient
+    checkpointing) every transformer sits in a remat unit (the UNet's
+    down, mid and up blocks, the ControlNet's down and mid blocks), whose
+    forward runs again in the backward: each forward kernel call of a
+    train step launches twice, that attn1 included; the backward's K5, K6
+    and K7 do not change."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     n = dict.fromkeys(dispatch.LAUNCHES, 0)
+    calls = forwards + steps * (2 if recompute else 1)
     ctx = 1 + 77 + preset.bbox_max_len
     ctx_dim = preset.unet.cross_attention_dim
     with dispatch.fused_mode(mode):
         for unet, j, L, C, D in _transformers(preset):
-            calls = [(dispatch.attention_route(L, L, C, D, esize), False,
-                      unet and j == 0),
-                     (dispatch.attention_route(L, ctx, max(C, ctx_dim), D,
-                                               esize), False, False)]
+            attentions = [
+                (dispatch.attention_route(L, L, C, D, esize), False,
+                 unet and j == 0),
+                (dispatch.attention_route(L, ctx, max(C, ctx_dim), D, esize),
+                 False, False)]
             if unet:
-                calls.append((dispatch.pair_route(L, C, D, esize), True,
-                              False))
-            for route, pair, no_backward in calls:
+                attentions.append((dispatch.pair_route(L, C, D, esize), True,
+                                   False))
+            for route, pair, no_backward in attentions:
                 if route is None:
                     continue
-                _add_calls(n, route, pair, forwards + steps)
+                _add_calls(n, route, pair, calls)
                 if no_backward:
                     continue
                 branches = 2 if pair else 1
@@ -1264,7 +1304,7 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
                     n["fused_qkv_attention"] += steps * branches
             ff = "fused_ff" if dispatch.ff_full_fusion_fits(
                 C, 4 * C, C, esize) else "fused_geglu"
-            n[ff] += forwards + steps
+            n[ff] += calls
     return n
 
 
@@ -1333,6 +1373,21 @@ def run_slice(preset, pipe, batches, mode):
     return launches, seconds
 
 
+def outside_remat(fn):
+    """``fn`` run with the active dispatch modes set aside: in a remat unit
+    under a selective policy ("dots") those keep the output of every matrix
+    product until the backward, and a plain version's fp32 logits are not
+    the path's to keep (the 16-frame video's would not fit the card). The
+    recompute then runs ``fn`` again instead of replaying it."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    @functools.wraps(fn)
+    def call(*args):
+        with _disable_current_modes():
+            return fn(*args)
+    return call
+
+
 def _call_checker(stats, bf16_floor: bool = False):
     """``make`` for ``patched_kernels``: each call runs the kernel, then
     the plain version in fp32 on the same inputs, and raises if an output
@@ -1341,10 +1396,17 @@ def _call_checker(stats, bf16_floor: bool = False):
     it shares with the JAX kernels: the kernel must be within KERNEL_TOL of
     that, and within KERNEL_TOL of fp32 or no farther from fp32 than that
     plain bf16 version is (GRAD_TOL's rule for the forward: the kernel then
-    adds nothing to what its bf16 casts cost)."""
+    adds nothing to what its bf16 casts cost). The comparison runs
+    ``outside_remat``, so a checkpointed path keeps what it would keep
+    unchecked."""
     def make(name, kern, plain):
         def call(*args):
             out = kern(*args)
+            check(name, args, out)
+            return out
+
+        @outside_remat
+        def check(name, args, out):
             ref = plain(*map(_f32, args))
             err, scale = _worst(out, ref)
             rel, limit = err / max(scale, 1e-30), KERNEL_TOL
@@ -1366,7 +1428,6 @@ def _call_checker(stats, bf16_floor: bool = False):
                     f"{name} on the path, input {tuple(args[0].shape)}: max "
                     f"abs err {err:.3e} = {rel:.3e} * max|ref| > "
                     f"{limit:.3e}")
-            return out
         return call
     return make
 
@@ -1393,11 +1454,11 @@ def _step_inputs(pipe, batch):
     return x, int(pipe.coeffs.timesteps[0]), pipe.conditioning(batch)
 
 
-def check_path_calls(preset, pipe, batch, mode,
-                     bf16_floor: bool = False) -> None:
+def check_path_calls(preset, pipe, batch, mode, bf16_floor: bool = False,
+                     what: str = "") -> None:
     """Every kernel call of one guided step against its plain version in
     fp32 on the inputs the path gave it (``bf16_floor``: see
-    ``_call_checker``)."""
+    ``_call_checker``); ``what`` names the path in the log."""
     x, t, cond = _step_inputs(pipe, batch)
     # kernel -> [calls, worst max|err| / max|ref|], with bf16_floor then the
     # worst against the plain bf16 version and the plain bf16's own
@@ -1405,7 +1466,8 @@ def check_path_calls(preset, pipe, batch, mode,
     names = path_calls(preset, mode)
     with patched_kernels(_call_checker(stats, bf16_floor), names):
         pipe.guided_eps(x, t, cond)
-    _report_calls(f"one guided step of {preset.name} ({mode})", stats, names)
+    _report_calls(f"one guided step of {what or preset.name} ({mode})",
+                  stats, names)
 
 
 # What the profiled steps sum by kernel name: each part is the name of a
@@ -2405,6 +2467,9 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
     """``steps`` optimizer steps through the port's Runner, one at a time,
     with the checks of the training slice; returns the set-up, the launch
     counts and the run's numbers."""
+    from magicdrive_tpu_torch.cli.train import CONFIG_DIR
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.data import make_dataset
     from magicdrive_tpu_torch.kernels import dispatch
     from magicdrive_tpu_torch.train import Runner
 
@@ -2415,12 +2480,18 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
     dispatch.reset_launches()
     seconds = []
     with tempfile.TemporaryDirectory() as run_dir:
-        # every step logged, so each loss is checked whatever ``steps`` is
-        runner = Runner(modules, cfg, run_dir, checkpointing_steps=None,
-                        log_every=1)
+        # the recipe with the state's one-step warm-up, no checkpoint and
+        # no validation in these steps; steps 1-3 are logged, so each loss
+        # is checked for steps <= 3
+        runner = Runner(compose(CONFIG_DIR, overrides=[
+            "exp=224x400", "runner.lr_warmup_steps=1",
+            "runner.checkpointing_steps=100000"]), preset, modules,
+            make_dataset(batch_size), run_dir=run_dir)
+        if runner.tcfg != cfg:
+            raise AssertionError(f"{runner.tcfg} != {cfg}")
         for i in range(steps):
             t0 = time.perf_counter()
-            runner.run(state, [batch], resume=False)
+            runner.train(state, [batch])
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             if i == 0 and any(not torch.equal(state.masters[k], t)
@@ -2477,10 +2548,13 @@ def check_drop_all(setup) -> None:
         raise AssertionError(f"drop-all step loss {loss}")
 
 
-def check_training_calls(setup, mode) -> None:
-    """In one training step, every kernel call (forward and backward)
-    against its plain version in fp32 on the inputs the path gave it; then
-    the ControlNet gradient through the kernels against the one through the
+def check_training_calls(setup, mode, what: str = "one training step"
+                         ) -> None:
+    """In one training step of ``setup`` (modules, TrainConfig, state,
+    batch: the path's own), every kernel call (forward, recompute and
+    backward) against its plain version in fp32 on the inputs the path
+    gave it; then the ControlNet gradient (and the temporal modules', where
+    the model has them) through the kernels against the one through the
     plain versions, as a smoke test."""
     from magicdrive_tpu_torch.diffusion import NoiseSchedule
     from magicdrive_tpu_torch.train.train_step import (batch_tensors,
@@ -2495,17 +2569,638 @@ def check_training_calls(setup, mode) -> None:
     with patched_kernels(_call_checker(stats), names):
         loss_k, grads_k = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
-    _report_calls(f"one training step ({mode})", stats, names)
-    with patched_kernels(lambda name, kern, plain: plain, names):
+    _report_calls(f"{what} ({mode})", stats, names)
+    with patched_kernels(lambda name, kern, plain: outside_remat(plain),
+                         names):
         loss_p, grads_p = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
-    keys = [k for k in grads_k if k.startswith("controlnet.")]
-    gk = torch.cat([grads_k[k].flatten() for k in keys])
-    gp = torch.cat([grads_p[k].flatten() for k in keys])
-    rel = ((gk - gp).norm() / gp.norm()).item()
-    log(f"training step ({mode}), kernels vs plain versions: loss "
-        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; ControlNet gradient "
-        f"relative L2 {rel:.3e} (a smoke test, not a gate)")
+    rels = {}
+    for group, of in (("ControlNet", lambda k: k.startswith("controlnet.")),
+                      ("temporal", lambda k: "_temp" in k)):
+        keys = [k for k in grads_k if of(k)]
+        if keys:
+            gk = torch.cat([grads_k[k].flatten() for k in keys])
+            gp = torch.cat([grads_p[k].flatten() for k in keys])
+            rels[group] = f"{((gk - gp).norm() / gp.norm()).item():.3e}"
+    log(f"{what} ({mode}), kernels vs plain versions: loss "
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; gradient relative L2 "
+        f"{rels} (a smoke test, not a gate)")
+
+
+# ---------------------------------------------------------------------------
+# the training CLI and the training options
+# ---------------------------------------------------------------------------
+
+# run 1 of run_train_cli: the recipe's batch, 4 steps, a checkpoint every 2
+# (1 kept), validation at step 4 on 2 samples, step 3 profiled (the window
+# opens after step 2 and closes after step 3)
+TRAIN_CLI_ARGS = ("exp=224x400", "runner=debug", "runner.train_batch_size=3",
+                  "runner.max_train_steps=4", "runner.checkpointing_steps=2",
+                  "runner.checkpoints_total_limit=1",
+                  "runner.validation_steps=4", "runner.validation_index=[0,1]",
+                  "runner.validation_before_run=false",
+                  "+runner.profile_steps=[2,3]")
+OPTION_BATCH = 3  # the recipe's
+FRAMES = 16       # video training: one clip of 16 frames, 96 images
+
+
+@contextlib.contextmanager
+def timed_calls(owners):
+    """{label: [seconds, ...]} of every call, to a sync, of the functions
+    ``owners`` ({label: (object, attribute name)}) in the block."""
+    seconds = {label: [] for label in owners}
+    saved = {label: getattr(o, n) for label, (o, n) in owners.items()}
+
+    def wrap(label, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[label].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    try:
+        for label, (o, n) in owners.items():
+            setattr(o, n, wrap(label, saved[label]))
+        yield seconds
+    finally:
+        for label, (o, n) in owners.items():
+            setattr(o, n, saved[label])
+
+
+@contextlib.contextmanager
+def seeded_cli_modules(frozen_out: dict):
+    """``cli.train``'s modules on this script's seeded weights (as
+    ``set_up``'s); ``frozen_out`` gets their frozen tensors as built."""
+    from magicdrive_tpu_torch.cli import train as train_cli
+
+    real = train_cli.build_modules
+
+    def build(preset, device):
+        modules = real(preset, device)
+        init_weights(modules, seed=0)
+        frozen_out.update(_frozen(modules))
+        return modules
+
+    train_cli.build_modules = build
+    try:
+        yield
+    finally:
+        train_cli.build_modules = real
+
+
+def _state_equals(state, sd) -> list:
+    """The keys of ``state.state_dict()`` that differ from ``sd`` (a loaded
+    checkpoint), tensors bitwise."""
+    bad = []
+
+    def walk(a, b, key):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                bad.append(key)
+            for k in a:
+                if k in b:
+                    walk(a[k], b[k], f"{key}/{k}")
+        elif isinstance(a, (tuple, list)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{key}/{i}")
+        elif torch.is_tensor(a):
+            if not torch.equal(a.cpu(), b.cpu()):
+                bad.append(key)
+        elif a != b:
+            bad.append(key)
+
+    walk(state.state_dict(), sd, "")
+    return bad
+
+
+def _train_cli(argv, frozen):
+    from magicdrive_tpu_torch.cli import train as train_cli
+    from magicdrive_tpu_torch.train import runner as runner_mod
+
+    with seeded_cli_modules(frozen), timed_calls({
+            "build": (train_cli, "build_modules"),
+            "step": (runner_mod, "train_step"),
+            "checkpoint": (runner_mod.Runner, "save"),
+            "validation": (runner_mod.Validator, "validate"),
+            "export": (runner_mod.Runner, "save_deployable")}) as seconds:
+        t0 = time.perf_counter()
+        run = train_cli.main(argv)
+        seconds["main"] = [time.perf_counter() - t0]
+    return run, seconds
+
+
+def _check_cli_run(what, run, preset, frozen, card, seconds,
+                   logged) -> None:
+    """The frozen weights as built (in the run's dtype); ``weights/``, read
+    by the generation loader into new modules, the masters (trainable, cast
+    as the loader casts) and the weights as built (frozen), each tensor by
+    its state_dict name; the losses of the steps ``logged`` (the runner
+    logs steps 1-3 and every 10th) in metrics.jsonl and finite (the
+    runner's guard raises on any other step's); prints the run's times and
+    peak memory."""
+    from magicdrive_tpu_torch.cli.generate import load_pipeline
+
+    peak = torch.cuda.max_memory_allocated()
+    modules, masters = run.runner.modules, run.state.masters
+    changed = [k for k, t in _frozen(modules).items()
+               if not torch.equal(t, frozen[k].to(t.dtype))]
+    if changed:
+        raise AssertionError(f"{what}: frozen weights changed: "
+                             f"{changed[:5]}")
+    pipe = load_pipeline(preset, os.path.join(run.run_dir, "weights"),
+                         "cuda", torch.bfloat16)
+    loaded = {f"{n}.{k}": t for n, m in pipe.m.items()
+              for k, t in m.state_dict().items()}
+    del pipe
+    if set(loaded) != set(masters) | set(frozen) or set(masters) & set(
+            frozen):
+        raise AssertionError(f"{what}: weights/ loads "
+                             f"{len(loaded)} tensors, not the "
+                             f"{len(masters)} masters and {len(frozen)} "
+                             f"frozen ones")
+    bad = [k for k, t in loaded.items() if not torch.equal(
+        t, (masters[k] if k in masters else frozen[k]).to(t.dtype))]
+    if bad:
+        raise AssertionError(f"{what}: weights/ differs from the masters "
+                             f"or the weights as built: {bad[:5]}")
+    del loaded
+    with open(os.path.join(run.run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = {r["step"]: r["loss"] for r in records}
+    if list(losses) != list(logged) or \
+            not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"{what}: losses {losses}")
+    size = os.path.getsize(os.path.join(run.run_dir, "weights",
+                                        "params.npz"))
+    log(f"{what}: logged losses {losses}; weights/ {size / 2**30:.3f} GiB, "
+        f"loaded by cli.generate's loader: {len(masters)} tensors the "
+        f"masters' and {len(frozen)} the weights as built, bitwise in bf16; "
+        f"frozen weights bitwise as built; seconds: {json.dumps(seconds)}; "
+        f"peak memory {peak / 2**30:.2f} GiB ({card})")
+
+
+def run_cli_training(by_path, timing, card: str, tmp: str, root: str,
+                     version: str) -> None:
+    """Run 1 (TRAIN_CLI_ARGS), its resume to step 6, and ``cli.generate``
+    on run 1's weights; see ``run_train_cli``."""
+    from PIL import Image
+
+    from magicdrive_tpu_torch.cli import generate
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
+                                                        MagicDrivePipeline)
+    from magicdrive_tpu_torch.train import runner as runner_mod
+
+    data = [f"dataset.dataset_root={root}", f"dataset.version={version}"]
+    cfg = compose(generate.CONFIG_DIR, overrides=[*TRAIN_CLI_ARGS, *data])
+    preset = preset_from_config(cfg)
+    rc = cfg["runner"]
+    val_forwards = rc["validation_times"] * \
+        rc["pipeline_param"]["num_inference_steps"]
+
+    frozen, batches = {}, []
+    real_step = runner_mod.train_step
+
+    def step(modules, state, batch, *args, **kwargs):
+        batches.append(batch)  # the step's own batch, checked below
+        return real_step(modules, state, batch, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    runner_mod.train_step = step
+    try:
+        with dispatch.fused_mode("kvstat"):
+            run1, seconds = _train_cli(
+                [*TRAIN_CLI_ARGS, *data, f"log_root_prefix={tmp}/run1"],
+                frozen)
+    finally:
+        runner_mod.train_step = real_step
+    by_path["train_cli"] = _check_launches(
+        "training CLI run 1 (kvstat)", expected_launches(
+            preset, "kvstat", forwards=val_forwards, steps=4))
+    timing["s/step train CLI (B=3)"] = seconds["step"]
+    _check_cli_run("training CLI run 1", run1, preset, frozen, card, seconds,
+                   logged=[1, 2, 3])
+    validator = run1.runner.validator
+    with dispatch.fused_mode("kvstat"):
+        check_training_calls(
+            (run1.runner.modules, run1.runner.tcfg, run1.state, batches[0]),
+            "kvstat", f"a training CLI step (B={len(batches[0]['input_ids'])}"
+            f", step 1's batch, step 4's weights)")
+        check_path_calls(preset, validator.pipe, validator.batch()[0],
+                         "kvstat", what="the training CLI's Validator")
+    del batches, validator
+    ckpts = sorted(os.listdir(os.path.join(run1.run_dir, "checkpoints")))
+    if ckpts != ["step_00000004.pt"]:
+        raise AssertionError(f"run 1 keeps {ckpts}, not step 4 alone")
+    ckpt = os.path.join(run1.run_dir, "checkpoints", ckpts[0])
+    log(f"checkpoint at step 4: {os.path.getsize(ckpt) / 2**30:.3f} GiB")
+    pngs = sorted(os.listdir(os.path.join(run1.run_dir, "val_images")))
+    H, W = preset.image_size
+    if pngs != ["step4_idx0_0.png", "step4_idx1_0.png"] or any(
+            np.asarray(Image.open(os.path.join(
+                run1.run_dir, "val_images", f))).shape != (2 * H, 6 * W, 3)
+            for f in pngs):
+        raise AssertionError(f"val_images {pngs}")
+    traces = os.listdir(os.path.join(run1.run_dir, "profile"))
+    with open(os.path.join(run1.run_dir, "profile", traces[0])) as f:
+        trace = f.read()
+    if "kvstat_kernel" not in trace:
+        raise AssertionError(f"the trace {traces} holds no K1 launch")
+    log(f"profile: {traces}, {len(trace)} bytes, K1's kernel in it")
+    masters1 = {k: t.clone() for k, t in run1.state.masters.items()}
+    run_dir = run1.run_dir
+    del run1
+    torch.cuda.empty_cache()
+
+    # resume: the state before step 5 is the checkpoint's, bitwise
+    real_train = runner_mod.Runner.train
+    entry = {}
+
+    def train(self, state, batches, epoch=0):
+        if not entry:
+            sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+            entry["differs"] = _state_equals(state, sd)
+            entry["step"] = state.step
+        return real_train(self, state, batches, epoch)
+
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    runner_mod.Runner.train = train
+    try:
+        with dispatch.fused_mode("kvstat"):
+            run2, seconds = _train_cli(
+                [*TRAIN_CLI_ARGS, *data, f"log_root_prefix={tmp}/run2",
+                 f"resume_from_checkpoint={os.path.dirname(ckpt)}",
+                 "runner.max_train_steps=6",
+                 "runner.validation_before_run=true"], frozen)
+    finally:
+        runner_mod.Runner.train = real_train
+    if entry.get("step") != 4 or entry["differs"]:
+        raise AssertionError(f"the resumed state before step 5: {entry}")
+    by_path["train_cli_resume"] = _check_launches(
+        "training CLI resume (kvstat)", expected_launches(
+            preset, "kvstat", forwards=val_forwards, steps=2))
+    if run2.state.step != 6:
+        raise AssertionError(f"the resumed run ended at {run2.state.step}")
+    moved = sum(not torch.equal(run2.state.masters[k], t)
+                for k, t in masters1.items())
+    log(f"resume: the state before step 5 is the step-4 checkpoint's "
+        f"bitwise (step, masters, moments, counts); steps 5-6 moved "
+        f"{moved} of {len(masters1)} trainable tensors")
+    if moved < 0.9 * len(masters1):
+        raise AssertionError("steps 5-6 did not train")
+    _check_cli_run("training CLI resume", run2, preset, frozen, card,
+                   seconds, logged=[])
+    shutil.rmtree(run2.run_dir)
+    del run2
+    torch.cuda.empty_cache()
+
+    # generation from run 1's weights, against a pipeline on run 1's masters
+    # and the weights as built, which never went through weights/
+    dispatch.reset_launches()
+    with dispatch.fused_mode("kvstat"):
+        made = generate.main(["--run_dir", run_dir, "--indices", "0"])
+        by_path["train_cli_generate"] = _check_launches(
+            "generate from the trained run (kvstat)", expected_launches(
+                preset, "kvstat",
+                forwards=rc["pipeline_param"]["num_inference_steps"]))
+        modules = MagicDriveModules.create(preset, device="cuda")
+        sds = {n: {} for n, _ in modules.items()}
+        for key, t in {**frozen, **masters1}.items():
+            n, k = key.split(".", 1)
+            sds[n][k] = t
+        del masters1
+        direct = MagicDrivePipeline(
+            modules.load_state_dicts(sds).to("cuda", torch.bfloat16),
+            preset.pipeline)
+        got = direct(made.batch, latents=made.latents[0]).cpu()
+    same = torch.equal(got, torch.from_numpy(made.images[0]))
+    log(f"generate from the trained run: {made.seconds} s, images bitwise "
+        f"those of a pipeline on run 1's masters and frozen weights: {same}")
+    if not same:
+        raise AssertionError("cli.generate on the trained run differs from "
+                             "a pipeline on its masters")
+    del made, direct, modules, sds
+    shutil.rmtree(run_dir)
+    torch.cuda.empty_cache()
+
+
+def _option_steps(what, modules, cfg, batch, preset, by_path, recompute=False,
+                  steps: int = 2):
+    """``steps`` train steps at ``cfg`` from a new state of ``modules``,
+    their launches counted; -> (state, masters after each step, losses,
+    seconds, peak bytes)."""
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import create_train_state, train_step
+
+    state = create_train_state(modules, cfg)
+    masters = [{k: t.clone() for k, t in state.masters.items()}]
+    losses, seconds = [], []
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with dispatch.fused_mode("kvstat"):
+        for i in range(steps):
+            gen = torch.Generator("cuda").manual_seed(100 + i)
+            metrics, s = _timed(lambda: train_step(modules, state, batch, cfg,
+                                                   generator=gen))
+            losses.append(float(metrics["loss"]))
+            seconds.append(s)
+            masters.append({k: t.clone() for k, t in state.masters.items()})
+    by_path[what] = _check_launches(f"{what} (kvstat)", expected_launches(
+        preset, "kvstat", steps=steps, recompute=recompute))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return state, masters, losses, seconds, torch.cuda.max_memory_allocated()
+
+
+def _moved(a, b, keys=None) -> int:
+    return sum(not torch.equal(a[k], b[k]) for k in (keys or a))
+
+
+def run_train_options(by_path, timing, card: str) -> None:
+    """The TrainConfig options at full width, OPTION_BATCH samples, 2 steps
+    each; see ``run_train_cli``."""
+    import dataclasses
+
+    from magicdrive_tpu_torch.config import (sd15mv_rawbox_224x400,
+                                             sd15mv_rawbox_video_16f)
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset, make_sample)
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+    from magicdrive_tpu_torch.train.train_step import (batch_tensors,
+                                                       loss_and_grads)
+
+    preset = sd15mv_rawbox_224x400()
+    modules = _new_modules(preset)
+    batch = collate_fn([make_sample(i, with_images=True)
+                        for i in range(OPTION_BATCH)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    base = TrainConfig(lr_warmup_steps=0)
+
+    state, masters, losses, s, _ = _option_steps(
+        "train_8bit", modules, dataclasses.replace(base, use_8bit_adam=True),
+        batch, preset, by_path)
+    sd = state.opt.state_dict()
+    q_bytes = sum(t.numel() * t.element_size() for m in ("mu", "nu")
+                  for qs in sd[m].values() for t in qs.values())
+    n = sum(t.numel() for t in state.masters.values())
+    moved = _moved(masters[0], masters[2])
+    log(f"8-bit AdamW: moments {q_bytes} bytes ({q_bytes / n:.4f} per "
+        f"parameter) against fp32 AdamW's {8 * n} (8 per parameter) over "
+        f"{n} trainable parameters; losses {losses}, s/step {s}; {moved} "
+        f"of {len(masters[0])} trainable tensors moved ({card})")
+    if moved < 0.9 * len(masters[0]):
+        raise AssertionError("8-bit AdamW: the masters did not move")
+    del state, masters
+
+    state, masters, losses, s, _ = _option_steps(
+        "train_accumulation", modules,
+        dataclasses.replace(base, gradient_accumulation_steps=2), batch,
+        preset, by_path)
+    m1, m2 = _moved(masters[0], masters[1]), _moved(masters[0], masters[2])
+    log(f"gradient accumulation 2: {m1} tensors moved after micro-step 1, "
+        f"{m2} after 2; losses {losses}")
+    if m1 or m2 < 0.9 * len(masters[0]):
+        raise AssertionError("gradient accumulation: the masters moved "
+                             f"{m1} / {m2}")
+    del state, masters
+
+    state, masters, losses, s, _ = _option_steps(
+        "train_cosine", modules,
+        dataclasses.replace(base, lr_schedule="cosine", lr_warmup_steps=1,
+                            max_train_steps=2), batch, preset, by_path)
+    m1, m2 = _moved(masters[0], masters[1]), _moved(masters[0], masters[2])
+    log(f"cosine schedule (warm-up 1 of 2 steps): {m1} tensors moved at "
+        f"lr 0, {m2} after the peak step; losses {losses}")
+    if m1 or m2 < 0.9 * len(masters[0]):
+        raise AssertionError(f"cosine: moved {m1} / {m2}")
+    del state, masters
+    torch.cuda.empty_cache()
+
+    # gradient checkpointing: the same weights (seed 0) built with and
+    # without remat (the options above moved ``modules``)
+    del modules
+    modules = _new_modules(preset)
+    schedule = NoiseSchedule.create()
+    tensors = batch_tensors(batch, "cuda")
+    draws = _fixed_draws(base, batch, 12)
+
+    def grads_of(mods, recompute, mode):
+        st = create_train_state(mods, base)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        sec = []
+        with dispatch.fused_mode(mode):
+            for _ in range(2):  # the first call cold
+                grads = None
+                (loss, grads), s = _timed(lambda: loss_and_grads(
+                    mods, st, tensors, draws, base, schedule))
+                sec.append(s)
+        label = f"train_{'remat_' + str(policy) if recompute else 'plain'}" \
+            f"_{mode}"
+        by_path[label] = _check_launches(label, expected_launches(
+            preset, mode, steps=2, recompute=recompute))
+        peak = torch.cuda.max_memory_allocated() - before
+        flat = torch.cat([g.flatten() for g in grads.values()])
+        del st, grads
+        return float(loss), flat, sec, peak
+
+    # without remat in both fused modes, then "dots" in both (its recompute
+    # under "auto" runs K8 and its pair again) and None under "kvstat"
+    policy = None
+    plain = {mode: grads_of(modules, False, mode)
+             for mode in dispatch.FUSED_MODES}
+    for policy, modes in (("dots", dispatch.FUSED_MODES), (None, ("kvstat",))):
+        p = dataclasses.replace(preset, unet=dataclasses.replace(
+            preset.unet, gradient_checkpointing=True, remat_policy=policy))
+        p = dataclasses.replace(p, controlnet=dataclasses.replace(
+            p.controlnet, unet=dataclasses.replace(
+                p.controlnet.unet, gradient_checkpointing=True,
+                remat_policy=policy)))
+        remat_modules = _new_modules(p)
+        for mode in modes:
+            loss0, g0, sec0, peak0 = plain[mode]
+            loss, g, sec, peak = grads_of(remat_modules, True, mode)
+            rel = ((g - g0).norm() / g0.norm()).item()
+            log(f"gradient checkpointing ({policy}, {mode}): loss "
+                f"{loss:.6f} against {loss0:.6f} without (relative "
+                f"{abs(loss - loss0) / loss0:.3e}, limit 1e-3); trainable "
+                f"gradient relative L2 {rel:.3e} (limit {EPS_TOL}); the "
+                f"step's activation peak {peak / 2**30:.2f} GiB against "
+                f"{peak0 / 2**30:.2f} without; seconds (cold, warm) {sec} "
+                f"against {sec0} ({card})")
+            if abs(loss - loss0) > 1e-3 * abs(loss0) or not rel <= EPS_TOL:
+                raise AssertionError(f"gradient checkpointing ({policy}, "
+                                     f"{mode}) changed the step")
+            del g
+            if policy == "dots":  # the recompute's kernel calls checked
+                with dispatch.fused_mode(mode):
+                    check_training_calls(
+                        (remat_modules, base,
+                         create_train_state(remat_modules, base), batch),
+                        mode, f'a remat "dots" step (B={OPTION_BATCH})')
+        del remat_modules
+        torch.cuda.empty_cache()
+    del modules, plain, tensors
+    torch.cuda.empty_cache()
+
+    # video training: one 16-frame clip, remat "dots"
+    vp = sd15mv_rawbox_video_16f()
+    vp = dataclasses.replace(vp, unet=dataclasses.replace(
+        vp.unet, gradient_checkpointing=True, remat_policy="dots"))
+    vp = dataclasses.replace(vp, controlnet=dataclasses.replace(
+        vp.controlnet, unet=dataclasses.replace(
+            vp.controlnet.unet, gradient_checkpointing=True,
+            remat_policy="dots")))
+    vmodules = _new_modules(vp)
+    clip = collate_fn(make_dataset(FRAMES, image_hw=vp.image_size,
+                                   map_hw=vp.map_hw, with_images=True),
+                      CollateConfig(bbox_max_len=vp.bbox_max_len))
+    frozen = _frozen(vmodules)
+    vcfg = dataclasses.replace(base, frames_per_clip=FRAMES)
+    state, masters, losses, s, peak = _option_steps(
+        "train_video_16f", vmodules, vcfg, clip, vp, by_path,
+        recompute=True)
+    temp = [k for k in masters[0] if "_temp" in k]
+    moved = _moved(masters[0], masters[2], temp)
+    changed = [k for k, t in _frozen(vmodules).items()
+               if not torch.equal(t, frozen[k].to(t.dtype))]
+    timing["s/step video 16f training"] = s
+    log(f"video training ({FRAMES} frames x 6 views, remat dots): losses "
+        f"{losses}, s/step {s} (the first cold), peak memory "
+        f"{peak / 2**30:.2f} GiB; {moved} of {len(temp)} temporal tensors "
+        f"moved; frozen changed: {len(changed)} ({card})")
+    if not temp or moved < 0.9 * len(temp) or changed:
+        raise AssertionError(f"video training: temporal moved {moved} of "
+                             f"{len(temp)}, frozen changed {changed[:5]}")
+    del masters, frozen
+    with dispatch.fused_mode("kvstat"):
+        check_training_calls((vmodules, vcfg, state, clip), "kvstat",
+                             f"a {FRAMES}-frame video training step "
+                             f'({FRAMES * 6} images, remat "dots")')
+    del vmodules, state
+    torch.cuda.empty_cache()
+
+
+def run_cache(by_path, card: str, tmp: str, root: str, version: str) -> None:
+    """``cli.prepare_cache`` on the tree, then a dataset on the cache: its
+    maps bitwise the rasterized ones, and one full-width training step on a
+    batch of it; where h5py does not import, logged and skipped (host
+    code: no kernel and no device work hides behind it)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("cache: h5py does not import here; cli.prepare_cache and the "
+            "cached dataset were not run")
+        return
+    from magicdrive_tpu_torch.cli import prepare_cache
+    from magicdrive_tpu_torch.cli.generate import CONFIG_DIR
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.data import CollateConfig
+    from magicdrive_tpu_torch.data.datasets import build_datasets
+    from magicdrive_tpu_torch.data.loader import DataLoader
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import (create_train_state, runner,
+                                            train_step)
+
+    path = os.path.join(tmp, "cache.h5")
+    _, sec = _timed(lambda: prepare_cache.main([
+        "--dataroot", root, "--version", version, "--out", path,
+        "--workers", "2"]))
+    data = ["exp=224x400", f"dataset.dataset_root={root}",
+            f"dataset.version={version}"]
+    cfg = compose(CONFIG_DIR, overrides=data)
+    cached = build_datasets(compose(CONFIG_DIR, overrides=[
+        *data, f"dataset.cache_file.train={path}"]))[0]
+    rastered = build_datasets(cfg)[0]
+    same = [np.array_equal(cached[i]["bev_map"], rastered[i]["bev_map"])
+            for i in range(len(rastered))]
+    tcfg = runner.train_config_from_cfg(cfg["runner"])
+    ccfg = CollateConfig(bbox_max_len=cfg["runner"]["bbox_max_length"])
+    batches = [next(iter(DataLoader(ds, 3, ccfg))) for ds in (cached,
+                                                              rastered)]
+    same_batch = np.array_equal(batches[0]["bev_map"],
+                                batches[1]["bev_map"])
+    log(f"cache: {os.path.getsize(path)} bytes for {len(rastered)} frames, "
+        f"written in {sec:.2f} s; maps bitwise the rasterized ones: {same}; "
+        f"the batch's bev_map bitwise: {same_batch}")
+    if not all(same) or not same_batch or cached.cache is None:
+        raise AssertionError("the cached maps differ from the rasterized")
+    preset = preset_from_config(cfg)
+    modules = _new_modules(preset)
+    state = create_train_state(modules, tcfg)
+    batch = dict(batches[0], bev_map=batches[0]["bev_map"][
+        ..., :cfg["dataset"]["map_channels_used"]])
+    dispatch.reset_launches()
+    with dispatch.fused_mode("kvstat"):
+        loss = float(train_step(modules, state, batch, tcfg,
+                                generator=torch.Generator("cuda")
+                                .manual_seed(0))["loss"])
+    by_path["train_cache"] = _check_launches(
+        "a training step on the cached batch (kvstat)",
+        expected_launches(preset, "kvstat", steps=1))
+    log(f"cache: one training step on the cached nuScenes batch (B=3), "
+        f"loss {loss:.5f} ({card})")
+    if not np.isfinite(loss):
+        raise AssertionError(f"cached batch loss {loss}")
+    del modules, state
+    torch.cuda.empty_cache()
+
+
+def run_train_cli(by_path, timing, card: str) -> None:
+    """The training entry point as users run it, at full width
+    (sd15mv_rawbox_224x400, bf16, this script's seeded weights), under
+    "kvstat", on a synthetic nuScenes tree in a temporary directory.
+      1. ``cli.train.main`` with TRAIN_CLI_ARGS: the losses finite; only
+         step 4 kept under checkpoints/; the two val_images PNGs; a trace
+         under profile/ holding K1's kernel; weights/, loaded by the
+         generation loader, equal to the masters (trainable) and the
+         weights as built (frozen); the frozen weights bitwise as built;
+         the launch counts those derived for 4 steps and the Validator's
+         forwards; every kernel call of a step on the run's first batch
+         and of a guided step of its Validator against the plain version.
+         Prints the seconds of the build, each step, each checkpoint
+         write, the validation and the export, and the peak memory.
+      2. A second run resumed from run 1's checkpoints to step 6
+         (validation first): before step 5 the step, the masters, both
+         moment sets and both counts bitwise the checkpoint's; steps 5-6
+         move the masters.
+      3. ``cli.generate`` on run 1 (one request): its images bitwise those
+         of a pipeline built here from run 1's masters and the frozen
+         weights as built, not from weights/.
+      4. The options at OPTION_BATCH samples, 2 steps each: 8-bit AdamW
+         (the moments' bytes against fp32 AdamW's; the masters move);
+         gradient accumulation 2 (no move after micro-step 1, a move after
+         2); the cosine schedule; gradient checkpointing with "dots" (under
+         "kvstat" and "auto") and None on fixed draws against the same
+         weights without (loss within 1e-3 relative, the trainable gradient
+         within EPS_TOL relative L2, the activation peaks, the launches
+         with the recompute), and every kernel call of a "dots" step in
+         each mode against its plain version.
+      5. Video training: sd15mv_rawbox_video_16f with remat "dots", one
+         clip of FRAMES frames (96 images), frames_per_clip FRAMES, 2
+         steps: losses finite, the temporal weights move, the frozen
+         weights do not; s/step and peak memory; then every kernel call
+         of one more step against its plain version.
+      6. The cache (``run_cache``)."""
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
+        run_cli_training(by_path, timing, card, tmp, root, version)
+        run_train_options(by_path, timing, card)
+        run_cache(by_path, card, tmp, root, version)
 
 
 def time_kernels(requests: int = 2) -> dict:
@@ -2645,6 +3340,9 @@ def main() -> None:
             profile_train_step(setup, mode)
         del setup
         torch.cuda.empty_cache()
+    log("the training CLI, its resume and export, the training options, "
+        "video training and the cache:")
+    run_train_cli(by_path, timing, card)
     log(f"path times (the first of each includes one-time setup): {timing}")
     log("whole K6 (its two launches, counted under their own names): " +
         json.dumps(rows["flash_attention_bwd"]))

@@ -31,6 +31,12 @@ class UNetConfig:
     neighboring_view_pair: Optional[Tuple[Tuple[int, int], ...]] = None
     # video: attention over this many frames in every transformer block
     temporal_frames: Optional[int] = None
+    # training: the UNet's down, up and mid blocks (the ControlNet's down
+    # and mid blocks) recompute their forward in the backward; the UNet's
+    # blocks keep the outputs of matrix products and convolutions under
+    # remat_policy "dots" (models/unet.py)
+    gradient_checkpointing: bool = False
+    remat_policy: Optional[str] = None
 
     @property
     def up_block_has_attn(self) -> Tuple[bool, ...]:
@@ -287,9 +293,10 @@ def _check_ported(mc) -> None:
 def preset_from_config(cfg) -> ModelPreset:
     """A ModelPreset from a composed config tree (``config_loader.compose``
     over the repository's ``configs/``), as the JAX package's
-    ``preset_from_config`` builds it. The UNet's launch-layout and
-    gradient-checkpointing keys and the ControlNet's training drop ratios
-    (the port's ``TrainConfig``) have no field here."""
+    ``preset_from_config`` builds it. The UNet's launch-layout keys and the
+    ControlNet's training drop ratios
+    (the port's ``TrainConfig``) have no field here; the UNet's
+    ``gradient_checkpointing`` and ``remat_policy`` (default "dots") do."""
     mc, dc, rc = cfg["model"], cfg["dataset"], cfg["runner"]
     _check_ported(mc)
     H, W = dc["image_size"]
@@ -301,7 +308,9 @@ def preset_from_config(cfg) -> ModelPreset:
         num_attention_heads=u["num_attention_heads"],
         cross_attention_dim=u["cross_attention_dim"],
         norm_num_groups=u["norm_num_groups"],
-        neighboring_view_pair=neighbors)
+        neighboring_view_pair=neighbors,
+        gradient_checkpointing=bool(u.get("gradient_checkpointing", False)),
+        remat_policy=u.get("remat_policy", "dots") or None)
     cn_c = mc["controlnet"]
     be = mc["bbox_embedder_param"]
     cn = BEVControlNetConfig(

@@ -15,9 +15,10 @@ inverse: the port's modules as the JAX tree, for ``utils.serialization``.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from magicdrive_tpu_torch.utils.serialization import as_numpy
 
@@ -215,16 +216,21 @@ def _jax_value(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
     return value
 
 
-def modules_to_jax_params(modules) -> Dict[str, Dict[str, Any]]:
+def modules_to_jax_params(modules, values: Optional[Mapping[
+        str, torch.Tensor]] = None) -> Dict[str, Dict[str, Any]]:
     """The port's modules (``MagicDriveModules``) as the JAX ``init_params``
     tree ({"unet", "controlnet", "vae", "clip"}, each {"params",
     "buffers"} of nested dicts of float32 numpy arrays): the tree that
-    ``jax_params_to_state_dicts`` maps back to their state_dicts."""
+    ``jax_params_to_state_dicts`` maps back to their state_dicts.
+    ``values`` ({"<module>.<key>": tensor}, say a train state's fp32
+    masters) stand in for the modules' own tensors of those keys."""
+    values = values or {}
     out: Dict[str, Dict[str, Any]] = {}
     for name, mod in modules.items():
         buffers = {k for k, _ in mod.named_buffers()}
         tree: Dict[str, Any] = {}
         for key, value in mod.state_dict().items():
+            value = values.get(f"{name}.{key}", value)
             path = flax_path(name, key)
             node = tree.setdefault("buffers" if key in buffers else "params",
                                    {})

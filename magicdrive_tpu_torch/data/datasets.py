@@ -1,11 +1,11 @@
 """The datasets of a composed config (counterpart of ``tools/train.py``
 ``build_datasets``).
 
-nuScenes where ``dataset.dataset_root`` holds ``dataset.version``, else the
-synthetic fixture scenes (the reference's debug-with-demo-data path). The
-BEV map is rasterized per frame; the map cache the JAX package can read
-instead (``dataset.cache_file``) is not ported yet, and a config naming one
-raises.
+nuScenes where ``dataset.dataset_root`` holds ``dataset.version``, its BEV
+maps read from the cache that ``dataset.cache_file.train`` names
+(``cache.BEVCache``, written by ``cli.prepare_cache``) or else rasterized
+per frame; otherwise the synthetic fixture scenes (the reference's
+debug-with-demo-data path).
 """
 from __future__ import annotations
 
@@ -23,27 +23,29 @@ def build_datasets(cfg):
     dc = cfg["dataset"]
     root = dc["dataset_root"]
     if os.path.isdir(os.path.join(root, dc.get("version", ""))):
-        from .map_raster import BEVRasterizer
         from .nuscenes import ImageAugConfig, NuScenesDataset, NuScenesIndex
 
-        cache = dc["cache_file"]
-        if cache["train"] or cache["val"]:
-            raise NotImplementedError(
-                f"dataset.cache_file={dict(cache)}: the BEV map cache "
-                "(data/cache.py) is not ported yet; set "
-                "dataset.cache_file.train=null dataset.cache_file.val=null "
-                "to rasterize the maps")
         index = NuScenesIndex(root, dc["version"],
                               classes=tuple(dc["object_classes"]))
-        ras = BEVRasterizer(
-            root, xbound=tuple(dc["map_bound"]["x"]),
-            ybound=tuple(dc["map_bound"]["y"]),
-            classes=tuple(dc["map_classes"]),
-            object_classes=tuple(dc["object_classes"]),
-            aux_data=tuple(dc["aux_data"]), backend="auto")
+        ras, cache = None, None
+        if dc["cache_file"]["train"]:
+            from .cache import BEVCache
+
+            cache = BEVCache(dc["cache_file"]["train"],
+                             n_map_classes=len(dc["map_classes"]),
+                             n_object_classes=len(dc["object_classes"]))
+        else:
+            from .map_raster import BEVRasterizer
+
+            ras = BEVRasterizer(
+                root, xbound=tuple(dc["map_bound"]["x"]),
+                ybound=tuple(dc["map_bound"]["y"]),
+                classes=tuple(dc["map_classes"]),
+                object_classes=tuple(dc["object_classes"]),
+                aux_data=tuple(dc["aux_data"]), backend="auto")
         aug = ImageAugConfig(final_hw=tuple(dc["image_size"]),
                              resize_lim=tuple(dc["augment2d"]["resize"]))
-        train = NuScenesDataset(index, ras, aug=aug,
+        train = NuScenesDataset(index, rasterizer=ras, cache=cache, aug=aug,
                                 force_all_boxes=dc["force_all_boxes"])
         return train, train
     log.warning("nuScenes root %s not found — synthetic fixtures", root)

@@ -3,9 +3,10 @@
 
 A thread pool maps the (numpy) sample pipeline and batches with
 :func:`collate_fn`, and a bounded queue holds the ready batches so that the
-card does not wait on the host. The samples are taken in order; each
-batch's collate draws (training augmentation only) come from its first
-index, so the batches are the same on every pass.
+card does not wait on the host. Each pass is an epoch: with ``shuffle`` its
+order is a permutation drawn from (seed, epoch), and each batch's collate
+draws (training augmentation only) come from (seed, epoch, its first
+index), as in the JAX package, so a run's batches repeat from its seed.
 """
 from __future__ import annotations
 
@@ -21,18 +22,23 @@ from .collate import CollateConfig, collate_fn
 
 class DataLoader:
     """Iterable over collated numpy batches of ``batch_size``, in the
-    dataset's order; with ``drop_last`` an incomplete tail batch is
-    dropped, so every batch has the same shapes."""
+    dataset's order or, with ``shuffle``, in a new order each epoch; with
+    ``drop_last`` an incomplete tail batch is dropped, so every batch has
+    the same shapes."""
 
     def __init__(self, dataset, batch_size: int, cfg: CollateConfig,
+                 shuffle: bool = False, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2,
                  drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.cfg = cfg
+        self.shuffle = shuffle
+        self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.epoch = 0
 
     def __len__(self):
         n = len(self.dataset) // self.batch_size
@@ -40,25 +46,31 @@ class DataLoader:
             n += 1
         return n
 
-    def _batches(self):
-        for i in range(0, len(self.dataset), self.batch_size):
-            idx = range(i, min(i + self.batch_size, len(self.dataset)))
+    def _batches(self, order: np.ndarray):
+        for i in range(0, len(order), self.batch_size):
+            idx = order[i:i + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
             yield idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(order)
+        self.epoch += 1
+        epoch = self.epoch
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def make_batch(idx):
-            return collate_fn([self.dataset[j] for j in idx], self.cfg,
-                              rng=np.random.default_rng(idx[0]))
+            return collate_fn([self.dataset[int(j)] for j in idx], self.cfg,
+                              rng=np.random.default_rng(
+                                  (self.seed, epoch, int(idx[0]))))
 
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
                 futures = [pool.submit(make_batch, idx)
-                           for idx in self._batches()]
+                           for idx in self._batches(order)]
                 for fut in futures:
                     if stop.is_set():
                         fut.cancel()

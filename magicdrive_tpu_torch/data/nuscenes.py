@@ -404,27 +404,37 @@ class NuScenesDataset:
     """Per-frame sample dicts in the collate contract.
 
     Fuses the reference's mm-pipeline: image load + ImageAug3D + normalize,
-    ObjectNameFilterM (drop label -1), BEV rasterization,
-    ReorderMultiViewImagesM (converter order -> view_order), metas assembly.
-    The 3D augmentations (GlobalRotScaleTrans, RandomFlip3DwithViews) and
-    the map cache are not ported yet (ROADMAP Queue A).
+    ObjectNameFilterM (drop label -1), the BEV map (rasterized, or read
+    from a ``cache.BEVCache``), ReorderMultiViewImagesM (converter order ->
+    view_order), metas assembly.
+
+    ``transforms_3d`` run on the sample dict before the BEV map is made
+    (the reference's order for GlobalRotScaleTrans,
+    ref:configs/dataset/Nuscenes.yaml:112-121); ``transforms`` run after it
+    (RandomFlip3DwithViews, which flips the finished map,
+    ref:configs/dataset/Nuscenes.yaml:130-132).
     """
 
-    def __init__(self, index: NuScenesIndex, rasterizer,
+    def __init__(self, index: NuScenesIndex, rasterizer=None, cache=None,
                  view_order: Sequence[str] = VIEW_ORDER,
                  aug: ImageAugConfig = ImageAugConfig(),
                  with_images: bool = True,
                  force_all_boxes: bool = True,
                  sample_indices: Optional[Sequence[int]] = None,
+                 transforms_3d: Sequence = (),
+                 transforms: Sequence = (),
                  seed: int = 0):
         self.index = index
         self.rasterizer = rasterizer
+        self.cache = cache
         self.aug = aug
         self.with_images = with_images
         self.force_all_boxes = force_all_boxes
         self.order = [list(index.camera_order).index(c) for c in view_order]
         self.ids = list(sample_indices) if sample_indices is not None else \
             list(range(len(index.infos)))
+        self.transforms_3d = list(transforms_3d)
+        self.transforms = list(transforms)
         self.rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -474,16 +484,36 @@ class NuScenesDataset:
             sample["img_aug_matrix"] = np.stack(mats)
         else:
             sample["img_aug_matrix"] = np.stack([np.eye(4)] * len(o))
+
+        for t in self.transforms_3d:
+            sample = t(sample)
         sample["bev_map"] = self._bev_map(info, sample)
+        for t in self.transforms:
+            sample = t(sample)
         return sample
 
     def _bev_map(self, info: FrameInfo, sample: dict) -> np.ndarray:
-        """(H, W, C) float32 BEV map, channel-last."""
+        """(H, W, C) float32 BEV map, channel-last: the cache's where it
+        holds the frame and no 3D augmentation moved it, else rasterized."""
+        aug = np.asarray(sample.get("lidar_aug_matrix", np.eye(4)))
+        aug_is_identity = np.allclose(aug, np.eye(4))
+        if self.cache is not None and aug_is_identity:
+            m = self.cache.get(info.token)
+            if m is not None:
+                return np.ascontiguousarray(
+                    m.transpose(1, 2, 0)).astype(np.float32)
+        if self.rasterizer is None:
+            raise RuntimeError(
+                "no BEV source: provide a rasterizer or a cache")
         boxes, labels = sample["boxes"], sample["labels"]
+        # the static layers land in the augmented frame:
+        # lidar2global @ inv(lidar_aug_matrix) (ref:pipeline.py:249-253)
+        lidar2global = info.lidar2global if aug_is_identity else \
+            info.lidar2global @ np.linalg.inv(aug)
         corners = corners_from_boxes(boxes) if len(boxes) else \
             np.zeros((0, 8, 3))
         out = self.rasterizer(
-            info.location, info.lidar2global, corners=corners, labels=labels,
+            info.location, lidar2global, corners=corners, labels=labels,
             box_heights=boxes[:, 5] if len(boxes) else np.zeros((0,)),
             visibility=sample["visibility"].astype(np.float32))
         masks = out["gt_masks_bev"].astype(np.float32)

@@ -1,9 +1,10 @@
-"""SD-v1.5 noise schedule in float64 numpy (counterpart of
+"""The noise schedule in float64 numpy (counterpart of
 ``diffusion/schedules.py``; that module's package imports jax, so the
 builders are restated here).
 
-scaled_linear betas 0.00085..0.012 over 1000 train steps, epsilon
-prediction (diffusers' DDPM/UniPC settings for SD-v1.5).
+SD-v1.5's scaled_linear betas 0.00085..0.012 over 1000 train steps by
+default (diffusers' DDPM/UniPC settings), or diffusers' ``linear`` and
+``squaredcos_cap_v2`` betas.
 """
 from __future__ import annotations
 
@@ -18,10 +19,25 @@ class NoiseSchedule:
 
     @classmethod
     def create(cls, num_train_timesteps: int = 1000,
-               beta_start: float = 0.00085,
-               beta_end: float = 0.012) -> "NoiseSchedule":
-        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5,
-                            num_train_timesteps, dtype=np.float64) ** 2
+               beta_start: float = 0.00085, beta_end: float = 0.012,
+               beta_schedule: str = "scaled_linear") -> "NoiseSchedule":
+        if beta_schedule == "linear":
+            betas = np.linspace(beta_start, beta_end, num_train_timesteps,
+                                dtype=np.float64)
+        elif beta_schedule == "scaled_linear":
+            betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5,
+                                num_train_timesteps, dtype=np.float64) ** 2
+        elif beta_schedule == "squaredcos_cap_v2":
+            t = np.arange(num_train_timesteps, dtype=np.float64)
+
+            def f(s):
+                return np.cos((s + 0.008) / 1.008 * np.pi / 2) ** 2
+
+            betas = np.minimum(1 - f((t + 1) / num_train_timesteps)
+                               / f(t / num_train_timesteps), 0.999)
+        else:
+            raise ValueError(f"beta_schedule {beta_schedule!r}: linear, "
+                             "scaled_linear or squaredcos_cap_v2")
         return cls(betas=betas)
 
     @property

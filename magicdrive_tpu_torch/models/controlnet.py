@@ -4,6 +4,10 @@ magicdrive/networks/unet_addon_rawbox.py BEVControlNetModel), NCHW.
 
 Token sequence per view: [cam(1) | text(77) | bbox(max_len)]
 (ref:unet_addon_rawbox.py:317-336, 791-793).
+
+With the UNet config's ``gradient_checkpointing`` the down blocks and the
+mid block recompute their whole forward in the backward (the JAX package's
+``nn.remat`` without a policy, whatever ``remat_policy`` says).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from magicdrive_tpu_torch.models.embedders import (
     embed_camera)
 from magicdrive_tpu_torch.models.unet import (CrossAttnDownBlock,
                                               TimestepEmbedding, UNetMidBlock,
-                                              time_embed)
+                                              run_block, time_embed)
 
 
 def _zero_conv(ch: int) -> nn.Conv2d:
@@ -58,6 +62,9 @@ class BEVControlNet(nn.Module):
                                add_downsample=i != len(boc) - 1)
             for i, ch in enumerate(boc)])
         self.mid_block = UNetMidBlock(ucfg)
+        if ucfg.gradient_checkpointing:
+            for block in (*self.down_blocks, self.mid_block):
+                block.remat = True
         # zero-init 1x1 convs, one per residual (ref:unet_addon_rawbox.py:
         # 219-272) and one for the mid block
         res_channels = [boc[0]]
@@ -209,9 +216,9 @@ class BEVControlNet(nn.Module):
         x = self.conv_in(x) + cond_feat.repeat_interleave(N, dim=0)
         res = [x]
         for block in self.down_blocks:
-            x, r = block(x, temb, ctx)
+            x, r = run_block(block, None, x, temb, ctx)
             res.extend(r)
-        x = self.mid_block(x, temb, ctx)
+        x = run_block(self.mid_block, None, x, temb, ctx)
         scales = (np.logspace(-1, 0, len(res) + 1) if guess_mode
                   else np.ones(len(res) + 1)) * conditioning_scale
         down = [conv(r) * float(s) for conv, r, s in

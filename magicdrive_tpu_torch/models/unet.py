@@ -5,20 +5,74 @@ The batch axis is (B * n_cam), or (B * F * n_cam) for the video model,
 whose transformers regroup the frames; ControlNet residuals enter additively at the
 skip connections and after the mid block
 (ref:unet_2d_condition_multiview.py:464-473,487-488).
+
+With ``gradient_checkpointing`` the down, up and mid blocks are the JAX
+package's remat units (``nn.remat``): each recomputes its forward in the
+backward when gradients are being taken. Under ``remat_policy`` "dots"
+(``jax.checkpoint_policies.dots_saveable``) the outputs of matrix products,
+convolutions and SDPA calls are kept and the rest recomputed; under None
+everything is. The hand-written kernels' autograd Functions are opaque to
+the policy, so they run again in the recompute.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from magicdrive_tpu_torch.config import UNetConfig
 from magicdrive_tpu_torch.core.embeddings import get_timestep_embedding
 from magicdrive_tpu_torch.core.resnet import (Downsample2D, GroupNorm,
                                               ResnetBlock2D, Upsample2D)
 from magicdrive_tpu_torch.core.transformer import Transformer2DModel
+
+
+_aten = torch.ops.aten
+# the ops whose outputs "dots" keeps: JAX's dot_general and
+# conv_general_dilated, and the SDPA calls that stand for its plain
+# attention's dots
+_DOTS = frozenset((
+    _aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+    _aten.baddbmm.default, _aten.convolution.default,
+    _aten._scaled_dot_product_flash_attention.default,
+    _aten._scaled_dot_product_efficient_attention.default,
+    _aten._scaled_dot_product_cudnn_attention.default,
+    _aten._scaled_dot_product_flash_attention_for_cpu.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(policy: Optional[str]):
+    """``checkpoint``'s ``context_fn`` for a remat policy: None recomputes
+    everything; "attn" (JAX's named attention outputs) is not ported."""
+    if policy is None:
+        return None
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if policy == "attn":
+        raise NotImplementedError(
+            'remat_policy="attn" (keep only the attention outputs) is not '
+            'ported: use "dots" or null (ROADMAP Known hazards)')
+    raise ValueError(f"remat_policy {policy!r}: dots, attn or null")
+
+
+def run_block(block: nn.Module, context_fn, *args):
+    """``block(*args)``; as one remat unit (``context_fn``: None or
+    ``remat_context``'s) where ``block`` is marked for it and gradients are
+    being taken."""
+    if not (block.remat and torch.is_grad_enabled()):
+        return block(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(block, *args, use_reentrant=False, **kw)
 
 
 def _transformer(cfg: UNetConfig, ch: int) -> Transformer2DModel:
@@ -29,6 +83,8 @@ def _transformer(cfg: UNetConfig, ch: int) -> Transformer2DModel:
 
 
 class CrossAttnDownBlock(nn.Module):
+    remat = False  # a remat unit (run_block)
+
     def __init__(self, cfg: UNetConfig, in_ch: int, out_ch: int,
                  has_attn: bool, add_downsample: bool):
         super().__init__()
@@ -57,6 +113,8 @@ class CrossAttnDownBlock(nn.Module):
 
 
 class CrossAttnUpBlock(nn.Module):
+    remat = False  # a remat unit (run_block)
+
     def __init__(self, cfg: UNetConfig, prev_ch: int, out_ch: int,
                  skip_chs: Sequence[int], has_attn: bool,
                  add_upsample: bool):
@@ -84,6 +142,8 @@ class CrossAttnUpBlock(nn.Module):
 
 
 class UNetMidBlock(nn.Module):
+    remat = False  # a remat unit (run_block)
+
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         ch = cfg.block_out_channels[-1]
@@ -144,6 +204,12 @@ class UNet2DConditionModel(nn.Module):
             prev = ch
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0])
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
+        self._remat_context = None
+        if cfg.gradient_checkpointing:
+            self._remat_context = remat_context(cfg.remat_policy)
+            for block in (*self.down_blocks, self.mid_block,
+                          *self.up_blocks):
+                block.remat = True
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
@@ -158,14 +224,15 @@ class UNet2DConditionModel(nn.Module):
                           self.cfg.block_out_channels[0])
         context = encoder_hidden_states.to(dt)
         x = self.conv_in(sample.to(dt))
+        ctx_fn = self._remat_context
         skips = [x]
         for block in self.down_blocks:
-            x, res = block(x, temb, context)
+            x, res = run_block(block, ctx_fn, x, temb, context)
             skips.extend(res)
         if down_block_additional_residuals is not None:
             skips = [s + r.to(dt) for s, r in
                      zip(skips, down_block_additional_residuals, strict=True)]
-        x = self.mid_block(x, temb, context)
+        x = run_block(self.mid_block, ctx_fn, x, temb, context)
         if mid_block_additional_residual is not None:
             x = x + mid_block_additional_residual.to(dt)
         n_up = self.cfg.layers_per_block + 1
@@ -173,6 +240,7 @@ class UNet2DConditionModel(nn.Module):
             block_skips = skips[-n_up:][::-1]  # consumption order
             skips = skips[:-n_up]
             out_hw = tuple(skips[-1].shape[2:]) if skips else None
-            x = block(x, block_skips, temb, context, out_hw)
+            x = run_block(block, ctx_fn, x, block_skips, temb, context,
+                          out_hw)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.float()

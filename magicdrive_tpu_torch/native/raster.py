@@ -1,27 +1,18 @@
 """ctypes binding of the port's C++ raster core (``csrc/raster.cc``).
 
-The library is built with ``g++`` at first use into ``native/_build/``
-(ignored by git), named by a hash of the source and flags, as the kernels
-are (``kernels/build.py``); ``python -m magicdrive_tpu_torch.native.raster``
-builds it. ``fill_polygon`` is pixel-exact with PIL
-``ImageDraw.polygon(fill=...)`` on box footprints; ``draw_polyline2`` is
-the 2-px divider-line band of the BEV map.
+The library is built with ``g++`` at first use (``gxx.py``);
+``python -m magicdrive_tpu_torch.native.raster`` builds it.
+``fill_polygon`` is pixel-exact with PIL ``ImageDraw.polygon(fill=...)`` on
+box footprints; ``draw_polyline2`` is the 2-px divider-line band of the BEV
+map.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import pathlib
-import subprocess
-import tempfile
 
 import numpy as np
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "raster.cc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+from . import gxx
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -36,39 +27,10 @@ _SIGNATURES = {
 }
 
 
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libmd_raster_{h.hexdigest()[:16]}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the source if the library for its hash is missing; raises
-    with the compiler's output when it fails."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        lib = os.path.join(tmp, "lib.so")
-        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", lib, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(lib, path)  # atomic: a reader never sees a partial file
-    return path
-
-
-@functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """The raster library with its C signatures declared (built if
     needed)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = None
-    return lib
+    return gxx.load("raster.cc", _SIGNATURES)
 
 
 def _pts(xy: np.ndarray) -> np.ndarray:
@@ -125,4 +87,4 @@ def aux_channels(aux: np.ndarray, bottom_corners: np.ndarray,
 
 
 if __name__ == "__main__":
-    print(build())
+    print(gxx.build(gxx.CSRC / "raster.cc"))

@@ -1,63 +1,268 @@
-"""The training loop (counterpart of the step loop of ``train/runner.py``
-``Runner.run``).
+"""The training runtime driven by a composed config (counterpart of
+``train/runner.py``; ref:magicdrive/runner/base_runner.py BaseRunner.run,
+ref:magicdrive/runner/multiview_runner.py).
 
-The runner takes an iterable of collated batches and steps until it is
-exhausted or ``max_train_steps`` is reached. Its knobs are arguments.
-
-  * The NaN/inf check of a step's loss is deferred by one step: the loss of
-    step i is read after step i+1 has been queued, so reading it does not
-    drain the device. The pending check is drained before every checkpoint
-    and at the end, so a non-finite state never becomes a checkpoint.
-  * Checkpoints are ``torch.save`` files of the fp32 masters, the optimizer
-    moments and the step, under ``<run_dir>/checkpoints``, every
-    ``checkpointing_steps`` and at the end (never when it is None); ``run``
-    resumes from the latest and keeps the newest ``max_to_keep``.
-  * Metrics go to ``<run_dir>/metrics.jsonl``, one JSON object per logged
-    step.
-  * Each step draws from a generator seeded with (seed, step), so a resumed
-    run continues the draws it would have made.
+``Runner(cfg, preset, modules, train_dataset, val_dataset, run_dir)``
+reads the ``runner`` group (``train_config_from_cfg``) and trains on one
+device:
+  * the loader (``data/loader.py``) at ``train_batch_size``, shuffled from
+    the config's seed, over ``num_train_epochs`` epochs up to
+    ``max_train_steps``; the model reads the map's first
+    ``dataset.map_channels_used`` channels (the JAX package's runner hands
+    it a nuScenes map's 26, which its 8-channel embedder rejects);
+  * the NaN/inf check of a step's loss deferred by one step, so reading it
+    does not drain the device; the pending check is drained before every
+    checkpoint and validation, so a non-finite state is never kept;
+  * checkpoints (``torch.save`` files of the step, the fp32 masters and the
+    optimizer state) every ``checkpointing_steps`` and at the end, the
+    newest ``checkpoints_total_limit`` kept, under ``<run_dir>/
+    checkpoints``; ``resume_from_checkpoint`` (another run's
+    ``checkpoints/``, or this run's own) and ``resume_reset_scheduler``;
+  * ``Validator`` grids every ``validation_steps`` (and first, with
+    ``validation_before_run``) into ``<run_dir>/val_images``;
+  * ``profile_steps`` [a, b]: steps a+1..b under ``torch.profiler``, its
+    trace under ``<run_dir>/profile``;
+  * metrics as JSON lines in ``<run_dir>/metrics.jsonl`` (steps 1-3, then
+    every 10th), and to tensorboard where ``torch.utils.tensorboard``
+    imports;
+  * at the end the run's weights in ``<run_dir>/weights`` (the JAX
+    package's ``params.npz`` + ``manifest.json``, which ``cli.generate``
+    reads): the trainable ones from the fp32 masters.
+Each step draws from a generator seeded with (seed, step), so a resumed run
+continues the draws it would have made. The JAX package's ``pair_bwd`` is a
+TPU trace-time knob with no counterpart here: it is logged and ignored.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
 import os
 import re
 import time
-from typing import Any, Iterable, Mapping, Optional
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from magicdrive_tpu_torch.data.collate import CollateConfig, collate_fn
+from magicdrive_tpu_torch.data.loader import DataLoader
+from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from magicdrive_tpu_torch.diffusion import NoiseSchedule
-from .state import TrainConfig, TrainState
+from .state import (TrainConfig, TrainState, create_train_state,
+                    reset_lr_schedule)
 from .train_step import train_step
+
+log = logging.getLogger(__name__)
 
 _CKPT = re.compile(r"step_(\d+)\.pt$")
 
 
+def train_config_from_cfg(rc) -> TrainConfig:
+    """The ``runner`` group of a composed config -> TrainConfig, field for
+    field as the JAX package reads it."""
+    return TrainConfig(
+        learning_rate=rc["learning_rate"], adam_beta1=rc["adam_beta1"],
+        adam_beta2=rc["adam_beta2"], adam_weight_decay=rc["adam_weight_decay"],
+        adam_epsilon=rc["adam_epsilon"], max_grad_norm=rc["max_grad_norm"],
+        lr_warmup_steps=rc["lr_warmup_steps"], lr_schedule=rc["lr_schedule"],
+        max_train_steps=rc["max_train_steps"] or 100000,
+        gradient_accumulation_steps=rc["gradient_accumulation_steps"],
+        prediction_type=rc["prediction_type"],
+        train_with_same_t=rc["train_with_same_t"],
+        train_with_same_noise=rc["train_with_same_noise"],
+        noise_offset=rc["noise_offset"],
+        use_8bit_adam=bool(rc.get("use_8bit_adam", False)),
+        frames_per_clip=rc.get("frames_per_clip"))
+
+
+def check_parallel(cfg) -> None:
+    """The port trains on one device: a ``parallel`` group asking for more
+    (a mesh of several devices, ``multihost``, ``shard_views``) raises."""
+    pc = cfg.get("parallel") or {}
+    shape = pc.get("mesh_shape")
+    if shape and int(np.prod(shape)) > 1 or pc.get("multihost") or \
+            pc.get("shard_views"):
+        raise NotImplementedError(
+            f"parallel={dict(pc)}: training across devices comes with the "
+            "port's multi-GPU support (ROADMAP Queue A, A7); the port "
+            "trains on one device (mesh_shape null or [1, 1])")
+
+
+class MetricsLogger:
+    """Scalars as JSON lines, and to tensorboard where it imports."""
+
+    def __init__(self, run_dir: str):
+        os.makedirs(run_dir, exist_ok=True)
+        self.f = open(os.path.join(run_dir, "metrics.jsonl"), "a")
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            log.info("torch.utils.tensorboard does not import: metrics go "
+                     "to metrics.jsonl only")
+        else:
+            self.tb = SummaryWriter(os.path.join(run_dir, "tb"))
+
+    def log(self, step: int, scalars: Mapping[str, float]) -> None:
+        rec = {"step": int(step), **{k: float(v) for k, v in scalars.items()}}
+        self.f.write(json.dumps(rec) + "\n")
+        self.f.flush()
+        if self.tb:
+            for k, v in scalars.items():
+                self.tb.add_scalar(k, float(v), int(step))
+
+    def log_images(self, step: int, tag: str, grid: np.ndarray) -> None:
+        """grid: (H, W, 3) in [0, 1]."""
+        if self.tb:
+            self.tb.add_image(tag, grid, int(step), dataformats="HWC")
+
+    def close(self) -> None:
+        self.f.close()
+        if self.tb:
+            self.tb.close()
+
+
+class Validator:
+    """Generation on fixed validation samples during training
+    (ref:magicdrive/runner/base_validator.py:55-204): one pipeline for the
+    run on the training modules, each variant ``rep`` from a generator
+    seeded 1000 + rep; a grid per sample (its views in a row, under the
+    ground-truth row where the batch has images) as
+    ``val_images/step{s}_idx{i}_{rep}.png``."""
+
+    def __init__(self, modules, pipeline_cfg, val_dataset,
+                 ccfg: CollateConfig, indices, times: int = 1,
+                 map_channels: Optional[int] = None):
+        self.modules = modules
+        self.pipeline_cfg = pipeline_cfg
+        self.dataset = val_dataset
+        self.ccfg = dataclasses.replace(ccfg, is_train=False)
+        self.indices = [i for i in indices if i < len(val_dataset)]
+        self.times = times
+        self.map_channels = map_channels
+        self.pipe = None
+
+    def batch(self) -> Tuple[Dict[str, Any], Optional[np.ndarray]]:
+        """The pipeline's batch of the validation samples (the map cut to
+        ``map_channels``) and their ground-truth images, or None."""
+        batch = collate_fn([self.dataset[i] for i in self.indices],
+                           self.ccfg)
+        gt = batch.pop("pixel_values", None)
+        batch["bev_map"] = batch["bev_map"][..., :self.map_channels]
+        return batch, gt
+
+    def validate(self, state: TrainState, logger: MetricsLogger, step: int,
+                 run_dir: Optional[str] = None) -> List[np.ndarray]:
+        """The grids of the state's weights (copied into the modules),
+        rep-major; written under ``run_dir`` where given."""
+        from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+
+        if not self.indices:
+            return []
+        state.copy_into(self.modules)
+        if self.pipe is None:  # on the modules' device and dtype
+            self.pipe = MagicDrivePipeline(self.modules, self.pipeline_cfg)
+        batch, gt = self.batch()
+        grids = []
+        for rep in range(self.times):
+            gen = torch.Generator(self.pipe.device).manual_seed(1000 + rep)
+            imgs = self.pipe(batch, generator=gen).cpu().numpy()
+            for b, i in enumerate(self.indices):
+                grid = np.concatenate(list(imgs[b]), axis=1)  # views wide
+                if gt is not None:
+                    gt_row = np.concatenate(list(gt[b] / 2 + 0.5), axis=1)
+                    grid = np.concatenate([gt_row, grid], axis=0)
+                grids.append(grid)
+                logger.log_images(step, f"val/{i}_{rep}", grid)
+                if run_dir is not None:
+                    from PIL import Image
+
+                    out = os.path.join(run_dir, "val_images")
+                    os.makedirs(out, exist_ok=True)
+                    Image.fromarray(
+                        (np.clip(grid, 0, 1) * 255).astype(np.uint8)).save(
+                        os.path.join(out, f"step{step}_idx{i}_{rep}.png"))
+        return grids
+
+
 class Runner:
-    def __init__(self, modules, cfg: TrainConfig, run_dir: str,
-                 checkpointing_steps: Optional[int] = 500,
-                 max_to_keep: int = 5,
-                 log_every: int = 10, seed: int = 42):
-        self.modules, self.cfg, self.run_dir = modules, cfg, run_dir
+    """The training loop of a composed config; see the module docstring.
+
+        runner = Runner(cfg, preset, modules, train_ds, val_ds, run_dir)
+        state = runner.run()
+
+    The modules train on ``device`` in ``runner.mixed_precision`` (bf16, or
+    fp32 for any other value) over fp32 masters, as the JAX package's
+    ``init_state`` keeps them."""
+
+    def __init__(self, cfg, preset, modules, train_dataset,
+                 val_dataset=None, run_dir: str = "runs/dev",
+                 device=DEFAULT_DEVICE):
+        check_parallel(cfg)
+        rc = cfg["runner"]
+        self.cfg, self.rc = cfg, rc
+        self.modules = modules
+        self.run_dir = run_dir
+        self.device = resolve_device(device)
+        self.dtype = torch.bfloat16 if rc["mixed_precision"] == "bf16" \
+            else torch.float32
+        self.tcfg = train_config_from_cfg(rc)
+        if rc.get("pair_bwd"):
+            log.info("runner.pair_bwd=%s: the JAX package's TPU backward "
+                     "schedule knob; it has no effect in the port",
+                     rc["pair_bwd"])
+        self.seed = cfg.get("seed", 42)
+        self.map_channels = cfg["dataset"]["map_channels_used"]
+        self.ccfg = CollateConfig(
+            template=cfg["dataset"]["template"],
+            bbox_mode=cfg["model"]["bbox_mode"],
+            bbox_max_len=rc["bbox_max_length"],
+            bbox_view_shared=cfg["model"]["bbox_view_shared"],
+            canvas_hw=tuple(cfg["dataset"]["image_size"]),
+            bbox_drop_ratio=rc["bbox_drop_ratio"],
+            bbox_add_ratio=rc["bbox_add_ratio"],
+            bbox_add_num=rc["bbox_add_num"])
+        self.loader = DataLoader(
+            train_dataset, batch_size=rc["train_batch_size"], cfg=self.ccfg,
+            shuffle=True, seed=self.seed, num_workers=rc["num_workers"],
+            drop_last=True)
+        self.validator = None
+        if val_dataset is not None:
+            self.validator = Validator(
+                modules, preset.pipeline, val_dataset, self.ccfg,
+                rc["validation_index"], rc["validation_times"],
+                map_channels=self.map_channels)
         self.ckpt_dir = os.path.join(run_dir, "checkpoints")
-        self.checkpointing_steps = checkpointing_steps
-        self.max_to_keep = max_to_keep
-        self.log_every = log_every
-        self.seed = seed
+        self.max_to_keep = rc.get("checkpoints_total_limit") or 5
+        self.logger = MetricsLogger(run_dir)
         self.schedule = NoiseSchedule.create()
+        self._profiler = None
+
+    def init_state(self) -> TrainState:
+        """The train state of the modules as they are: fp32 masters of the
+        trainable partition, the modules moved to the device and dtype."""
+        return create_train_state(self.modules, self.tcfg, self.device,
+                                  self.dtype)
 
     # -- checkpoints ------------------------------------------------------
-    def checkpoints(self) -> list:
-        """(step, path) of the saved checkpoints, oldest first."""
-        if not os.path.isdir(self.ckpt_dir):
+    def checkpoints(self, ckpt_dir: Optional[str] = None) -> list:
+        """(step, path) of the checkpoints in ``ckpt_dir`` (default this
+        run's), oldest first."""
+        ckpt_dir = ckpt_dir or self.ckpt_dir
+        if not os.path.isdir(ckpt_dir):
             return []
-        found = ((_CKPT.search(f), f) for f in os.listdir(self.ckpt_dir))
-        return sorted((int(m.group(1)), os.path.join(self.ckpt_dir, f))
+        found = ((_CKPT.search(f), f) for f in os.listdir(ckpt_dir))
+        return sorted((int(m.group(1)), os.path.join(ckpt_dir, f))
                       for m, f in found if m)
 
     def save(self, state: TrainState) -> None:
+        """Checkpoint ``state`` (once per step) and keep the newest
+        ``max_to_keep``."""
+        ckpts = self.checkpoints()
+        if ckpts and ckpts[-1][0] == state.step:
+            return
         os.makedirs(self.ckpt_dir, exist_ok=True)
         path = os.path.join(self.ckpt_dir, f"step_{state.step:08d}.pt")
         torch.save(state.state_dict(), path + ".tmp")
@@ -65,23 +270,83 @@ class Runner:
         for _, old in self.checkpoints()[:-self.max_to_keep]:
             os.remove(old)
 
-    def restore(self, state: TrainState) -> bool:
-        """Load the latest checkpoint into ``state``; False if none."""
-        ckpts = self.checkpoints()
+    def restore(self, state: TrainState,
+                ckpt_dir: Optional[str] = None) -> bool:
+        """Load the latest checkpoint of ``ckpt_dir`` (default this run's)
+        into ``state``; False if there is none."""
+        ckpts = self.checkpoints(ckpt_dir)
         if not ckpts:
             return False
         state.load_state_dict(torch.load(ckpts[-1][1], map_location="cpu",
                                          weights_only=True))
         return True
 
+    def resume(self, state: TrainState) -> None:
+        """From ``resume_from_checkpoint`` where it names another run's
+        checkpoint directory, else from this run's latest checkpoint; then,
+        with ``resume_reset_scheduler``, the learning-rate schedule
+        restarts (ref:base_runner.py:301-310: the JAX package resets it
+        only on resuming from the run's own checkpoints)."""
+        src = self.cfg.get("resume_from_checkpoint")
+        own = os.path.abspath(self.ckpt_dir)
+        if isinstance(src, str) and os.path.isdir(src) and \
+                os.path.abspath(src) != own:
+            if not self.restore(state, src):
+                raise FileNotFoundError(f"no checkpoint in {src}")
+            log.info("resumed from external %s step %d", src, state.step)
+        elif self.restore(state):
+            log.info("resumed from step %d", state.step)
+        else:
+            return
+        if self.cfg.get("resume_reset_scheduler"):
+            reset_lr_schedule(state)
+            log.info("LR schedule progress reset")
+
     # -- loop -------------------------------------------------------------
-    def run(self, state: TrainState, batches: Iterable[Mapping[str, Any]],
+    def run(self, state: Optional[TrainState] = None,
             resume: bool = True) -> TrainState:
+        """Train from ``state`` (default ``init_state``), resumed first
+        where ``resume``, to ``max_train_steps`` or the last epoch; then
+        the final checkpoint and the run's weights."""
+        state = state if state is not None else self.init_state()
         if resume:
-            self.restore(state)
-        device = next(iter(state.masters.values())).device
-        os.makedirs(self.run_dir, exist_ok=True)
-        log = open(os.path.join(self.run_dir, "metrics.jsonl"), "a")
+            self.resume(state)
+        if self.rc.get("validation_before_run") and self.validator:
+            self.validator.validate(state, self.logger, state.step,
+                                    self.run_dir)
+        for epoch in range(self.rc["num_train_epochs"]):
+            if state.step >= self.tcfg.max_train_steps:
+                break
+            self.train(state, self.loader, epoch)
+        self.save(state)
+        self.save_deployable(state)
+        return state
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profile(self, window) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        out = os.path.join(self.run_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        self._profiler.export_chrome_trace(os.path.join(
+            out, f"steps{window[0] + 1}-{window[1]}.json"))
+        self._profiler = None
+
+    def train(self, state: TrainState, batches: Iterable[Mapping[str, Any]],
+              epoch: int = 0) -> TrainState:
+        """Step ``state`` over ``batches`` (collated) until they end or
+        ``max_train_steps``, with the checkpoints, validation and profile
+        window of the config's cadence; every check drained at the end."""
+        rc = self.rc
+        window = rc.get("profile_steps")
         pending = None  # (step, metrics, n_samples) not yet checked
         t_last = time.perf_counter()
 
@@ -91,37 +356,53 @@ class Runner:
             loss = float(metrics["loss"])
             if not math.isfinite(loss):
                 raise RuntimeError(f"NaN/inf loss at step {step}")
-            if step % self.log_every == 0 or step <= 3:
+            if step % 10 == 0 or step <= 3:
                 dt = time.perf_counter() - t_last
-                k = self.log_every if step % self.log_every == 0 else 1
-                log.write(json.dumps({
-                    "step": step, "loss": loss,
-                    "grad_norm": float(metrics["grad_norm"]),
-                    "steps_per_sec": k / dt,
-                    "samples_per_sec": k * n / dt}) + "\n")
-                log.flush()
+                k = 10 if step % 10 == 0 else 1
+                self.logger.log(step, {
+                    "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                    "steps_per_sec": k / dt, "samples_per_sec": k * n / dt,
+                    "epoch": epoch})
                 t_last = time.perf_counter()
 
-        try:
-            for batch in batches:
-                if state.step >= self.cfg.max_train_steps:
-                    break
-                gen = torch.Generator(device).manual_seed(
-                    self.seed * 1_000_003 + state.step)
-                metrics = train_step(self.modules, state, batch, self.cfg,
-                                     generator=gen, schedule=self.schedule)
-                if pending is not None:
-                    check(pending)
-                pending = (state.step, metrics, len(batch["input_ids"]))
-                if self.checkpointing_steps and \
-                        state.step % self.checkpointing_steps == 0:
-                    check(pending)
-                    pending = None
-                    self.save(state)
+        for batch in batches:
+            if state.step >= self.tcfg.max_train_steps:
+                break
+            if window and state.step == window[0]:
+                self._start_profile()
+            batch = dict(batch, bev_map=np.asarray(
+                batch["bev_map"])[..., :self.map_channels])
+            gen = torch.Generator(self.device).manual_seed(
+                self.seed * 1_000_003 + state.step)
+            metrics = train_step(self.modules, state, batch, self.tcfg,
+                                 generator=gen, schedule=self.schedule)
+            if window and state.step == window[1] and self._profiler:
+                self._stop_profile(window)
             if pending is not None:
                 check(pending)
-            if self.checkpointing_steps:
+            pending = (state.step, metrics, len(batch["input_ids"]))
+            at_ckpt = state.step % rc["checkpointing_steps"] == 0
+            at_val = self.validator is not None and \
+                state.step % rc["validation_steps"] == 0
+            if at_ckpt or at_val:
+                check(pending)
+                pending = None
+            if at_ckpt:
                 self.save(state)
-        finally:
-            log.close()
+            if at_val:
+                self.validator.validate(state, self.logger, state.step,
+                                        self.run_dir)
+        if pending is not None:
+            check(pending)
         return state
+
+    def save_deployable(self, state: TrainState) -> None:
+        """The run's weights in ``<run_dir>/weights``: the modules' tree
+        with the trainable leaves from the fp32 masters (the counterpart
+        of the reference's save_pretrained dirs,
+        ref:multiview_runner.py:233-242)."""
+        from magicdrive_tpu_torch.convert import modules_to_jax_params
+        from magicdrive_tpu_torch.utils.serialization import save_params
+
+        save_params(modules_to_jax_params(self.modules, state.masters),
+                    os.path.join(self.run_dir, "weights"))

@@ -26,8 +26,12 @@ _INT_KEYS = ("input_ids", "uncond_ids", "classes")
 @dataclasses.dataclass
 class StepDraws:
     vae_noise: torch.Tensor            # (B*N, 4, h, w) posterior sample
-    noise: torch.Tensor                # (B, N, 4, h, w)
-    timesteps: torch.Tensor            # (B,), one per sample, all views
+    # (B, N, 4, h, w), or (B, 1, 4, h, w) broadcast over the views
+    # (train_with_same_noise)
+    noise: torch.Tensor
+    # (B,), one per sample for all its views; the same for every frame of
+    # a clip (frames_per_clip)
+    timesteps: torch.Tensor
     drop_mask: Optional[torch.Tensor]  # (B, N), 1 -> uncond cam and text
     # (B,), 1 -> the ControlNet's unconditional map
     map_drop_mask: Optional[torch.Tensor] = None
@@ -49,17 +53,26 @@ def sample_draws(cfg: TrainConfig, schedule: NoiseSchedule, B: int, N: int,
                  latent_hw: Tuple[int, int], generator: torch.Generator,
                  device=None, use_uncond_map: Optional[str] = None
                  ) -> StepDraws:
-    """The draws of one step. With ``drop_cond_ratio`` > 0 the condition
-    drop mask, and where the ControlNet has ``use_uncond_map``, the map
-    drop: each sample's map becomes the unconditional map with probability
-    ``drop_cond_ratio`` (JAX ``train/train_step.py:90-100``)."""
+    """The draws of one step: one timestep per sample, or per clip of
+    ``frames_per_clip`` frames repeated over them, and one noise per view,
+    or per sample with ``train_with_same_noise``. With ``drop_cond_ratio``
+    > 0 the condition drop mask, and where the ControlNet has
+    ``use_uncond_map``, the map drop: each sample's map becomes the
+    unconditional map with probability ``drop_cond_ratio`` (JAX
+    ``train/train_step.py:58-100``)."""
     h, w = latent_hw
+    F = cfg.frames_per_clip or 1
+    if B % F:
+        raise ValueError(f"a batch of {B} frames is no whole number of "
+                         f"clips of frames_per_clip={F}")
     vae_noise = torch.randn((B * N, 4, h, w), generator=generator,
                             device=device)
-    t = ddpm.sample_timesteps(generator, B, schedule.num_train_timesteps,
-                              device)
-    noise = ddpm.noise_with_offset(generator, (B, N, 4, h, w),
-                                   cfg.noise_offset, device)
+    t = ddpm.sample_timesteps(generator, B // F,
+                              schedule.num_train_timesteps,
+                              device).repeat_interleave(F)
+    noise = ddpm.noise_with_offset(
+        generator, (B, 1 if cfg.train_with_same_noise else N, 4, h, w),
+        cfg.noise_offset, device)
     drop = map_drop = None
     if cfg.drop_cond_ratio > 0:
         drop = make_drop_mask(generator, B, N, cfg.drop_cond_ratio,
@@ -84,6 +97,14 @@ def loss_fn(modules, batch: Mapping[str, torch.Tensor], draws: StepDraws,
             cfg: TrainConfig, schedule: NoiseSchedule) -> torch.Tensor:
     """The fp32 MSE between the UNet's prediction and its target.
     ``batch`` as ``batch_tensors`` gives it."""
+    if not cfg.train_with_same_t:
+        # JAX's step hands the ControlNet timesteps of shape (B, N), which
+        # its repeat "b -> (b n)" rejects (JAX models/controlnet.py:259-263),
+        # so that option trains nowhere and has no semantics to port
+        raise NotImplementedError(
+            "train_with_same_t=False: the JAX package's train step raises "
+            "on it (its ControlNet takes one timestep per sample), so the "
+            "port has no semantics to restate")
     m = modules
     px = batch["pixel_values"]
     B, N = px.shape[:2]
@@ -95,7 +116,8 @@ def loss_fn(modules, batch: Mapping[str, torch.Tensor], draws: StepDraws,
     latents = latents.reshape(B, N, *latents.shape[1:])
     t = draws.timesteps
     t_full = t[:, None].expand(B, N)
-    noisy = ddpm.add_noise(schedule, latents, draws.noise, t_full)
+    noise = draws.noise.expand(latents.shape)
+    noisy = ddpm.add_noise(schedule, latents, noise, t_full)
     down, mid, tokens = m.controlnet(
         noisy, t, batch["camera_param"], text,
         batch["bev_map"].permute(0, 3, 1, 2), batch["bboxes"],
@@ -106,7 +128,7 @@ def loss_fn(modules, batch: Mapping[str, torch.Tensor], draws: StepDraws,
                  tokens.reshape(B * N, *tokens.shape[2:]),
                  down_block_additional_residuals=down,
                  mid_block_additional_residual=mid)
-    target = ddpm.prediction_target(schedule, latents, draws.noise, t_full,
+    target = ddpm.prediction_target(schedule, latents, noise, t_full,
                                     cfg.prediction_type)
     return ((eps.float().reshape(target.shape) - target.float()) ** 2).mean()
 

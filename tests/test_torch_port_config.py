@@ -89,13 +89,12 @@ def _same_fields(port, ref, where="preset"):
 
 
 # the JAX preset fields the port has no counterpart for: the UNet's launch
-# layout and checkpointing (the port has one layout and no checkpointing),
-# the ControlNet's training drop ratios (the port's TrainConfig), and the
+# layout (the port has one layout), the ControlNet's training drop ratios
+# (the port's TrainConfig), and the
 # options the port implements at one value (config._PORTED)
 _NOT_MIRRORED = {
     "unet.neighboring_attn_type": "add", "unet.zero_module_type":
     "zero_linear", "unet.neighbor_batched": False,
-    "unet.gradient_checkpointing": False, "unet.remat_policy": "dots",
     "controlnet.bbox.trainable_class_token": False,
     "controlnet.bbox.minmax_normalize": False,
     "controlnet.drop_cond_ratio": 0.25, "controlnet.drop_cam_num": 6,
@@ -126,7 +125,10 @@ def test_preset_from_config_matches_jax(overrides):
 
 
 def test_preset_from_config_matches_the_hand_made_presets():
-    """The configs' exps are the port's hand-made presets."""
+    """The configs' exps are the port's hand-made presets, but for the
+    remat policy: the config reader's default is "dots" and the presets'
+    None, as in the JAX package (either is inert without
+    gradient_checkpointing)."""
     from magicdrive_tpu_torch import config
     from magicdrive_tpu_torch.config_loader import compose
 
@@ -135,7 +137,15 @@ def test_preset_from_config_matches_the_hand_made_presets():
                         ("424x800", config.sd15mv_rawbox_424x800())):
         got = config.preset_from_config(compose(CONFIGS,
                                                 overrides=[f"exp={exp}"]))
-        assert dataclasses.replace(got, name=preset.name) == preset, exp
+        for u in (got.unet, got.controlnet.unet):
+            assert u.remat_policy == "dots" and not u.gradient_checkpointing
+        unet = dataclasses.replace(got.unet, remat_policy=None)
+        got = dataclasses.replace(
+            got, name=preset.name, unet=unet,
+            controlnet=dataclasses.replace(got.controlnet, unet=dataclasses.
+                                           replace(unet,
+                                                   neighboring_view_pair=None)))
+        assert got == preset, exp
 
 
 def test_preset_from_config_raises_for_unported_options():

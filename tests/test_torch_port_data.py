@@ -482,10 +482,10 @@ def test_viz_matches_jax(tree, indices):
                                   jimg.img_grid([want[0], want[1, :, :300]]))
 
 
-def test_build_datasets_matches_jax(tree, jax_native):
+def test_build_datasets_matches_jax(tree, jax_native, tmp_path):
     """nuScenes where the root holds the version (the maps rasterized by
     the native core, which "auto" picks in both packages), the fixture
-    scenes elsewhere; a configured map cache raises in the port."""
+    scenes elsewhere; a configured map cache read in both."""
     from magicdrive_tpu.config.loader import compose
     from tools.train import build_datasets as jbuild
 
@@ -507,8 +507,21 @@ def test_build_datasets_matches_jax(tree, jax_native):
             if k != "metas":
                 np.testing.assert_array_equal(got[i][k], v, err_msg=k)
     assert got[0]["bev_map"].shape == (400, 400, 8)
+    # a configured map cache (written by the JAX package) is read by both
+    from magicdrive_tpu.data.cache import build_cache
+    from magicdrive_tpu.data.map_raster import BEVRasterizer as JRas
+    from magicdrive_tpu.data.nuscenes import NuScenesIndex as JIndex
+
+    dc = cfg["dataset"]
+    path = str(tmp_path / "cache.h5")
+    build_cache(JIndex(tree[0], tree[1], classes=tuple(dc["object_classes"])),
+                JRas(tree[0], classes=tuple(dc["map_classes"]),
+                     object_classes=tuple(dc["object_classes"]),
+                     aux_data=tuple(dc["aux_data"]), backend="auto"),
+                path, progress=False)
     cfg = compose(cfgs, overrides=[
         f"dataset.dataset_root={tree[0]}", f"dataset.version={tree[1]}",
-        "dataset.cache_file.train=/some/cache.h5"])
-    with pytest.raises(NotImplementedError, match="cache"):
-        build_datasets(cfg)
+        f"dataset.cache_file.train={path}"])
+    (got, _), (want, _) = build_datasets(cfg), jbuild(cfg)
+    assert got.cache is not None and got.rasterizer is None
+    _assert_samples_equal(got[1], want[1])

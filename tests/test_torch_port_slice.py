@@ -216,9 +216,10 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def test_port_imports_no_jax():
-    """A process that imports the port (its training modules, the
-    given-view and video pipelines, the config loader, the nuScenes data
-    path, the viz, the run weights, the weight converter, the loader, the
+    """A process that imports the port (its training modules and 8-bit
+    optimizer, the given-view and video pipelines, the config loader, the
+    nuScenes data path with its flip, rot-scale-trans and cache, the native
+    codecs, the viz, the run weights, the weight converter, the loader, the
     demo fixtures, the FID layer and every CLI included), makes
     a request batch, runs a tiny forward and the backward of a transformer
     block through the kernels' autograd and a temporal block's forward
@@ -231,19 +232,22 @@ def test_port_imports_no_jax():
         from magicdrive_tpu_torch import torch_weights
         from magicdrive_tpu_torch.cli import (convert_weights, demo, fid,
                                               generate, interactive,
-                                              prepare_data, val_set_gen)
+                                              prepare_cache, prepare_data,
+                                              train as train_cli,
+                                              val_set_gen)
         from magicdrive_tpu_torch.config import tiny_debug
         from magicdrive_tpu_torch.data import loader, torch_fixtures
         from magicdrive_tpu_torch.eval import fid as eval_fid, inception
         from magicdrive_tpu_torch.convert import jax_params_to_state_dicts
         from magicdrive_tpu_torch.core.transformer import (
             BasicTransformerBlock)
-        from magicdrive_tpu_torch.data import (CollateConfig, bpe, caption,
-                                               collate_fn, datasets,
-                                               make_dataset, map_raster,
-                                               nuscenes, synth)
+        from magicdrive_tpu_torch.data import (CollateConfig, bpe, cache,
+                                               caption, collate_fn, datasets,
+                                               flip, make_dataset, map_raster,
+                                               nuscenes, rot_scale_trans,
+                                               synth)
         from magicdrive_tpu_torch.diffusion import ddpm, make_sampler_coeffs
-        from magicdrive_tpu_torch.native import raster
+        from magicdrive_tpu_torch.native import bitpack, gxx, raster
         from magicdrive_tpu_torch.utils import serialization
         from magicdrive_tpu_torch.kernels import autograd, build, dispatch
         from magicdrive_tpu_torch.pipeline.given_view import (
@@ -252,7 +256,7 @@ def test_port_imports_no_jax():
             MagicDriveModules, MagicDrivePipeline)
         from magicdrive_tpu_torch.pipeline.video import VideoPipeline
         from magicdrive_tpu_torch.train import (Runner, TrainConfig,
-                                                create_train_state,
+                                                adam8bit, create_train_state,
                                                 train_step)
         torch.set_num_threads(1)
         batch = collate_fn(make_dataset(1), CollateConfig(bbox_max_len=8))
@@ -272,7 +276,8 @@ def test_port_imports_no_jax():
                        torch.randn(6, 7, 16)).shape == (6, 10, 16)
         state = create_train_state(
             MagicDriveModules.create(tiny_debug(), device="cpu"),
-            TrainConfig(), device="cpu")
+            TrainConfig(use_8bit_adam=True, gradient_accumulation_steps=2),
+            device="cpu")
         assert len(state.masters) > 100
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "magicdrive_tpu"))
@@ -400,3 +405,46 @@ def test_convert_and_fid_clis_import_no_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     assert "tokens" in proc.stdout and "converted ->" in proc.stdout
+
+
+def test_train_clis_import_no_jax():
+    """``cli.prepare_cache`` on a synthetic nuScenes tree and ``cli.train``
+    on it (tiny_debug, one step, its checkpoint and weights) run on the CPU
+    in a process that loads no jax, flax or JAX package module. Tensorboard
+    is made unimportable there, as on a machine without it: where
+    tensorflow is installed, tensorboard's writer imports it, and
+    tensorflow may load jax itself."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        sys.modules["torch.utils.tensorboard"] = None
+        import torch
+        from magicdrive_tpu_torch.cli import prepare_cache, train
+        from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+        torch.set_num_threads(1)
+        with tempfile.TemporaryDirectory() as tmp:
+            root, version = make_mini_nuscenes(os.path.join(tmp, "nusc"))
+            path = prepare_cache.main(["--dataroot", root, "--version",
+                                       version, "--out", tmp + "/c.h5",
+                                       "--workers", "0"])
+            run = train.main([
+                "model=tiny_debug", "runner=debug",
+                "runner.mixed_precision=no", f"log_root_prefix={tmp}/runs",
+                f"dataset.dataset_root={root}", f"dataset.version={version}",
+                f"dataset.cache_file.train={path}",
+                "runner.max_train_steps=1", "runner.checkpointing_steps=1",
+                "runner.validation_before_run=false"], device="cpu")
+            assert run.state.step == 1 and run.runner.loader.dataset.cache
+            assert sorted(os.listdir(run.run_dir)) == [
+                "checkpoints", "metrics.jsonl", "overrides.yaml",
+                "run_config.yaml", "train.log", "weights"]
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "magicdrive_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert "cache written" in proc.stdout

@@ -33,7 +33,7 @@ def test_learning_rate_matches_optax_schedule():
     use) against optax's join of linear and constant schedules."""
     from magicdrive_tpu.train.state import make_lr_schedule
 
-    from magicdrive_tpu_torch.train.state import learning_rate
+    from magicdrive_tpu_torch.train.state import make_lr_schedule as port
 
     for warm in (0, 1, 4):
         jcfg, tcfg = _configs()
@@ -41,14 +41,14 @@ def test_learning_rate_matches_optax_schedule():
                                    max_train_steps=20)
         tcfg = dataclasses.replace(tcfg, lr_warmup_steps=warm,
                                    max_train_steps=20)
-        fn = make_lr_schedule(jcfg)
+        fn, learning_rate = make_lr_schedule(jcfg), port(tcfg)
         for count in range(25):
             # optax evaluates in fp32, the port in float64
-            np.testing.assert_allclose(learning_rate(tcfg, count),
+            np.testing.assert_allclose(learning_rate(count),
                                        float(fn(count)), rtol=1e-5,
                                        atol=1e-6 * tcfg.learning_rate,
                                        err_msg=(warm, count))
-    assert learning_rate(tcfg, 0) == 0.0  # warm-up starts from lr 0
+    assert learning_rate(0) == 0.0  # warm-up starts from lr 0
 
 
 def test_adamw_matches_optax_chain():
@@ -159,11 +159,36 @@ def _tiny_setup(dtype=torch.float32):
     return modules, cfg, state, batch
 
 
+def _tiny_runner(run_dir, mixed_precision, checkpointing_steps):
+    """A config-driven Runner of ``model=tiny_debug runner=debug`` on the
+    CPU (lr 1e-3 after a one-step warm-up, no validation), its state and
+    one fixture batch; the steps are driven through ``Runner.train``."""
+    from magicdrive_tpu_torch.cli.train import CONFIG_DIR
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.data import make_dataset
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+    from magicdrive_tpu_torch.train import Runner
+
+    cfg = compose(CONFIG_DIR, overrides=[
+        "model=tiny_debug", "runner=debug", "runner.learning_rate=1e-3",
+        "runner.lr_warmup_steps=1",
+        f"runner.mixed_precision={mixed_precision}",
+        f"runner.checkpointing_steps={checkpointing_steps}"])
+    preset = preset_from_config(cfg)
+    torch.manual_seed(0)
+    modules = MagicDriveModules.create(preset, device="cpu")
+    data = make_dataset(1, with_images=True)
+    runner = Runner(cfg, preset, modules, data, run_dir=run_dir,
+                    device="cpu")
+    batch = next(iter(runner.loader))
+    return runner, runner.init_state(), batch
+
+
 def test_runner_nan_guard_blocks_checkpoint(tmp_path, monkeypatch):
     """A NaN loss stops training before the state that produced it is
     checkpointed: the deferred check is drained ahead of every save."""
     import magicdrive_tpu_torch.train.runner as runner_mod
-    from magicdrive_tpu_torch.train import Runner
 
     real = runner_mod.train_step
 
@@ -172,26 +197,22 @@ def test_runner_nan_guard_blocks_checkpoint(tmp_path, monkeypatch):
         return dict(metrics, loss=metrics["loss"] * float("nan"))
 
     monkeypatch.setattr(runner_mod, "train_step", poisoned)
-    modules, cfg, state, batch = _tiny_setup()
-    runner = Runner(modules, cfg, str(tmp_path / "nanrun"),
-                    checkpointing_steps=1)
+    runner, state, batch = _tiny_runner(str(tmp_path / "nanrun"), "no", 1)
     with pytest.raises(RuntimeError, match="NaN/inf loss at step 1"):
-        runner.run(state, [batch] * 3, resume=False)
+        runner.train(state, [batch] * 3)
     assert runner.checkpoints() == []
 
 
 def test_runner_checkpoint_and_resume(tmp_path):
     """Two bf16 steps over fp32 masters with a checkpoint at step 2; a fresh
-    state resumes from it with the step, the masters and both moments, and
-    the run goes on to step 3. Frozen weights never move."""
-    from magicdrive_tpu_torch.train import Runner
-
+    state resumes from it with the step, the masters, both moments and both
+    counts, and the run goes on to step 3. Frozen weights never move."""
     run_dir = str(tmp_path / "run")
-    modules, cfg, state, batch = _tiny_setup(torch.bfloat16)
+    runner, state, batch = _tiny_runner(run_dir, "bf16", 2)
+    modules = runner.modules
     frozen = {k: t.clone() for k, t in modules.vae.state_dict().items()}
     init = {k: t.clone() for k, t in state.masters.items()}
-    Runner(modules, cfg, run_dir, checkpointing_steps=2).run(
-        state, [batch] * 2, resume=False)
+    runner.train(state, [batch] * 2)
     assert state.step == 2
     records = [json.loads(line) for line in
                open(os.path.join(run_dir, "metrics.jsonl"))]
@@ -201,18 +222,19 @@ def test_runner_checkpoint_and_resume(tmp_path):
     for k, t in modules.vae.state_dict().items():
         assert torch.equal(t, frozen[k]), k
 
-    modules2, cfg2, fresh, _ = _tiny_setup(torch.bfloat16)
-    runner = Runner(modules2, cfg2, run_dir, checkpointing_steps=2)
-    assert runner.restore(fresh)
+    runner2, fresh, _ = _tiny_runner(run_dir, "bf16", 2)
+    assert runner2.restore(fresh)
     assert fresh.step == 2 and fresh.opt.count == 2
+    assert fresh.opt.schedule_count == 2
     for a, b in ((fresh.masters, state.masters), (fresh.opt.mu, state.opt.mu),
                  (fresh.opt.nu, state.opt.nu)):
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k], b[k]), k
-    runner.run(fresh, [batch], resume=True)
+    runner2.train(fresh, [batch])
+    runner2.save(fresh)
     assert fresh.step == 3
-    assert [s for s, _ in runner.checkpoints()] == [2, 3]
+    assert [s for s, _ in runner2.checkpoints()] == [2, 3]
 
 
 def _step_calls(mode):
