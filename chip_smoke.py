@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases, each raising on failure (the script then exits non-zero and prints
-no result line):
+Phases, each raising on failure: the script then prints one line,
+``chip_smoke FAILED in <phase>: <type>: <message>``, exits non-zero and
+prints no result line. Each phase logs its wall seconds as it ends
+(``phase <name> s``).
   1. environment: a CUDA device, the torch/CUDA versions, the card's name
      and power limit from nvidia-smi;
   2. build: the hand-written kernels (magicdrive_tpu_torch/kernels/csrc),
@@ -13,6 +15,10 @@ no result line):
   3. kernel checks: K1-K4, K8 and the K8 pair at every shape the 224x400
      generation path gives them in either fused mode (bf16, B=1 with CFG:
      12 views), K1-K4 at the 16-frame video's (192 views, _video_cases),
+     K2 and the K8 pair also over the neighbour tables of TABLE_CASES (the
+     nuScenes ring in another camera order, two 3-camera triangles) at
+     L=1400 and 350, their ring rows printed beside their times under the
+     ring shift (log_pair_tables),
      and at the shapes the hi-res paths add (_hires_cases: K1 at
      L=5300 and 3128, one neighbour's call of the 424x800 K1 loop among
      them, K2 at L=3128 and 1350, K3 at M=12*5300 and 12*3128, K4 at
@@ -82,10 +88,19 @@ no result line):
      its step, a DDIM request, a request from the port's own CLIP output
      as prompt embeddings bitwise equal to the one from the ids, a B=2
      request from one latent, one guided step with the negative1
-     unconditional map and its per-call check) and given-view generation
+     unconditional map and its per-call check), given-view generation
      (run_given_view: view 1 of a request's encoded images given, with
      sub_noise_pred off and on; the given view bitwise its VAE round trip,
-     the others generated; the per-call check); after them the 16-frame
+     the others generated; the per-call check) and the other cross-view
+     forms and box-embedder options (run_cross_view_forms, the variants of
+     CROSS_VIEW_VARIANTS: "add" over the permuted ring with the gated
+     connector, trainable class tokens and min-max boxes; "add" over the
+     triangles; "concat" without a connector; "self": one request per
+     fused mode, "add" over the triangles under "kvstat" alone, with its
+     launch counts, the per-call check of a guided step per mode, a
+     profiled guided step, one training step with its launches, loss,
+     the trained set moved and every frozen weight bitwise unchanged, and
+     its per-call check); after them the 16-frame
      video, sd15mv_rawbox_video_16f at full width (run_video: B=1, 16
      frames of 6 views, N_REQUESTS requests under "kvstat", the peak
      memory, the per-call check at the UNet batch of 192, a profiled guided
@@ -146,7 +161,10 @@ no result line):
      profiler's trace, weights/ read by the generation loader equal to the
      masters (trainable) and the weights as built (frozen), the frozen
      weights as built; then phase 7's per-call check on one step of its
-     own batch (B=3) and on one guided step of its Validator; a second CLI
+     own batch (B=3) and on one guided step of its Validator, both with
+     the plain version at the kernel's bf16 casts as a floor (bf16_floor:
+     the nuScenes camera tokens put K1's plain bf16 version near
+     KERNEL_TOL from fp32); a second CLI
      run resumed from its checkpoints to step 6, whose state before step 5
      is the checkpoint's bitwise; ``cli.generate`` on the first run,
      bitwise a pipeline on its masters and frozen weights; the TrainConfig
@@ -349,11 +367,45 @@ _ATTENTION_CALLS = {
     "auto": ("fused_qkv_out_attention", "fused_qkv_out_attention_pair")}
 
 
-def training_calls(mode: str):
-    """The kernel wrappers a 224x400 training step calls under ``mode``."""
+def training_calls(mode: str, preset=None):
+    """The kernel wrappers a 224x400 training step calls under ``mode``;
+    with ``preset``, those ``expected_launches`` derives for one of its
+    steps (K6's two launches go through ``flash_attention_bwd``)."""
+    if preset is not None:
+        n = expected_launches(preset, mode, steps=1)
+        return tuple(k for k, v in n.items()
+                     if v and not k.startswith("flash_attention_bwd_")) + (
+            ("flash_attention_bwd",) if n["flash_attention_bwd_dq"] else ())
     k7 = ("fused_qkv_attention",) if mode == "auto" else ()
     return _ATTENTION_CALLS[mode] + ("fused_ff", "fused_geglu") + k7 + (
         "flash_attention_fwd", "flash_attention_bwd")
+
+
+# Neighbour tables besides the nuScenes ring (NUSCENES_NEIGHBORS): the ring
+# listed in another camera order, as a rig that numbers its cameras another
+# way gives it (0-1-4-3-5-2), and two 3-camera triangles, which is not a
+# permutation (view 2 is no view's first neighbour, view 0 that of two).
+# Phase 3 holds K2 and the K8 pair to their plain versions under each, and
+# the cross-view phase runs them through the model.
+PERMUTED_RING = ((1, 2), (4, 0), (0, 5), (5, 4), (3, 1), (2, 3))
+TRIANGLES = ((1, 2), (0, 2), (0, 1), (4, 5), (3, 5), (3, 4))
+TABLE_CASES = {"permuted table": PERMUTED_RING,
+               "table not a permutation": TRIANGLES}
+
+
+def view_table(pairs) -> torch.Tensor:
+    """The (2, n) int32 neighbour table of neighbour pairs, on the card, as
+    a BasicTransformerBlock holds it (row i: every view's i-th neighbour).
+    Made here, not by the block's ``neighbour_table``, so that
+    ``compare_trees`` can time a tree that has none."""
+    return torch.tensor(pairs, dtype=torch.int32).t().contiguous().cuda()
+
+
+def ring_table() -> torch.Tensor:
+    """The nuScenes ring's table on the card: (v + 5) % 6, (v + 1) % 6."""
+    from magicdrive_tpu_torch.config import NUSCENES_NEIGHBORS
+
+    return view_table(NUSCENES_NEIGHBORS)
 
 
 def _rnd(gen: torch.Generator):
@@ -366,7 +418,8 @@ def _rnd(gen: torch.Generator):
 def kernel_cases(gen: torch.Generator):
     """(kernel, shape label, args) at every shape the 224x400 paths give
     each kernel: 12 views (generation) or 6 (K7, which runs only in the
-    training backward), 8 heads; text context 1 + 77 + 160 tokens."""
+    training backward), 8 heads; text context 1 + 77 + 160 tokens; K2 and
+    the K8 pair over the nuScenes ring's table and over TABLE_CASES."""
     rnd = _rnd(gen)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
@@ -375,7 +428,10 @@ def kernel_cases(gen: torch.Generator):
         cases.append(("kvstat_attention", f"attn1 L={L} C={C}",
                       (x, x, *w, 8, (C // 8) ** -0.5)))
         cases.append(("kvstat_attention_pair", f"attn4 L={L} C={C}",
-                      (x, *w, 8, (C // 8) ** -0.5, (5, 1, 6))))
+                      (x, *w, 8, (C // 8) ** -0.5, ring_table())))
+        for what, pairs in TABLE_CASES.items():
+            cases.append(("kvstat_attention_pair", f"attn4 L={L} C={C} {what}",
+                          (x, *w, 8, (C // 8) ** -0.5, view_table(pairs))))
     x, ctx = rnd(12, 1400, 320), rnd(12, 238, 768)
     cases.append(("kvstat_attention", "attn2 L=1400 Lk=238 C=320",
                   (x, ctx, rnd(320, 320, scale=320 ** -0.5),
@@ -406,7 +462,7 @@ def _video_cases(rnd):
                       (x, x, *w, 8, (C // 8) ** -0.5)))
         cases.append(("kvstat_attention_pair",
                       f"video attn4 {V}x L={L} C={C}",
-                      (x, *w, 8, (C // 8) ** -0.5, (5, 1, 6))))
+                      (x, *w, 8, (C // 8) ** -0.5, ring_table())))
     x = rnd(V, 1400, 320)
     cases.append(("kvstat_attention", f"video attn2 {V}x L=1400 Lk=238",
                   (x, rnd(V, 238, 768), rnd(320, 320, scale=320 ** -0.5),
@@ -429,26 +485,26 @@ def _hires_cases(rnd):
     attn1 (L=3128), K2 at the 272x736 level 0 and the 424x800 level 1
     (L=1350), K3 at both level 0s, K4 at the 424x800 level 1, and K8 (attn1
     and attn2) and its pair at the 272x736 level 1 (L=782) under "auto"."""
-    from magicdrive_tpu_torch.kernels.reference import ring_views
-
     cases = []
     w = [rnd(320, 320, scale=320 ** -0.5) for _ in range(3)]
     x, x3 = rnd(12, 5300, 320), rnd(12, 3128, 320)
+    # the loop's first neighbour of each view: view (v + 5) % 6 of its sample
+    x_kv = x.unflatten(0, (-1, 6)).roll(-5, 1).flatten(0, 1)
     cases += [
         ("kvstat_attention", "attn1 L=5300 C=320", (x, x, *w, 8, 40 ** -0.5)),
         ("kvstat_attention", "attn4 one neighbour L=5300 C=320",
-         (x, ring_views(x, 5, 6), *w, 8, 40 ** -0.5)),
+         (x, x_kv, *w, 8, 40 ** -0.5)),
         ("kvstat_attention", "attn2 L=5300 Lk=238 C=320",
          (x, rnd(12, 238, 768), w[0], rnd(320, 768, scale=768 ** -0.5),
           rnd(320, 768, scale=768 ** -0.5), 8, 40 ** -0.5)),
         ("kvstat_attention", "attn1 L=3128 C=320",
          (x3, x3, *w, 8, 40 ** -0.5)),
         ("kvstat_attention_pair", "attn4 L=3128 C=320",
-         (x3, *w, 8, 40 ** -0.5, (5, 1, 6)))]
+         (x3, *w, 8, 40 ** -0.5, ring_table()))]
     x1 = rnd(12, 1350, 640)
     w6 = [rnd(640, 640, scale=640 ** -0.5) for _ in range(3)]
     cases += [("kvstat_attention_pair", "attn4 L=1350 C=640",
-               (x1, *w6, 8, 80 ** -0.5, (5, 1, 6))),
+               (x1, *w6, 8, 80 ** -0.5, ring_table())),
               ("fused_geglu", "geglu M=12*1350 C=640",
                (x1.reshape(-1, 640), rnd(5120, 640, scale=640 ** -0.5),
                 rnd(5120, scale=0.1)))]
@@ -466,7 +522,7 @@ def _hires_cases(rnd):
         ("fused_qkv_out_attention", "attn2 L=782 Lk=238 C=640",
          (x7, rnd(12, 238, 768), *w2, wo2, 8, 80 ** -0.5)),
         ("fused_qkv_out_attention_pair", "attn4 L=782 C=640",
-         (x7, *w7, wo, 8, 80 ** -0.5, (5, 1, 6)))]
+         (x7, *w7, wo, 8, 80 ** -0.5, ring_table()))]
 
 
 def _attention_weights(rnd, C, Ck=None):
@@ -477,8 +533,8 @@ def _attention_weights(rnd, C, Ck=None):
 
 
 def _out_cases(rnd):
-    """K8 and its pair at the generation shapes (12 views), K7 at the
-    training shapes (6 views)."""
+    """K8 and its pair at the generation shapes (12 views; the pair also
+    over TABLE_CASES), K7 at the training shapes (6 views)."""
     cases = []
     for L, C in ((1400, 320), (350, 640)):
         x = rnd(12, L, C)
@@ -488,9 +544,12 @@ def _out_cases(rnd):
             ("fused_qkv_out_attention", f"attn1 L={L} C={C}",
              (x, x, *w, wo, 8, sc)),
             ("fused_qkv_out_attention_pair", f"attn4 L={L} C={C}",
-             (x, *w, wo, 8, sc, (5, 1, 6))),
+             (x, *w, wo, 8, sc, ring_table())),
             ("fused_qkv_attention", f"6 views attn1 L={L} C={C}",
              (x[:6], x[:6], *w, 8, sc))]
+        cases += [("fused_qkv_out_attention_pair", f"attn4 L={L} C={C} {what}",
+                   (x, *w, wo, 8, sc, view_table(pairs)))
+                  for what, pairs in TABLE_CASES.items()]
     x, ctx = rnd(12, 1400, 320), rnd(12, 238, 768)
     *w, wo = _attention_weights(rnd, 320, 768)
     return cases + [
@@ -501,7 +560,9 @@ def _out_cases(rnd):
 
 
 def _f32(a):
-    return a.float() if torch.is_tensor(a) else a
+    """A floating tensor in fp32; integer tensors (a neighbour table) and
+    other arguments as they are."""
+    return a.float() if torch.is_tensor(a) and a.is_floating_point() else a
 
 
 def _outputs(out):
@@ -643,18 +704,19 @@ def composed_kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale):
     return _merge_heads(F.scaled_dot_product_attention(q, k, v, scale=scale))
 
 
-def composed_kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts):
+def composed_kvstat_attention_pair(x, wq, wk, wv, heads, scale, table):
     """K2's function as library calls: the projections once, then one
-    F.scaled_dot_product_attention per ring neighbour on the ring-indexed
-    k/v, the two outputs summed in fp32 and cast once."""
+    F.scaled_dot_product_attention per neighbour list on the k/v gathered
+    by the table, the two outputs summed in fp32 and cast once."""
     import torch.nn.functional as F
-    from magicdrive_tpu_torch.kernels.reference import ring_views
+    from magicdrive_tpu_torch.kernels.reference import take_views
 
-    s1, s2, n = shifts
-    q, k, v = (_heads(F.linear(x, w), heads) for w in (wq, wk, wv))
+    n = table.shape[1]
+    q, k, v = (F.linear(x, w) for w in (wq, wk, wv))
     o = sum(F.scaled_dot_product_attention(
-        q, ring_views(k, s, n), ring_views(v, s, n), scale=scale).float()
-        for s in (s1, s2))
+        _heads(q, heads), _heads(take_views(k, idx, n), heads),
+        _heads(take_views(v, idx, n), heads), scale=scale).float()
+        for idx in table)
     return _merge_heads(o.to(x.dtype))
 
 
@@ -669,13 +731,13 @@ def composed_fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout, heads,
 
 
 def composed_fused_qkv_out_attention_pair(x, wq, wk, wv, wout, heads, scale,
-                                          shifts):
+                                          table):
     """The K8 pair's function as library calls: K2's composition, then
     F.linear by Wout (no bias)."""
     import torch.nn.functional as F
 
     return F.linear(composed_kvstat_attention_pair(x, wq, wk, wv, heads,
-                                                   scale, shifts), wout)
+                                                   scale, table), wout)
 
 
 def _composed_gated(x, w1, b1):
@@ -745,9 +807,9 @@ def _out_project(name, args):
         x_q, x_kv, wq, wk, wv, wout, heads, scale = args
         o = dispatch.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
     else:
-        x, wq, wk, wv, wout, heads, scale, shifts = args
+        x, wq, wk, wv, wout, heads, scale, table = args
         o = dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
-                                           shifts)
+                                           table)
     lib = build.load()
     return lambda: dispatch._out_project(lib, o, wout), (o, wout)
 
@@ -929,7 +991,9 @@ def check_flash_depths() -> None:
 # padded to a multiple of 16: 16, 32, ..., 128), four of them padded; the
 # path takes 40 and 80 only. K7, K8 and the K8 pair run the same launcher.
 ATTENTION_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
-RING_SHIFTS = ((5, 1, 6), (1, 2, 6))
+# the rings of the depth checks: the nuScenes shifts (5, 1) and (1, 2), which
+# is not symmetric
+RING_SHIFTS = ((5, 1), (1, 2))
 # the out-projection's width in the depth checks: not a multiple of its
 # 64-column tile; at two heads of D=40 its depth H*D = 80 is not a multiple
 # of its 64-deep chunk either
@@ -940,7 +1004,7 @@ def check_attention_depths() -> None:
     """K1, K2, K7, K8 and the K8 pair at every depth of ATTENTION_DEPTHS, at
     a small shape with ragged q and key tails (200 and 150 rows against
     64-row tiles) and a C that is not a multiple of the projection's
-    32-column chunk, K2 and the K8 pair under both ring-shift sets, K8 and
+    32-column chunk, K2 and the K8 pair over both rings' tables, K8 and
     its pair out-projected to OUT_WIDTH columns, against their plain
     versions in fp32; the plain bf16 version's own distance from fp32 is
     printed beside each. The
@@ -951,6 +1015,7 @@ def check_attention_depths() -> None:
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(4))
+    rings = {s: reference.ring_table(s, 6).cuda() for s in RING_SHIFTS}
     B, Lq, Lk, C, Ck, H = 2, 200, 150, 72, 40, 2
 
     def gate(name, label, args):
@@ -973,11 +1038,11 @@ def check_attention_depths() -> None:
              (*args, wout, H, scale))
         x = rnd(6, Lk, C, scale=0.5)
         w = [rnd(HD, C, scale=C ** -0.5) for _ in range(3)]
-        for shifts in RING_SHIFTS:
-            label = f"6 views L={Lk} C={C} H={H} D={D} shifts={shifts}"
-            gate("kvstat_attention_pair", label, (x, *w, H, scale, shifts))
+        for shifts, table in rings.items():
+            label = f"6 views L={Lk} C={C} H={H} D={D} ring {shifts}"
+            gate("kvstat_attention_pair", label, (x, *w, H, scale, table))
             gate("fused_qkv_out_attention_pair", f"{label} C_out={OUT_WIDTH}",
-                 (x, *w, wout, H, scale, shifts))
+                 (x, *w, wout, H, scale, table))
 
 
 # The widths C of check_ff_widths: K3 (in C, inner 4C, out C) at one C for
@@ -1026,7 +1091,7 @@ def check_ff_widths() -> None:
 def autograd_cases(gen: torch.Generator):
     """(kernel, shape label, differentiable inputs, other arguments) at the
     shapes the training path gives K1-K4, K8 and the K8 pair: 6 views of 8
-    heads."""
+    heads; K2 and the K8 pair also over TABLE_CASES."""
     rnd = _rnd(gen)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
@@ -1036,7 +1101,10 @@ def autograd_cases(gen: torch.Generator):
         cases.append(("kvstat_attention", f"attn1 L={L} C={C}",
                       (x, x.clone(), *w), (8, sc)))
         cases.append(("kvstat_attention_pair", f"attn4 L={L} C={C}",
-                      (x, *w), (8, sc, (5, 1, 6))))
+                      (x, *w), (8, sc, ring_table())))
+        cases += [("kvstat_attention_pair", f"attn4 L={L} C={C} {what}",
+                   (x, *w), (8, sc, view_table(pairs)))
+                  for what, pairs in TABLE_CASES.items()]
     cases.append(("kvstat_attention", "attn2 L=1400 Lk=238 C=320",
                   (rnd(6, 1400, 320), rnd(6, 238, 768),
                    rnd(320, 320, scale=320 ** -0.5),
@@ -1057,7 +1125,10 @@ def autograd_cases(gen: torch.Generator):
         cases.append(("fused_qkv_out_attention", f"attn1 L={L} C={C}",
                       (x, x.clone(), *w), (8, sc)))
         cases.append(("fused_qkv_out_attention_pair", f"attn4 L={L} C={C}",
-                      (x, *w), (8, sc, (5, 1, 6))))
+                      (x, *w), (8, sc, ring_table())))
+        cases += [("fused_qkv_out_attention_pair", f"attn4 L={L} C={C} {what}",
+                   (x, *w), (8, sc, view_table(pairs)))
+                  for what, pairs in TABLE_CASES.items()]
     cases.append(("fused_qkv_out_attention", "attn2 L=1400 Lk=238 C=320",
                   (rnd(6, 1400, 320), rnd(6, 238, 768),
                    *_attention_weights(rnd, 320, 768)), (8, 40 ** -0.5)))
@@ -1232,24 +1303,43 @@ def _transformers(preset):
             yield unet, j, lengths[lvl], C, C // u.num_attention_heads
 
 
-# The kernel wrapper a route calls in one forward, and how often: the K1
-# and K8 loops call their kernel once per ring neighbour, the projected
-# route K5 (per neighbour in its loop)
-_CALLS_OF = {"kvstat": ("kvstat_attention", 1),
-             "out": ("fused_qkv_out_attention", 1),
-             "projected": ("flash_attention_fwd", 1)}
-_PAIR_CALLS_OF = {"kvstat": ("kvstat_attention_pair", 1),
-                  "out": ("fused_qkv_out_attention_pair", 1),
-                  "kvstat_loop": ("kvstat_attention", 2),
-                  "out_loop": ("fused_qkv_out_attention", 2),
-                  "projected_loop": ("flash_attention_fwd", 2)}
+# The kernel wrapper an attention calls in one forward by its route
+_CALLS_OF = {"kvstat": "kvstat_attention", "out": "fused_qkv_out_attention",
+             "projected": "flash_attention_fwd"}
+_PAIR_CALLS_OF = {"kvstat": "kvstat_attention_pair",
+                  "out": "fused_qkv_out_attention_pair"}
 
 
-def _add_calls(n, route, pair: bool, forwards: int) -> None:
-    """Count into ``n`` the kernel calls of ``forwards`` forwards of an
-    attention (a cross-view pair if ``pair``) that takes ``route``."""
-    kernel, per = (_PAIR_CALLS_OF if pair else _CALLS_OF)[route]
-    n[kernel] += per * forwards
+def attention_calls(route, neighbours: int = 0):
+    """(kernel wrapper, calls in one forward, branches in its backward) of
+    an attention that takes ``route``, None for SDPA. ``neighbours`` > 0
+    marks the cross-view "add" form over that many neighbour lists: the
+    pairs (K2, the K8 pair) call their kernel once for two branches, the
+    loops (``*_loop``) theirs once per list."""
+    if route is None:
+        return None
+    if neighbours and route in _PAIR_CALLS_OF:
+        return _PAIR_CALLS_OF[route], 1, 2
+    if neighbours:
+        return _CALLS_OF[route[:-len("_loop")]], neighbours, neighbours
+    return _CALLS_OF[route], 1, 1
+
+
+def cross_view_calls(unet_cfg, L: int, C: int, D: int, esize: int):
+    """``attention_calls`` of a UNet transformer's cross-view attention at
+    latent length L, by its form: "add" takes ``pair_route``'s over its k
+    neighbour lists, "concat" ``attention_route``'s with the k lists' views
+    end to end (Lk = k L) and "self" ``attention_route``'s over the (n l)
+    tokens of a sample."""
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    pairs = unet_cfg.neighboring_view_pair
+    n, k = len(pairs), len(pairs[0])
+    kind = unet_cfg.neighboring_attn_type
+    if kind == "add":
+        return attention_calls(dispatch.pair_route(L, C, D, esize, k), k)
+    lq, lk = (L, k * L) if kind == "concat" else (n * L, n * L)
+    return attention_calls(dispatch.attention_route(lq, lk, C, D, esize))
 
 
 def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
@@ -1259,20 +1349,19 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     ``mode``, derived from the block structure and the routing rules: per
     transformer at latent length L and width C, attn1 and attn2 (context
     1 + 77 + boxes, width max(C, 768)) take ``attention_route``'s kernel,
-    attn4 (UNet only) ``pair_route``'s (a loop calls its kernel once per
-    neighbour), and the FF takes K3 where ``ff_full_fusion_fits`` holds,
-    else K4. In a train step the backward of each K1 or K8 call, and of
-    each branch of a pair, runs K5 and K6 once, that of a projected
-    attention K6 alone (on its forward's o and lse), and K7 runs once per
-    call or branch of a K8 whose Wout trains (the ControlNet's and
-    attn4's). The only attention without a backward is attn1 of the UNet's
-    first transformer, whose input comes from frozen weights alone (the
-    trainable tokens enter at its attn2). With ``recompute`` (gradient
-    checkpointing) every transformer sits in a remat unit (the UNet's
-    down, mid and up blocks, the ControlNet's down and mid blocks), whose
-    forward runs again in the backward: each forward kernel call of a
-    train step launches twice, that attn1 included; the backward's K5, K6
-    and K7 do not change."""
+    attn4 (UNet only) that of its form (``cross_view_calls``), and the FF
+    takes K3 where ``ff_full_fusion_fits`` holds, else K4. In a train step
+    the backward of each K1 or K8 call, and of each branch of a pair or a
+    loop, runs K5 and K6 once, that of a projected attention K6 alone (on
+    its forward's o and lse), and K7 runs once per call or branch of a K8
+    whose Wout trains (the ControlNet's and attn4's). The only attention
+    without a backward is attn1 of the UNet's first transformer, whose
+    input comes from frozen weights alone (the trainable tokens enter at
+    its attn2). With ``recompute`` (gradient checkpointing) every
+    transformer sits in a remat unit (the UNet's down, mid and up blocks,
+    the ControlNet's down and mid blocks), whose forward runs again in the
+    backward: each forward kernel call of a train step launches twice,
+    that attn1 included; the backward's K5, K6 and K7 do not change."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     n = dict.fromkeys(dispatch.LAUNCHES, 0)
@@ -1281,26 +1370,27 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     ctx_dim = preset.unet.cross_attention_dim
     with dispatch.fused_mode(mode):
         for unet, j, L, C, D in _transformers(preset):
+            # (its calls, no backward, Wout trains)
             attentions = [
-                (dispatch.attention_route(L, L, C, D, esize), False,
-                 unet and j == 0),
-                (dispatch.attention_route(L, ctx, max(C, ctx_dim), D, esize),
-                 False, False)]
+                (attention_calls(dispatch.attention_route(L, L, C, D, esize)),
+                 unet and j == 0, not unet),
+                (attention_calls(dispatch.attention_route(
+                    L, ctx, max(C, ctx_dim), D, esize)), False, not unet)]
             if unet:
-                attentions.append((dispatch.pair_route(L, C, D, esize), True,
-                                   False))
-            for route, pair, no_backward in attentions:
-                if route is None:
+                attentions.append((cross_view_calls(preset.unet, L, C, D,
+                                                    esize), False, True))
+            for call, no_backward, wout_trains in attentions:
+                if call is None:
                     continue
-                _add_calls(n, route, pair, calls)
+                kernel, per_forward, branches = call
+                n[kernel] += per_forward * calls
                 if no_backward:
                     continue
-                branches = 2 if pair else 1
-                if not route.startswith("projected"):
+                if kernel != "flash_attention_fwd":
                     n["flash_attention_fwd"] += steps * branches
                 n["flash_attention_bwd_dq"] += steps * branches
                 n["flash_attention_bwd_dkv"] += steps * branches
-                if route in ("out", "out_loop") and (pair or not unet):
+                if kernel.startswith("fused_qkv_out") and wout_trains:
                     n["fused_qkv_attention"] += steps * branches
             ff = "fused_ff" if dispatch.ff_full_fusion_fits(
                 C, 4 * C, C, esize) else "fused_geglu"
@@ -1388,6 +1478,15 @@ def outside_remat(fn):
     return call
 
 
+def _relative(got, want, ref) -> float:
+    """The largest max|got - want| / max|ref| over the outputs, each output
+    held to its own ref's scale (a backward's dq, dk and dv apart)."""
+    return max((g.float() - w.float()).abs().max().item() /
+               max(r.float().abs().max().item(), 1e-30)
+               for g, w, r in zip(_outputs(got), _outputs(want),
+                                  _outputs(ref)))
+
+
 def _call_checker(stats, bf16_floor: bool = False):
     """``make`` for ``patched_kernels``: each call runs the kernel, then
     the plain version in fp32 on the same inputs, and raises if an output
@@ -1409,13 +1508,13 @@ def _call_checker(stats, bf16_floor: bool = False):
         def check(name, args, out):
             ref = plain(*map(_f32, args))
             err, scale = _worst(out, ref)
-            rel, limit = err / max(scale, 1e-30), KERNEL_TOL
+            rel, limit = _relative(out, ref, ref), KERNEL_TOL
             s = stats.setdefault(name, [0, 0.0] + [0.0, 0.0] * bf16_floor)
             s[0], s[1] = s[0] + 1, max(s[1], rel)
             if bf16_floor:
                 bf = plain(*args)
-                cast = _worst(bf, ref)[0] / max(scale, 1e-30)
-                own = _worst(out, bf)[0] / max(scale, 1e-30)
+                cast = _relative(bf, ref, ref)
+                own = _relative(out, bf, ref)
                 s[2], s[3] = max(s[2], own), max(s[3], cast)
                 limit = max(KERNEL_TOL, cast)
                 if not (np.isfinite(own) and own <= KERNEL_TOL):
@@ -1677,12 +1776,13 @@ def check_forced_routes(by_path) -> None:
         if route != "out_loop":
             raise AssertionError(f"OUT_LOOP_SHAPE takes the route {route}")
         want = dict.fromkeys(dispatch.LAUNCHES, 0)
-        for r, pair in ((dispatch.attention_route(L, L, C, C // H, 2), False),
-                        (dispatch.attention_route(L, CTX_TOKENS, CTX_DIM,
-                                                  C // H, 2), False),
-                        (route, True)):
-            if r is not None:
-                _add_calls(want, r, pair, 1)
+        for call in (attention_calls(dispatch.attention_route(
+                         L, L, C, C // H, 2)),
+                     attention_calls(dispatch.attention_route(
+                         L, CTX_TOKENS, CTX_DIM, C // H, 2)),
+                     attention_calls(route, 2)):
+            if call is not None:
+                want[call[0]] += call[1]
         want["fused_ff" if dispatch.ff_full_fusion_fits(C, 4 * C, C)
              else "fused_geglu"] += 1
         blk = BasicTransformerBlock(C, H, C // H, CTX_DIM,
@@ -1865,6 +1965,135 @@ def run_given_view(preset, pipe, batches, by_path, timing) -> None:
                 preset, "kvstat", forwards=2 * pipe.cfg.num_inference_steps))
         timing["s/request given view"] = seconds
         check_path_calls(preset, gv, batch, "kvstat")
+
+
+# The variants of run_cross_view_forms: (form, neighbour pairs, connector,
+# trainable class tokens, min-max boxes, the fused modes of its requests).
+# None of the pairs stands for the nuScenes ring.
+CROSS_VIEW_VARIANTS = {
+    "a_add_permuted": ("add", PERMUTED_RING, "gated", True, True,
+                       ("kvstat", "auto")),
+    "b_add_not_a_permutation": ("add", TRIANGLES, "zero_linear", False,
+                                False, ("kvstat",)),
+    "c_concat": ("concat", None, "none", False, False, ("kvstat", "auto")),
+    "d_self": ("self", None, "zero_linear", False, False, ("kvstat", "auto")),
+}
+
+
+def cross_view_preset(name: str):
+    """sd15mv_rawbox_224x400 in the cross-view variant ``name`` of
+    CROSS_VIEW_VARIANTS."""
+    import dataclasses
+
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+
+    form, pairs, connector, tokens, minmax, _ = CROSS_VIEW_VARIANTS[name]
+    p = sd15mv_rawbox_224x400()
+    unet = dataclasses.replace(
+        p.unet, neighboring_view_pair=pairs or p.unet.neighboring_view_pair,
+        neighboring_attn_type=form, zero_module_type=connector)
+    cn = dataclasses.replace(
+        p.controlnet, unet=dataclasses.replace(unet,
+                                               neighboring_view_pair=None),
+        bbox=dataclasses.replace(p.controlnet.bbox,
+                                 trainable_class_token=tokens,
+                                 minmax_normalize=minmax))
+    return dataclasses.replace(p, name=f"{p.name} {name}", unet=unet,
+                               controlnet=cn)
+
+
+def run_cross_view_forms(pipe, batches, by_path, timing, card: str) -> None:
+    """Each variant of CROSS_VIEW_VARIANTS at full width (the 224x400
+    model, bf16, seeded weights; the VAE and CLIP of ``pipe``, a UNet and a
+    ControlNet of the variant): one request per fused mode of the variant
+    (the images checked, the launch counts equal to the derived ones), the
+    per-call check of a guided step in each mode (KERNEL_TOL), a profiled
+    guided step under "kvstat"; then one training step under "kvstat" from
+    the recipe's optimizer without warm-up, on a fixture batch with images
+    (B=1): its launch counts, its loss finite, every trainable weight of the
+    UNet (norm4, attn4 and the connector, if any) and the trainable class
+    tokens moved, every frozen weight bitwise unchanged (snapshot after the
+    state casts the modules), and the per-call check of one more step."""
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_sample)
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.models.controlnet import BEVControlNet
+    from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
+    from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
+                                                        MagicDrivePipeline)
+    from magicdrive_tpu_torch.train import (TrainConfig, create_train_state,
+                                            train_step)
+
+    train_batch = None
+    for name, (form, _, connector, tokens, minmax, modes) in \
+            CROSS_VIEW_VARIANTS.items():
+        t0 = time.perf_counter()
+        preset = cross_view_preset(name)
+        log(f"cross-view {name}: {form} over "
+            f"{preset.unet.neighboring_view_pair}, connector {connector}, "
+            f"class tokens {'trained' if tokens else 'frozen'}, min-max "
+            f"boxes {minmax}")
+        with torch.device("cuda"):
+            new = {"unet": UNet2DConditionModel(preset.unet),
+                   "controlnet": BEVControlNet(preset.controlnet)}
+        init_weights(new, seed=0)
+        modules = MagicDriveModules(vae=pipe.m.vae, clip=pipe.m.clip, **new)
+        modules.to("cuda", torch.bfloat16)
+        vpipe = MagicDrivePipeline(modules, preset.pipeline)
+        for mode in modes:
+            with dispatch.fused_mode(mode):
+                by_path[f"cross_view_{name}_{mode}"], timing[
+                    f"s/request cross-view {name} {mode}"] = run_slice(
+                        preset, vpipe, batches[:1], mode)
+                check_path_calls(preset, vpipe, batches[0], mode,
+                                 what=f"cross-view {name}")
+                if mode == "kvstat":
+                    profile_guided_step(preset, vpipe, batches[0], mode)
+        del vpipe
+
+        if train_batch is None:
+            train_batch = collate_fn(
+                [make_sample(0, with_images=True)],
+                CollateConfig(bbox_max_len=preset.bbox_max_len))
+        cfg = TrainConfig(lr_warmup_steps=0)
+        state = create_train_state(modules, cfg)
+        frozen = _frozen(modules)  # at the dtype the state cast them to
+        masters0 = {k: t.clone() for k, t in state.masters.items()}
+        own = [k for k in masters0 if k.startswith("unet.") or
+               k.endswith("_class_tokens")]
+        what = f"cross-view {name} training step"
+        dispatch.reset_launches()
+        with dispatch.fused_mode("kvstat"):
+            metrics, s = _timed(lambda: train_step(
+                modules, state, train_batch, cfg,
+                generator=torch.Generator("cuda").manual_seed(13)))
+            by_path[f"cross_view_{name}_training"] = _check_launches(
+                f"{what} (kvstat)", expected_launches(preset, "kvstat",
+                                                      steps=1))
+        loss = float(metrics["loss"])
+        moved = _moved(masters0, state.masters, own)
+        changed = frozen_changed(modules, frozen)
+        log(f"{what} (kvstat): {s:.3f} s, loss {loss:.5f}, {moved} of "
+            f"{len(own)} trainable UNet and class-token weights moved, "
+            f"{_moved(masters0, state.masters)} of {len(masters0)} "
+            f"trainable weights in all; frozen weights changed: "
+            f"{len(changed)} of {len(frozen)}")
+        if not np.isfinite(loss) or not own or moved != len(own) or \
+                any(k.endswith("_class_tokens") for k in own) != tokens or \
+                any(".connector." in k for k in own) != (connector != "none"):
+            raise AssertionError(f"{what}: loss {loss}, trainable {own[:8]}, "
+                                 f"{moved} of {len(own)} moved")
+        if changed:
+            raise AssertionError(f"{what}: {len(changed)} frozen weights "
+                                 f"changed, e.g. {changed[:5]}")
+        with dispatch.fused_mode("kvstat"):
+            check_training_calls((modules, cfg, state, train_batch), "kvstat",
+                                 f"a {what}", preset=preset)
+        timing[f"s cross-view {name}"] = [time.perf_counter() - t0]
+        log(f"cross-view {name}: {timing[f's cross-view {name}'][0]:.1f} s "
+            f"({card})")
+        del modules, new, state, masters0, frozen
+        torch.cuda.empty_cache()
 
 
 CLI_INDICES = (0, 1)
@@ -2462,6 +2691,21 @@ def _frozen(modules):
             if not ((n, k) in params and is_trainable(n, k))}
 
 
+def frozen_changed(modules, frozen) -> list:
+    """The keys of ``_frozen(modules)`` that differ bitwise from the
+    snapshot ``frozen``; a snapshot taken at another dtype than the modules
+    hold now (before ``create_train_state`` casts them, say) raises, as its
+    every weight would differ."""
+    now = _frozen(modules)
+    cast = sorted(k for k, t in now.items() if t.dtype != frozen[k].dtype)
+    if cast:
+        raise AssertionError(
+            f"the frozen snapshot holds {len(cast)} weights at another dtype "
+            f"than the modules, e.g. {cast[0]}: {frozen[cast[0]].dtype} "
+            f"against {now[cast[0]].dtype}")
+    return [k for k, t in now.items() if not torch.equal(t, frozen[k])]
+
+
 def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
                  mode: str = "kvstat"):
     """``steps`` optimizer steps through the port's Runner, one at a time,
@@ -2487,18 +2731,23 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
             "exp=224x400", "runner.lr_warmup_steps=1",
             "runner.checkpointing_steps=100000"]), preset, modules,
             make_dataset(batch_size), run_dir=run_dir)
-        if runner.tcfg != cfg:
-            raise AssertionError(f"{runner.tcfg} != {cfg}")
-        for i in range(steps):
-            t0 = time.perf_counter()
-            runner.train(state, [batch])
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            if i == 0 and any(not torch.equal(state.masters[k], t)
-                              for k, t in masters0.items()):
-                raise AssertionError("a master moved at step 1 (lr 0)")
-        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        try:
+            if runner.tcfg != cfg:
+                raise AssertionError(f"{runner.tcfg} != {cfg}")
+            for i in range(steps):
+                t0 = time.perf_counter()
+                runner.train(state, [batch])
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if i == 0 and any(not torch.equal(state.masters[k], t)
+                                  for k, t in masters0.items()):
+                    raise AssertionError("a master moved at step 1 (lr 0)")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+        finally:
+            # the tensorboard writer's thread writes into run_dir until
+            # closed; removing the directory under it fails
+            runner.logger.close()
     launches = _check_launches(f"training ({mode})", expected_launches(
         preset, mode, steps=steps))
     peak = torch.cuda.max_memory_allocated()
@@ -2515,10 +2764,10 @@ def run_training(batch_size: int = 1, steps: int = N_TRAIN_STEPS,
     log(f"training: {moved} of {len(masters0)} trainable tensors moved")
     if moved < 0.9 * len(masters0):
         raise AssertionError("the trainable weights did not move")
-    changed = [k for k, t in _frozen(modules).items()
-               if not torch.equal(t, frozen[k])]
+    changed = frozen_changed(modules, frozen)
     if changed:
-        raise AssertionError(f"frozen weights changed: {changed[:5]}")
+        raise AssertionError(f"{len(changed)} frozen weights changed, e.g. "
+                             f"{changed[:5]}")
     return (modules, cfg, state, batch), launches, {
         "seconds": seconds, "peak_bytes": peak, "losses": losses}
 
@@ -2548,14 +2797,16 @@ def check_drop_all(setup) -> None:
         raise AssertionError(f"drop-all step loss {loss}")
 
 
-def check_training_calls(setup, mode, what: str = "one training step"
-                         ) -> None:
+def check_training_calls(setup, mode, what: str = "one training step",
+                         bf16_floor: bool = False, preset=None) -> None:
     """In one training step of ``setup`` (modules, TrainConfig, state,
     batch: the path's own), every kernel call (forward, recompute and
     backward) against its plain version in fp32 on the inputs the path
-    gave it; then the ControlNet gradient (and the temporal modules', where
-    the model has them) through the kernels against the one through the
-    plain versions, as a smoke test."""
+    gave it (``bf16_floor``: see ``_call_checker``; ``preset``: the model's
+    preset where it is not the 224x400 one, for ``training_calls``); then
+    the gradients of the ControlNet, of the cross-view modules and of the
+    temporal ones, where the model trains them, through the kernels
+    against those through the plain versions, as a smoke test."""
     from magicdrive_tpu_torch.diffusion import NoiseSchedule
     from magicdrive_tpu_torch.train.train_step import (batch_tensors,
                                                        loss_and_grads)
@@ -2564,9 +2815,9 @@ def check_training_calls(setup, mode, what: str = "one training step"
     draws = _fixed_draws(cfg, batch, 10)
     tensors = batch_tensors(batch, "cuda")
     schedule = NoiseSchedule.create()
-    names = training_calls(mode)
+    names = training_calls(mode, preset)
     stats = {}
-    with patched_kernels(_call_checker(stats), names):
+    with patched_kernels(_call_checker(stats, bf16_floor), names):
         loss_k, grads_k = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
     _report_calls(f"{what} ({mode})", stats, names)
@@ -2576,6 +2827,9 @@ def check_training_calls(setup, mode, what: str = "one training step"
                                          schedule)
     rels = {}
     for group, of in (("ControlNet", lambda k: k.startswith("controlnet.")),
+                      ("cross-view", lambda k: k.startswith("unet.") and any(
+                          f".{m}." in k for m in ("norm4", "attn4",
+                                                  "connector"))),
                       ("temporal", lambda k: "_temp" in k)):
         keys = [k for k in grads_k if of(k)]
         if keys:
@@ -2787,13 +3041,17 @@ def run_cli_training(by_path, timing, card: str, tmp: str, root: str,
     _check_cli_run("training CLI run 1", run1, preset, frozen, card, seconds,
                    logged=[1, 2, 3])
     validator = run1.runner.validator
+    # the nuScenes batch's camera tokens (|context| ~ 95) put K1's plain
+    # bf16 version itself near KERNEL_TOL from fp32: bf16_floor, as in
+    # run_generate_cli and run_evaluation
     with dispatch.fused_mode("kvstat"):
         check_training_calls(
             (run1.runner.modules, run1.runner.tcfg, run1.state, batches[0]),
             "kvstat", f"a training CLI step (B={len(batches[0]['input_ids'])}"
-            f", step 1's batch, step 4's weights)")
+            f", step 1's batch, step 4's weights)", bf16_floor=True)
         check_path_calls(preset, validator.pipe, validator.batch()[0],
-                         "kvstat", what="the training CLI's Validator")
+                         "kvstat", bf16_floor=True,
+                         what="the training CLI's Validator")
     del batches, validator
     ckpts = sorted(os.listdir(os.path.join(run1.run_dir, "checkpoints")))
     if ckpts != ["step_00000004.pt"]:
@@ -3210,14 +3468,25 @@ def time_kernels(requests: int = 2) -> dict:
     the tree has one) and the host-clock seconds of ``requests`` warm
     requests in each fused mode after one warm-up request, through the port
     this interpreter imports; printed as one JSON line. ``compare_trees``
-    runs it in another checkout."""
+    runs it in another checkout (one whose pair entries take the ring's
+    shifts times the pairs on the ring alone)."""
+    import inspect
+
     from magicdrive_tpu_torch.kernels import dispatch
 
+    # a tree from before the neighbour table takes the ring as shifts
+    shifts = "shifts" in inspect.signature(
+        dispatch.kvstat_attention_pair).parameters
+    ring = ring_table()
     rows = []
     for name, label, args in kernel_cases(
             torch.Generator(device="cuda").manual_seed(0)):
         if name not in REDESIGNED:
             continue
+        if shifts and name.endswith("_pair"):
+            if not torch.equal(args[-1], ring):
+                continue
+            args = (*args[:-1], (5, 1, 6))
         kern = getattr(dispatch, name)
         rows.append({"name": name, "shape": label,
                      "ms": cuda_ms(lambda: kern(*args))})
@@ -3249,8 +3518,8 @@ def compare_trees(other: str, requests: int = 2) -> None:
     Each turn is a process of its own that imports that tree's port and
     builds its kernels there; the timing code is this file's
     (``time_kernels``). Prints each turn's line, then each row's mean over
-    the two turns of each tree (a time only one tree has is printed
-    alone)."""
+    the two turns of each tree, rows matched by kernel and shape (a time
+    only one tree has is printed alone)."""
     environment()  # the card and its power limit, for the record
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(other)
@@ -3273,12 +3542,16 @@ def compare_trees(other: str, requests: int = 2) -> None:
         result = json.loads(proc.stdout.strip().splitlines()[-1])
         log(f"{label} ({tree}): {json.dumps(result)}")
         turns.append((label, result))
-    for i, row in enumerate(turns[0][1]["kernels"]):
-        means = {}
-        for side in ("other", "this"):
-            got = [r["kernels"][i] for s, r in turns if s == side]
-            means[side] = {k: sum(g[k] for g in got) / len(got)
-                           for k in got[0] if k.endswith("ms")}
+    # rows matched by kernel and shape: a tree from before the neighbour
+    # table has no rows over the other tables
+    for row in turns[1][1]["kernels"]:
+        means = {"other": {}, "this": {}}
+        for side in means:
+            got = [g for s, r in turns if s == side for g in r["kernels"]
+                   if (g["name"], g["shape"]) == (row["name"], row["shape"])]
+            if got:
+                means[side] = {k: sum(g[k] for g in got) / len(got)
+                               for k in got[0] if k.endswith("ms")}
         keys = sorted(set(means["other"]) | set(means["this"]))
         log(f"{row['name']} {row['shape']}: " + "; ".join(
             f"{k} other {means['other'][k]:.4f} this {means['this'][k]:.4f} "
@@ -3294,44 +3567,95 @@ def compare_trees(other: str, requests: int = 2) -> None:
                 for s in r["warm_s_per_request"][mode]))
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    """One phase of ``main``: its wall seconds logged when it ends. On any
+    exception it prints one line, ``chip_smoke FAILED in <name>: <type>:
+    <message>``, on stdout and lets the exception go on, so the exit code
+    stays non-zero, no later phase runs and no result line is printed."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    except BaseException as e:
+        msg = " ".join(str(e).split())
+        print(f"chip_smoke FAILED in {name}: {type(e).__name__}: "
+              f"{msg[:2000]}", flush=True)
+        raise
+    log(f"phase {name} s {time.perf_counter() - t0:.1f}")
+
+
+# K2 and the K8 pair on the nuScenes ring at L=1400 before the neighbour
+# table replaced the ring shift (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)
+RING_SHIFT_MS = {"kvstat_attention_pair": 0.5144,
+                 "fused_qkv_out_attention_pair": 0.5300}
+
+
+def log_pair_tables(rows) -> None:
+    """K2's and the K8 pair's rows at L=1400 and 350 over each table, the
+    ring's beside its time under the ring shift."""
+    for name, before in RING_SHIFT_MS.items():
+        got = {r["shape"]: r["ms"] for r in rows[name]
+               if r["shape"].startswith("attn4 L=")}
+        log(f"{name} by neighbour table (ms): " + ", ".join(
+            f"{shape} {ms:.4f}" for shape, ms in got.items()) +
+            f"; the ring at L=1400 {got['attn4 L=1400 C=320']:.4f} against "
+            f"{before} under the ring shift")
+
+
 def main() -> None:
     from magicdrive_tpu_torch.kernels import dispatch
 
-    card = environment()
-    build_kernels()
-    log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
-    rows = check_kernels()
-    rows.update(check_flash_kernels())
-    check_flash_depths()
-    check_attention_depths()
-    check_ff_widths()
-    log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
-        f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's error):")
-    check_autograd()
+    with phase("environment"):
+        card = environment()
+    with phase("build"):
+        build_kernels()
+    with phase("kernel checks"):
+        log("kernel checks (bf16 kernel vs fp32 plain version, TF32 off):")
+        rows = check_kernels()
+        rows.update(check_flash_kernels())
+        check_flash_depths()
+        check_attention_depths()
+        check_ff_widths()
+        log(f"autograd checks (bf16 kernel route vs fp32 plain backward, "
+            f"limit {GRAD_TOL} * max|ref| or the plain bf16 backward's "
+            f"error):")
+        check_autograd()
+        log_pair_tables(rows)
     by_path, timing = {}, {}
-    log("routes no bf16 preset reaches, at forced shapes:")
-    check_forced_routes(by_path)
-    preset, pipe, batches = set_up()
-    for mode in dispatch.FUSED_MODES:
-        with dispatch.fused_mode(mode):
-            by_path[f"generation_{mode}"], timing[f"s/request {mode}"] = \
-                run_slice(preset, pipe, batches, mode)
-            check_path_calls(preset, pipe, batches[0], mode)
-            check_eps(preset, pipe, batches[0], mode)
-            profile_guided_step(preset, pipe, batches[0], mode)
-    log("the pipeline's options (kvstat):")
-    run_options(preset, pipe, batches, by_path, timing)
-    log("given-view generation (kvstat):")
-    run_given_view(preset, pipe, batches, by_path, timing)
+    with phase("forced routes"):
+        log("routes no bf16 preset reaches, at forced shapes:")
+        check_forced_routes(by_path)
+    with phase("generation"):
+        preset, pipe, batches = set_up()
+        for mode in dispatch.FUSED_MODES:
+            with dispatch.fused_mode(mode):
+                by_path[f"generation_{mode}"], \
+                    timing[f"s/request {mode}"] = \
+                    run_slice(preset, pipe, batches, mode)
+                check_path_calls(preset, pipe, batches[0], mode)
+                check_eps(preset, pipe, batches[0], mode)
+                profile_guided_step(preset, pipe, batches[0], mode)
+    with phase("options"):
+        log("the pipeline's options (kvstat):")
+        run_options(preset, pipe, batches, by_path, timing)
+    with phase("given view"):
+        log("given-view generation (kvstat):")
+        run_given_view(preset, pipe, batches, by_path, timing)
+    with phase("cross-view forms"):
+        log("the other cross-view forms and the box-embedder options:")
+        run_cross_view_forms(pipe, batches, by_path, timing, card)
     del pipe
     torch.cuda.empty_cache()
-    log("the evaluation chain: conversion, the generation CLI, val-set "
-        "generation, FID; the map drop:")
-    run_evaluation(by_path, timing, card)
-    run_hires(by_path, timing)
-    run_video(by_path, timing)
+    with phase("evaluation"):
+        log("the evaluation chain: conversion, the generation CLI, val-set "
+            "generation, FID; the map drop:")
+        run_evaluation(by_path, timing, card)
+    with phase("hi-res"):
+        run_hires(by_path, timing)
+    with phase("video"):
+        run_video(by_path, timing)
     for mode in dispatch.FUSED_MODES:
-        with dispatch.fused_mode(mode):
+        with phase(f"training {mode}"), dispatch.fused_mode(mode):
             setup, by_path[f"training_{mode}"], run = run_training(mode=mode)
             timing[f"s/step {mode}"] = run["seconds"]
             if mode == "kvstat":
@@ -3340,23 +3664,26 @@ def main() -> None:
             profile_train_step(setup, mode)
         del setup
         torch.cuda.empty_cache()
-    log("the training CLI, its resume and export, the training options, "
-        "video training and the cache:")
-    run_train_cli(by_path, timing, card)
-    log(f"path times (the first of each includes one-time setup): {timing}")
-    log("whole K6 (its two launches, counted under their own names): " +
-        json.dumps(rows["flash_attention_bwd"]))
-    kernels = []
-    for n, (src, rep) in KERNELS.items():
-        worst = max(rows[n], key=lambda r: r["max_abs_err"])
-        launches = {path: counts[n] for path, counts in by_path.items()}
-        kernels.append({
-            "name": n, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(launches.values()), **worst,
-            "launches_by_path": launches, "shapes": rows[n]})
-    missing = [k["name"] for k in kernels if k["launches"] <= 0]
-    if missing:
-        raise AssertionError(f"kernels launched on no path: {missing}")
+    with phase("training CLI"):
+        log("the training CLI, its resume and export, the training options, "
+            "video training and the cache:")
+        run_train_cli(by_path, timing, card)
+    with phase("kernels line"):
+        log(f"path times (the first of each includes one-time setup): "
+            f"{timing}")
+        log("whole K6 (its two launches, counted under their own names): " +
+            json.dumps(rows["flash_attention_bwd"]))
+        kernels = []
+        for n, (src, rep) in KERNELS.items():
+            worst = max(rows[n], key=lambda r: r["max_abs_err"])
+            launches = {path: counts[n] for path, counts in by_path.items()}
+            kernels.append({
+                "name": n, "route": "cuda", "source": src, "replaces": rep,
+                "launches": sum(launches.values()), **worst,
+                "launches_by_path": launches, "shapes": rows[n]})
+        missing = [k["name"] for k in kernels if k["launches"] <= 0]
+        if missing:
+            raise AssertionError(f"kernels launched on no path: {missing}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

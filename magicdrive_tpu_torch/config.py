@@ -27,8 +27,16 @@ class UNetConfig:
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
     down_block_has_attn: Tuple[bool, ...] = (True, True, True, False)
-    # cross-view attention ("add" mode, zero_linear connector) when set
-    neighboring_view_pair: Optional[Tuple[Tuple[int, int], ...]] = None
+    # cross-view attention when set: k neighbours for each view, in the
+    # form neighboring_attn_type (add | concat | self), through the
+    # zero_module_type connector (zero_linear | gated | none), which the
+    # temporal attention takes too (core/transformer.py)
+    neighboring_view_pair: Optional[Tuple[Tuple[int, ...], ...]] = None
+    neighboring_attn_type: str = "add"
+    # the JAX package's "add" layout (one batched call or one per
+    # neighbour); it changes memory there and nothing here
+    neighbor_batched: bool = False
+    zero_module_type: str = "zero_linear"
     # video: attention over this many frames in every transformer block
     temporal_frames: Optional[int] = None
     # training: the UNet's down, up and mid blocks (the ControlNet's down
@@ -48,8 +56,13 @@ class BBoxEmbedderConfig:
     n_classes: int = 10
     class_token_dim: int = 768
     embedder_num_freq: int = 4
+    # the class tokens a parameter drawn from N(0, 1), else a frozen buffer
+    trainable_class_token: bool = False
     proj_dims: Tuple[int, ...] = (768, 512, 512, 768)
     mode: str = "all-xyz"      # all-xyz (8 corners) | cxyz (4 corners)
+    # corners mapped by (xyz - XYZ_MIN) / XYZ_RANGE before the Fourier
+    # embedding (models/embedders.py)
+    minmax_normalize: bool = False
 
     @property
     def n_points(self) -> int:
@@ -271,34 +284,15 @@ def small_parity(n_cam: int = 6) -> ModelPreset:
     )
 
 
-# values of the JAX package's model config that the port implements; a
-# config naming another raises rather than building a different model
-_PORTED = {
-    ("unet", "neighboring_attn_type"): ("add",),
-    ("unet", "zero_module_type"): ("zero_linear",),
-    ("bbox_embedder_param", "trainable_class_token"): (False,),
-    ("bbox_embedder_param", "minmax_normalize"): (False,),
-}
-
-
-def _check_ported(mc) -> None:
-    for (section, key), ok in _PORTED.items():
-        v = mc[section].get(key, ok[0])
-        if v not in ok:
-            raise NotImplementedError(
-                f"model.{section}.{key}={v!r}: the port implements only "
-                f"{ok} (ROADMAP Queue A)")
-
-
 def preset_from_config(cfg) -> ModelPreset:
     """A ModelPreset from a composed config tree (``config_loader.compose``
     over the repository's ``configs/``), as the JAX package's
-    ``preset_from_config`` builds it. The UNet's launch-layout keys and the
-    ControlNet's training drop ratios
-    (the port's ``TrainConfig``) have no field here; the UNet's
-    ``gradient_checkpointing`` and ``remat_policy`` (default "dots") do."""
+    ``preset_from_config`` builds it, every cross-view form and box-embedder
+    option included. The ControlNet's training drop ratios (the port's
+    ``TrainConfig``) have no field here; the UNet's ``neighbor_batched`` is
+    recorded and changes nothing; its ``gradient_checkpointing`` and
+    ``remat_policy`` (default "dots") are read."""
     mc, dc, rc = cfg["model"], cfg["dataset"], cfg["runner"]
-    _check_ported(mc)
     H, W = dc["image_size"]
     neighbors = tuple(tuple(p) for p in dc["neighboring_view_pair"])
     u = mc["unet"]
@@ -309,6 +303,9 @@ def preset_from_config(cfg) -> ModelPreset:
         cross_attention_dim=u["cross_attention_dim"],
         norm_num_groups=u["norm_num_groups"],
         neighboring_view_pair=neighbors,
+        neighboring_attn_type=u["neighboring_attn_type"],
+        neighbor_batched=bool(u.get("neighbor_batched", False)),
+        zero_module_type=u["zero_module_type"],
         gradient_checkpointing=bool(u.get("gradient_checkpointing", False)),
         remat_policy=u.get("remat_policy", "dots") or None)
     cn_c = mc["controlnet"]
@@ -326,9 +323,11 @@ def preset_from_config(cfg) -> ModelPreset:
         bbox=BBoxEmbedderConfig(
             n_classes=be["n_classes"],
             class_token_dim=be["class_token_dim"],
+            trainable_class_token=be["trainable_class_token"],
             embedder_num_freq=be["embedder_num_freq"],
             proj_dims=tuple(be["proj_dims"]),
-            mode=mc["bbox_mode"]),
+            mode=mc["bbox_mode"],
+            minmax_normalize=be["minmax_normalize"]),
         drop_cam_with_box=cn_c["drop_cam_with_box"],
         use_uncond_map=cn_c.get("use_uncond_map"))
     pp = rc["pipeline_param"]

@@ -2,11 +2,12 @@
 of ``core/transformer.py``).
 
 Sequences arrive flattened as (B*N_cam, L, C) with the views innermost.
-The cross-view attention runs in "add" mode over ring neighbours (view v
-reads views (v + s1) % n and (v + s2) % n) with a zero_linear connector.
-The video model's temporal attention runs over the frames of each view
-and position, the batch then laid out (B*F*N_cam) with views innermost,
-through a zero_linear connector of its own.
+The cross-view attention reads each view's neighbours through a table of
+view indices, in "add", "concat" or "self" form, through a zero_linear,
+gated or no connector (``BasicTransformerBlock``). The video model's
+temporal attention runs over the frames of each view and position, the
+batch then laid out (B*F*N_cam) with views innermost, through a connector
+of the same kind.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from torch import nn
 from magicdrive_tpu_torch.core.attention import Attention, sdpa
 from magicdrive_tpu_torch.core.resnet import GroupNorm
 from magicdrive_tpu_torch.kernels import autograd, dispatch
-from magicdrive_tpu_torch.kernels.reference import ring_views
+from magicdrive_tpu_torch.kernels.reference import take_views
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -60,13 +61,17 @@ class FeedForward(nn.Module):
         return out(autograd.fused_geglu(x, proj.weight, proj.bias))
 
 
-def ring_shift(idx: Sequence[int], n: int) -> Optional[int]:
-    """s such that idx[i] == (i + s) % n for every view i, else None."""
-    idx = list(idx)
-    if len(idx) != n:
-        return None
-    s = idx[0] % n
-    return s if all(j == (i + s) % n for i, j in enumerate(idx)) else None
+class GatedConnector(nn.Module):
+    """tanh(alpha) * x with alpha (dim,) zero at init, the tanh taken in fp32
+    and cast to x's dtype (JAX ``core/transformer.py`` ``GatedConnector``,
+    ref:blocks.py:24-32)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.alpha.float()).to(x.dtype) * x
 
 
 def _zero_linear(dim: int) -> nn.Linear:
@@ -76,41 +81,89 @@ def _zero_linear(dim: int) -> nn.Linear:
     return lin
 
 
+ATTN_TYPES = ("add", "concat", "self")
+ZERO_MODULE_TYPES = ("zero_linear", "gated", "none")
+
+
+def _connector(kind: str, dim: int) -> nn.Module:
+    """The zero-init module a cross-view or temporal output passes through
+    (ref:blocks.py:139-151): a zero linear, the gated tanh, or none (an
+    identity without parameters)."""
+    if kind == "zero_linear":
+        return _zero_linear(dim)
+    if kind == "gated":
+        return GatedConnector(dim)
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"zero_module_type {kind!r}: one of {ZERO_MODULE_TYPES}")
+
+
+def neighbour_table(neighboring_view_pair: Sequence[Sequence[int]]
+                    ) -> torch.Tensor:
+    """The (k, n) int32 table of a neighbour list, n views of k neighbours
+    each: row i holds every view's i-th neighbour."""
+    pairs = [list(p) for p in neighboring_view_pair]
+    n = len(pairs)
+    k = len(pairs[0]) if pairs else 0
+    if k < 1 or any(len(p) != k for p in pairs) or \
+            any(not 0 <= j < n for p in pairs for j in p):
+        raise ValueError(f"neighboring_view_pair: every one of the {n} views "
+                         f"takes the same number (>= 1) of neighbours among "
+                         f"them, got {neighboring_view_pair}")
+    return torch.tensor(pairs, dtype=torch.int32).t().contiguous()
+
+
 class BasicTransformerBlock(nn.Module):
     """Self-attention, text cross-attention, optional cross-view attention
-    (``attn4``, between attn2 and the FF, through a zero-init linear
+    (``attn4``, between attn2 and the FF, through the zero-init
     ``connector``), optional temporal attention over ``temporal_frames``
     frames (``attn_temp``, after the cross-view one, through the zero-init
     ``connector_temp``) and the GEGLU feed-forward, each pre-normed and
     residual. At init the zero connectors make the block the stock SD
-    block."""
+    block.
+
+    The cross-view attention takes ``neighboring_view_pair``, k neighbours
+    for each of the n views (the ``neighbors`` buffer, the (k, n) table),
+    in the form ``neighboring_attn_type`` (JAX ``core/transformer.py``
+    ``_cross_view``):
+      * "add": one attention per neighbour list, the outputs summed and
+        out-projected with the bias counted k times (ref:blocks.py:
+        213-217): K2 or the K8 pair where k = 2 and the pair's rule holds,
+        else one K1, K8, projected (K5) or SDPA attention per neighbour,
+        summed in the working dtype (``dispatch.pair_route``);
+      * "concat": one attention whose keys and values are the k neighbours'
+        views end to end (Lk = k L), routed as any attention, the bias once;
+      * "self": one attention over the (n l) tokens of a sample.
+    ``zero_module_type`` picks both connectors: a zero linear, the gated
+    tanh (``GatedConnector``) or none."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  cross_attention_dim: int,
                  neighboring_view_pair: Optional[
-                     Tuple[Tuple[int, int], ...]] = None,
-                 temporal_frames: Optional[int] = None):
+                     Tuple[Tuple[int, ...], ...]] = None,
+                 temporal_frames: Optional[int] = None,
+                 neighboring_attn_type: str = "add",
+                 zero_module_type: str = "zero_linear"):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
         self.attn1 = Attention(dim, n_heads, d_head)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = Attention(dim, n_heads, d_head,
                                cross_attention_dim=cross_attention_dim)
-        self.shifts = None
-        if neighboring_view_pair is not None:
-            n = len(neighboring_view_pair)
-            shifts = tuple(ring_shift([p[i] for p in neighboring_view_pair],
-                                      n) for i in range(2))
-            if any(len(p) != 2 for p in neighboring_view_pair) or \
-                    None in shifts:
-                raise ValueError("cross-view attention takes two ring "
-                                 f"neighbours per view, got "
-                                 f"{neighboring_view_pair}")
-            self.shifts = (*shifts, n)
+        self.cross_view = neighboring_view_pair is not None
+        if self.cross_view:
+            if neighboring_attn_type not in ATTN_TYPES:
+                raise ValueError(f"neighboring_attn_type "
+                                 f"{neighboring_attn_type!r}: one of "
+                                 f"{ATTN_TYPES}")
+            self.attn_type = neighboring_attn_type
+            self.register_buffer("neighbors",
+                                 neighbour_table(neighboring_view_pair),
+                                 persistent=False)
             self.norm4 = LayerNorm32(dim)
             self.attn4 = Attention(dim, n_heads, d_head,
                                    cross_attention_dim=dim)
-            self.connector = _zero_linear(dim)
+            self.connector = _connector(zero_module_type, dim)
         self.frames = None
         if temporal_frames is not None and temporal_frames > 1:
             # (frames, views): the batch is (B*F*n) with the views innermost
@@ -118,14 +171,14 @@ class BasicTransformerBlock(nn.Module):
                            if neighboring_view_pair else 1)
             self.norm_temp = LayerNorm32(dim)
             self.attn_temp = Attention(dim, n_heads, d_head)
-            self.connector_temp = _zero_linear(dim)
+            self.connector_temp = _connector(zero_module_type, dim)
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         x = self.attn1(self.norm1(x)) + x
         x = self.attn2(self.norm2(x), context) + x
-        if self.shifts is not None:
+        if self.cross_view:
             x = self.connector(self._cross_view(self.norm4(x))) + x
         if self.frames is not None:
             x = self.connector_temp(self._temporal(self.norm_temp(x))) + x
@@ -145,43 +198,42 @@ class BasicTransformerBlock(nn.Module):
             bfn, L, C)
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
-        """Sum over the two ring neighbours of separate attentions, out-
-        projected with the bias counted twice (ref:blocks.py:213-217): by
-        K2 and ``project_out``, by the K8 pair, or, where the pair's rule
-        fails, one attention per neighbour summed in the working dtype (JAX
-        ``core/transformer.py`` ``_cross_view``): K1's outputs then
-        ``project_out``, K8's out-projected outputs then the bias twice, or
-        the projected route's (or SDPA's) outputs then ``project_out``."""
-        a = self.attn4
-        s1, s2, n = self.shifts
-        L = h.shape[-2]
-        route = dispatch.pair_route(L, h.shape[-1], a.dim_head,
-                                    h.element_size())
+        """The cross-view attention of h (B*n, L, C), before the
+        connector."""
+        a, table = self.attn4, self.neighbors
+        k, n = table.shape
+        BN, L, C = h.shape
+        if self.attn_type == "self":
+            return a(h.reshape(BN // n, n * L, C)).reshape(BN, L, C)
+        if self.attn_type == "concat":
+            return a(h, take_views(h, table.t().reshape(-1), n).reshape(
+                BN, k * L, C))
+        route = dispatch.pair_route(L, C, a.dim_head, h.element_size(), k)
         w = (a.to_q.weight, a.to_k.weight, a.to_v.weight)
         lin = a.to_out[0]
         if route in ("out", "out_loop"):
             if route == "out":
                 y = autograd.fused_qkv_out_attention_pair(
-                    h, *w, lin.weight, a.heads, a.scale, self.shifts)
+                    h, *w, lin.weight, a.heads, a.scale, table)
             else:
                 y = sum(autograd.fused_qkv_out_attention(
-                    h, ring_views(h, s, n), *w, lin.weight, a.heads, a.scale)
-                    for s in (s1, s2))
-            return y if lin.bias is None else y + 2 * lin.bias
+                    h, take_views(h, idx, n), *w, lin.weight, a.heads,
+                    a.scale) for idx in table)
+            return y if lin.bias is None else y + k * lin.bias
         if route == "kvstat":
             o = autograd.kvstat_attention_pair(h, *w, a.heads, a.scale,
-                                               self.shifts)
+                                               table)
         elif route == "kvstat_loop":
-            o = sum(autograd.kvstat_attention(h, ring_views(h, s, n), *w,
+            o = sum(autograd.kvstat_attention(h, take_views(h, idx, n), *w,
                                               a.heads, a.scale)
-                    for s in (s1, s2))
+                    for idx in table)
         else:
             attend = autograd.flash_attention if route == "projected_loop" \
                 else sdpa
-            q, k, v = a.to_q(h), a.to_k(h), a.to_v(h)
-            o = sum(attend(q, ring_views(k, s, n), ring_views(v, s, n),
-                           a.heads, a.scale) for s in (s1, s2))
-        return a.project_out(o, n_summed=2)
+            q, kk, vv = a.to_q(h), a.to_k(h), a.to_v(h)
+            o = sum(attend(q, take_views(kk, idx, n), take_views(vv, idx, n),
+                           a.heads, a.scale) for idx in table)
+        return a.project_out(o, n_summed=k)
 
 
 class Transformer2DModel(nn.Module):
@@ -191,15 +243,17 @@ class Transformer2DModel(nn.Module):
     def __init__(self, n_heads: int, d_head: int, cross_attention_dim: int,
                  norm_num_groups: int,
                  neighboring_view_pair: Optional[
-                     Tuple[Tuple[int, int], ...]] = None,
-                 temporal_frames: Optional[int] = None):
+                     Tuple[Tuple[int, ...], ...]] = None,
+                 temporal_frames: Optional[int] = None,
+                 neighboring_attn_type: str = "add",
+                 zero_module_type: str = "zero_linear"):
         super().__init__()
         c = n_heads * d_head
         self.norm = GroupNorm(norm_num_groups, c, eps=1e-6)
         self.proj_in = nn.Conv2d(c, c, 1)
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(
             c, n_heads, d_head, cross_attention_dim, neighboring_view_pair,
-            temporal_frames)])
+            temporal_frames, neighboring_attn_type, zero_module_type)])
         self.proj_out = nn.Conv2d(c, c, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,16 @@ One ``torch.autograd.Function`` per JAX custom VJP:
     ``bf16(f32(q) * scale)``, k and v, then the flash backward (K6), and
     turns dq, dk and dv into the gradients of the hidden states and the
     weights (``_fused_bwd``);
-  * K2 (``_kvstat_pair_core``): the K1 backward once per ring neighbour on
-    the rolled views; dx_q and the weight gradients are summed over the two
-    branches and each branch's dx_kv returns through the inverse roll;
+  * K2 (``_kvstat_pair_core``): the K1 backward once per neighbour list on
+    the views it gathers; dx_q and the weight gradients are summed over the
+    two branches, and each branch's dx_kv is scatter-added back to the
+    views it was gathered from (``index_add_``: a view that is no view's
+    neighbour gets nothing, one that several views read gets their sum, as
+    ``jax.vjp`` of JAX's gather gives);
   * K8 (``_fused_core_out``): dy_heads = bf16(dy Wout) goes through the K1
     backward, and dWout = dy^T o_heads with o_heads recomputed by K7, which
     runs only when dWout is asked for (``_fused_out_bwd``); the K8 pair
-    (``_pair_core_out``) runs that once per ring neighbour, as K2, and sums
+    (``_pair_core_out``) runs that once per neighbour list, as K2, and sums
     the two dWout; it computes no K8 primal;
   * K5 (``_flash_core``, the projected route's attention): the backward
     is K6 on the forward's o and lse;
@@ -37,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import dispatch
-from .reference import ring_views
+from .reference import take_views
 
 Grads = Tuple[Optional[torch.Tensor], ...]
 
@@ -94,28 +97,36 @@ def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]
     return b if a is None else a + b
 
 
+def _scatter_views(dx: torch.Tensor, d_taken: torch.Tensor,
+                   idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The gradient of ``take_views(x, idx, n)``: ``d_taken`` (B*n, ...)
+    added into ``dx`` at the views it was gathered from."""
+    B = dx.shape[0] // n
+    return dx.reshape(B, n, *dx.shape[1:]).index_add(
+        1, idx, d_taken.reshape(B, n, *dx.shape[1:])).reshape(dx.shape)
+
+
 def kvstat_attention_pair_bwd(x: torch.Tensor, wq: torch.Tensor,
                               wk: torch.Tensor, wv: torch.Tensor, heads: int,
-                              scale: float, shifts: Tuple[int, int, int],
+                              scale: float, table: torch.Tensor,
                               dy: torch.Tensor,
                               needs: Sequence[bool] = (True,) * 4,
                               ops=dispatch) -> Grads:
-    """The backward of K2: (dx, dwq, dwk, dwv), None where ``needs`` is
-    False."""
-    s1, s2, n = shifts
+    """The backward of K2 over the neighbour ``table`` (2, n): (dx, dwq,
+    dwk, dwv), None where ``needs`` is False."""
+    n = table.shape[1]
     nx, nwq, nwk, nwv = needs
     dx_q = dwq = dwk = dwv = None
     dx_kv = []
-    for s in (s1, s2):
-        g = kvstat_attention_bwd(x, ring_views(x, s, n), wq, wk, wv, heads,
+    for idx in table:
+        g = kvstat_attention_bwd(x, take_views(x, idx, n), wq, wk, wv, heads,
                                  scale, dy, (nx, nx, nwq, nwk, nwv), ops)
         dx_q, dwq, dwk, dwv = (_add(a, b) for a, b in
                                zip((dx_q, dwq, dwk, dwv), g[:1] + g[2:]))
         dx_kv.append(g[1])
     if nx:
-        # ring_views(., -s) rolls by +s: the inverse of the branch's view map
-        dx_q = dx_q + ring_views(dx_kv[0], -s1, n) + \
-            ring_views(dx_kv[1], -s2, n)
+        for idx, d in zip(table, dx_kv):
+            dx_q = _scatter_views(dx_q, d, idx, n)
     return dx_q, dwq, dwk, dwv
 
 
@@ -138,20 +149,19 @@ def fused_qkv_out_attention_bwd(x_q: torch.Tensor, x_kv: torch.Tensor,
 def fused_qkv_out_attention_pair_bwd(x: torch.Tensor, wq: torch.Tensor,
                                      wk: torch.Tensor, wv: torch.Tensor,
                                      wout: torch.Tensor, heads: int,
-                                     scale: float,
-                                     shifts: Tuple[int, int, int],
+                                     scale: float, table: torch.Tensor,
                                      dy: torch.Tensor,
                                      needs: Sequence[bool] = (True,) * 5,
                                      ops=dispatch) -> Grads:
     """The backward of the K8 pair: (dx, dwq, dwk, dwv, dwout)."""
-    s1, s2, n = shifts
+    n = table.shape[1]
     dy_heads = (dy @ wout).to(x.dtype)
-    g = kvstat_attention_pair_bwd(x, wq, wk, wv, heads, scale, shifts,
+    g = kvstat_attention_pair_bwd(x, wq, wk, wv, heads, scale, table,
                                   dy_heads, needs[:4], ops)
     dwout = None
     if needs[4]:
-        for s in (s1, s2):
-            o = ops.fused_qkv_attention(x, ring_views(x, s, n), wq, wk, wv,
+        for idx in table:
+            o = ops.fused_qkv_attention(x, take_views(x, idx, n), wq, wk, wv,
                                         heads, scale)
             dwout = _add(dwout, _dw(dy, o))
     return (*g, dwout)
@@ -219,17 +229,17 @@ class KvstatAttention(torch.autograd.Function):
 
 class KvstatAttentionPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, wk, wv, heads, scale, shifts):
-        ctx.save_for_backward(x, wq, wk, wv)
-        ctx.heads, ctx.scale, ctx.shifts = heads, scale, shifts
+    def forward(ctx, x, wq, wk, wv, heads, scale, table):
+        ctx.save_for_backward(x, wq, wk, wv, table)
+        ctx.heads, ctx.scale = heads, scale
         return dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
-                                              shifts)
+                                              table)
 
     @staticmethod
     def backward(ctx, dy):
-        return (*kvstat_attention_pair_bwd(*ctx.saved_tensors, ctx.heads,
-                                           ctx.scale, ctx.shifts, dy,
-                                           ctx.needs_input_grad[:4]),
+        *ins, table = ctx.saved_tensors
+        return (*kvstat_attention_pair_bwd(*ins, ctx.heads, ctx.scale, table,
+                                           dy, ctx.needs_input_grad[:4]),
                 None, None, None)
 
 
@@ -251,16 +261,17 @@ class FusedQkvOutAttention(torch.autograd.Function):
 
 class FusedQkvOutAttentionPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wq, wk, wv, wout, heads, scale, shifts):
-        ctx.save_for_backward(x, wq, wk, wv, wout)
-        ctx.heads, ctx.scale, ctx.shifts = heads, scale, shifts
+    def forward(ctx, x, wq, wk, wv, wout, heads, scale, table):
+        ctx.save_for_backward(x, wq, wk, wv, wout, table)
+        ctx.heads, ctx.scale = heads, scale
         return dispatch.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
-                                                     heads, scale, shifts)
+                                                     heads, scale, table)
 
     @staticmethod
     def backward(ctx, dy):
+        *ins, table = ctx.saved_tensors
         return (*fused_qkv_out_attention_pair_bwd(
-            *ctx.saved_tensors, ctx.heads, ctx.scale, ctx.shifts, dy,
+            *ins, ctx.heads, ctx.scale, table, dy,
             ctx.needs_input_grad[:5]), None, None, None)
 
 
@@ -309,10 +320,9 @@ def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
 
 def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                           wk: torch.Tensor, wv: torch.Tensor, heads: int,
-                          scale: float, shifts: Tuple[int, int, int]
-                          ) -> torch.Tensor:
+                          scale: float, table: torch.Tensor) -> torch.Tensor:
     """K2 with its gradient (``dispatch.kvstat_attention_pair``)."""
-    return KvstatAttentionPair.apply(x, wq, wk, wv, heads, scale, shifts)
+    return KvstatAttentionPair.apply(x, wq, wk, wv, heads, scale, table)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,8 +362,8 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
 def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wout: torch.Tensor, heads: int, scale: float,
-                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
+                                 table: torch.Tensor) -> torch.Tensor:
     """The K8 pair with its gradient
     (``dispatch.fused_qkv_out_attention_pair``)."""
     return FusedQkvOutAttentionPair.apply(x, wq, wk, wv, wout, heads, scale,
-                                          shifts)
+                                          table)

@@ -33,8 +33,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mdk_kv_project": (_I, [_P] * 5 + [_I] * 5 + [_P]),
     "mdk_kvstat_attention": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "mdk_kvstat_attention_pair": (_I, [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3
-                                  + [_P]),
+    "mdk_kvstat_attention_pair": (_I, [_P] * 5 + [_I] * 5 + [_F, _P, _I,
+                                                               _P]),
     "mdk_geglu": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "mdk_ff": (_I, [_P] * 5 + [_I] * 4 + [_P]),
     "mdk_flash_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P]),

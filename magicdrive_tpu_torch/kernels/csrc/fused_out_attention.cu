@@ -9,9 +9,9 @@
 //    fused_qkv_out_attention): y = sum_h bf16(o_h) Wout_h^T, fp32
 //    accumulation, one cast, no bias, written as (B, Lq, C_out);
 //  * _fused_kernel_out2 (the K8 pair; launcher _pair_fwd_impl, entry
-//    fused_qkv_out_attention_pair): per head the two ring neighbours'
-//    normalised outputs summed in fp32 before the cast (K2's function), then
-//    as K8.
+//    fused_qkv_out_attention_pair): per head the two neighbours' normalised
+//    outputs summed in fp32 before the cast (K2's function over any
+//    neighbour table), then as K8.
 //
 // Design. The TPU kernels keep o in VMEM and recompute k/v per q block; both
 // are tile plans, not the contract. Here each is K1's or K2's launches

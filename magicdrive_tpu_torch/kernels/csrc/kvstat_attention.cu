@@ -195,7 +195,7 @@ int mdk_kvstat_attention(const void* xq, const void* wq, const void* k,
   return (int)mdk::launch_kvstat<1>(
       static_cast<const bf16*>(xq), static_cast<const bf16*>(wq),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Lq, C, Lk, H, D, scale, 0, 0, 1,
+      static_cast<bf16*>(out), B, Lq, C, Lk, H, D, scale, nullptr, 1,
       static_cast<cudaStream_t>(stream));
 }
 

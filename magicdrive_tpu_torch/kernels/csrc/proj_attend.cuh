@@ -246,10 +246,13 @@ __device__ __forceinline__ void proj_attend(
 
 // ---------------------------------------------------------------------------
 // K1 (NSRC == 1) and K2 (NSRC == 2): grid (q tiles of 64 rows, H, B), one
-// (batch, head, q tile) per block. Source i of batch b reads the k/v
-// workspace at batch (b // n) * n + (b % n + shift_i) % n, the ring map over
-// n views (K1: n = 1, batch b itself). The tile goes from registers to out
-// (B, Lq, H*D) at the head's columns.
+// (batch, head, q tile) per block. K1's block reads the k/v workspace of its
+// own batch b. K2's source i of batch b = (sample, view v) reads the
+// workspace of view table[i][v] of the same sample, batch
+// b - v + table[i][v]: table is the neighbour table, int32 [2][n_views] in
+// device memory, whose entries the caller has checked to lie in
+// [0, n_views). The nuScenes ring is the table (v + s_i) % n_views. The
+// tile goes from registers to out (B, Lq, H*D) at the head's columns.
 // ---------------------------------------------------------------------------
 
 // Two blocks an SM allow 255 registers a thread; ptxas's own cap spilled
@@ -259,14 +262,15 @@ __global__ void __launch_bounds__(tile::PA_THREADS, 2)
 kvstat_kernel(const bf16* __restrict__ xq, const bf16* __restrict__ wq,
               const bf16* __restrict__ kws, const bf16* __restrict__ vws,
               bf16* __restrict__ out, int Lq, int C, int Lk, int H, int D,
-              float scale, int shift0, int shift1, int n_views) {
+              float scale, const int* __restrict__ table, int n_views) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = blockIdx.x * tile::PA_BQ, h = blockIdx.y, b = blockIdx.z;
-  auto head = [&](int shift) {
-    const int kb = (b / n_views) * n_views + (b % n_views + shift) % n_views;
+  auto head = [&](int i) {
+    const int v = b % n_views;
+    const int kb = NSRC == 1 ? b : b - v + __ldg(table + i * n_views + v);
     return ((long)kb * H + h) * Lk * D;
   };
-  const long s0 = head(shift0), s1 = NSRC == 2 ? head(shift1) : s0;
+  const long s0 = head(0), s1 = NSRC == 2 ? head(1) : s0;
   float o[DP / 8][4];
   tile::proj_attend<DP, NSRC>(smem, xq + (long)b * Lq * C,
                               wq + (long)h * D * C, kws + s0, vws + s0,
@@ -281,14 +285,14 @@ static cudaError_t launch_kvstat_dp(dim3 grid, const bf16* xq,
                                     const bf16* wq, const bf16* k,
                                     const bf16* v, bf16* out, int Lq, int C,
                                     int Lk, int H, int D, float scale,
-                                    int shift0, int shift1, int n_views,
+                                    const int* table, int n_views,
                                     cudaStream_t stream) {
   auto kern = kvstat_kernel<DP, NSRC>;
   const size_t bytes = tile::ProjAttendSmem<DP, NSRC>::BYTES;
   const cudaError_t e = allow_smem(kern, bytes);
   if (e != cudaSuccess) return e;
   kern<<<grid, tile::PA_THREADS, bytes, stream>>>(
-      xq, wq, k, v, out, Lq, C, Lk, H, D, scale, shift0, shift1, n_views);
+      xq, wq, k, v, out, Lq, C, Lk, H, D, scale, table, n_views);
   return cudaGetLastError();
 }
 
@@ -296,19 +300,19 @@ template <int NSRC>
 static cudaError_t launch_kvstat(const bf16* xq, const bf16* wq,
                                  const bf16* k, const bf16* v, bf16* out,
                                  int B, int Lq, int C, int Lk, int H, int D,
-                                 float scale, int shift0, int shift1,
+                                 float scale, const int* table,
                                  int n_views, cudaStream_t stream) {
   // rows of C and of D bf16 are whole 16-byte vectors for cp.async
   if (B <= 0 || B > 65535 || Lq <= 0 || Lk <= 0 || C <= 0 || C % 8 ||
       H <= 0 || H > 65535 || D <= 0 || D > 128 || D % 8 || n_views <= 0 ||
-      B % n_views || shift0 < 0 || shift1 < 0 ||
+      B % n_views || (NSRC == 2 && table == nullptr) ||
       !aligned16({xq, wq, k, v, out}))
     return cudaErrorInvalidValue;
   const dim3 grid((Lq + tile::PA_BQ - 1) / tile::PA_BQ, H, B);
 #define MDK_KVSTAT_CASE(DPV)                                                \
   case DPV:                                                                 \
     return launch_kvstat_dp<DPV, NSRC>(grid, xq, wq, k, v, out, Lq, C, Lk,  \
-                                       H, D, scale, shift0, shift1, n_views, \
+                                       H, D, scale, table, n_views,         \
                                        stream);
   switch ((D + 15) / 16 * 16) {
     MDK_KVSTAT_CASE(16)

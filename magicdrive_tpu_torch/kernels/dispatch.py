@@ -19,9 +19,10 @@ ints, so both packages send each shape to the same kernel:
   * ``fused_mode_for`` then picks K1 ("kvstat") or K8 ("out") by the JAX
     package's VMEM fit rules under ``FUSED_MODE`` (``core/attention.py``
     ``fused_mode_for``), or neither: the projected route, the module's
-    projections and then K5; the cross-view pair takes K2 or the K8 pair
-    where its own rule holds, else one K1, K8 or projected attention per
-    neighbour (``core/transformer.py`` ``_cross_view``);
+    projections and then K5; the cross-view "add" attention over two
+    neighbour lists takes K2 or the K8 pair where the pair's own rule
+    holds, else one K1, K8 or projected attention per neighbour
+    (``core/transformer.py`` ``_cross_view``);
   * K3 takes the FeedForward where ``ff_full_fusion_fits`` holds, K4 every
     other one (``core/transformer.py`` ``FeedForward``).
 """
@@ -179,17 +180,21 @@ def attention_route(Lq: int, Lk: int, C: int, dim_head: int,
     return fused_mode_for(Lq, Lk, C, dim_head, esize) or "projected"
 
 
-def pair_route(L: int, C: int, dim_head: int, esize: int) -> Optional[str]:
-    """The kernel of the cross-view pair ("add" mode, two ring neighbours):
-    None (SDPA), "kvstat" (K2) or "out" (the K8 pair) where the pair's own
-    rule holds, else one attention per neighbour, summed in the working
-    dtype (``core/transformer.py`` ``_cross_view``): "kvstat_loop" (K1
-    twice), "out_loop" (K8 twice) or "projected_loop" (K5 twice)."""
+def pair_route(L: int, C: int, dim_head: int, esize: int,
+               neighbours: int = 2) -> Optional[str]:
+    """The kernel of the cross-view "add" attention over ``neighbours``
+    neighbour lists: None (SDPA per neighbour), "kvstat" (K2) or "out" (the
+    K8 pair) where there are two lists and the pair's own rule holds, else
+    one attention per neighbour, summed in the working dtype
+    (``core/transformer.py`` ``_cross_view``): "kvstat_loop" (K1 per
+    neighbour), "out_loop" (K8 per neighbour) or "projected_loop" (K5 per
+    neighbour)."""
     mode = attention_route(L, L, C, dim_head, esize)
     if mode == "projected":
         return "projected_loop"
     fits = {"kvstat": kvstat_pair_fits, "out": pair_is_efficient}
-    if mode is not None and not fits[mode](L, L, C, dim_head, esize):
+    if mode is not None and (neighbours != 2 or
+                             not fits[mode](L, L, C, dim_head, esize)):
         return mode + "_loop"
     return mode
 
@@ -275,37 +280,55 @@ def _out_project(lib, o, wout):
     return y
 
 
-def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, shifts=None):
+def check_table(name: str, table: torch.Tensor, x: torch.Tensor) -> None:
+    """Raise unless a pair entry's neighbour table is int32 (2, n),
+    contiguous, on x's device, with n dividing x's batch and every entry in
+    [0, n). The entries are read to the host once per table and per
+    in-place change of it, not on every call."""
+    if table.dim() != 2 or table.shape[0] != 2 or table.shape[1] < 1 or \
+            table.dtype != torch.int32 or table.device != x.device or \
+            not table.is_contiguous() or x.shape[0] % table.shape[1]:
+        raise ValueError(
+            f"{name}: the neighbour table takes a contiguous int32 (2, n) "
+            f"tensor on {x.device}, n dividing the batch {x.shape[0]}; got "
+            f"{table.dtype} {tuple(table.shape)} on {table.device}")
+    n = table.shape[1]
+    seen = (n, None if table.is_inference() else table._version)
+    if getattr(table, "_checked_for", None) != seen:
+        if int(table.min()) < 0 or int(table.max()) >= n:
+            raise ValueError(f"{name}: neighbour table entries outside "
+                             f"[0, {n}): {table.tolist()}")
+        table._checked_for = seen
+
+
+def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, table=None):
     """One projection-fused attention, counted once under ``name``: k and v
     projected once by K1's projection kernel, then the heads by K1's kernel
-    (with ``shifts``, K2's: the ring pair, x_kv being x_q itself) into
+    (with ``table``, K2's: the pair, x_kv being x_q itself, neighbour i of
+    view v read from view table[i, v] of the same sample) into
     (B, Lq, H*D), and with ``wout`` that output out-projected into
     (B, Lq, C_out). K7 is K1's launches; K8 and its pair add the
-    out-projection."""
+    out-projection. The pair entries have checked ``table``."""
     from . import build
 
     _check(name, x_q, x_kv, wq, wk, wv, wout)
     B, Lq, C = x_q.shape
     D = wq.shape[0] // heads
-    bad = x_kv.shape[0] != B or wq.shape != (heads * D, C) or \
-        wk.shape != (heads * D, x_kv.shape[2]) or wv.shape != wk.shape or \
-        (wout is not None and (wout.dim() != 2 or
-                               wout.shape[1] != heads * D))
-    if shifts is not None:
-        s1, s2, n = shifts
-        bad |= B % n != 0 or not (0 <= s1 < n and 0 <= s2 < n)
-    if bad:
+    if x_kv.shape[0] != B or wq.shape != (heads * D, C) or \
+            wk.shape != (heads * D, x_kv.shape[2]) or wv.shape != wk.shape or \
+            (wout is not None and (wout.dim() != 2 or
+                                   wout.shape[1] != heads * D)):
         raise ValueError(f"{name}: shapes do not agree")
     lib = build.load()
     k, v = _project_kv(lib, x_kv, wk, wv, heads)  # once for every view
     o = torch.empty(B, Lq, heads * D, dtype=x_q.dtype, device=x_q.device)
     ptrs = (_ptr(x_q), _ptr(wq), _ptr(k), _ptr(v), _ptr(o))
-    if shifts is None:
+    if table is None:
         _run(lib.mdk_kvstat_attention, *ptrs, B, Lq, C, x_kv.shape[1], heads,
              D, float(scale), _stream())
     else:
         _run(lib.mdk_kvstat_attention_pair, *ptrs, B, Lq, C, heads, D,
-             float(scale), *shifts, _stream())
+             float(scale), _ptr(table), table.shape[1], _stream())
     if wout is not None:
         o = _out_project(lib, o, wout)
     LAUNCHES[name] += 1
@@ -326,15 +349,17 @@ def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
 
 def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                           wv: torch.Tensor, heads: int, scale: float,
-                          shifts: Tuple[int, int, int]) -> torch.Tensor:
-    """K2: the cross-view pair. Views of x (B, L, C), B a multiple of n,
-    attend to their ring neighbours (v + s1) % n and (v + s2) % n with
-    separate softmaxes; the two outputs are summed. -> (B, L, H*D)."""
+                          table: torch.Tensor) -> torch.Tensor:
+    """K2: the cross-view pair. View v of each sample of x (B, L, C), B a
+    multiple of n, attends to views table[0, v] and table[1, v] of the same
+    sample, ``table`` the (2, n) int32 neighbour table, with separate
+    softmaxes; the two outputs are summed. -> (B, L, H*D)."""
+    check_table("kvstat_attention_pair", table, x)
     if _on_cpu(x):
         return reference.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
-                                               shifts)
+                                               table)
     return _attention("kvstat_attention_pair", x, x, wq, wk, wv, None, heads,
-                      scale, shifts)
+                      scale, table)
 
 
 def fused_qkv_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
@@ -367,14 +392,16 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
 def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wout: torch.Tensor, heads: int, scale: float,
-                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
-    """The K8 pair: K2's two ring-neighbour attentions summed in fp32 and
-    cast once, then out-projected as K8 without the bias -> (B, L, C_out)."""
+                                 table: torch.Tensor) -> torch.Tensor:
+    """The K8 pair: K2's two neighbour attentions over ``table`` summed in
+    fp32 and cast once, then out-projected as K8 without the bias
+    -> (B, L, C_out)."""
+    check_table("fused_qkv_out_attention_pair", table, x)
     if _on_cpu(x):
         return reference.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
-                                                      heads, scale, shifts)
+                                                      heads, scale, table)
     return _attention("fused_qkv_out_attention_pair", x, x, wq, wk, wv, wout,
-                      heads, scale, shifts)
+                      heads, scale, table)
 
 
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor,

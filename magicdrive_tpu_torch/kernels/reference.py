@@ -19,7 +19,7 @@ holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,22 +85,32 @@ def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
     return _attend(q, k, v, heads).to(x_q.dtype)
 
 
-def ring_views(t: torch.Tensor, shift: int, n: int) -> torch.Tensor:
-    """out[(b, v)] = t[(b, (v + shift) % n)] on a flattened (B*n, ...)
-    batch: the neighbour each view reads in the cross-view ring."""
-    return t.reshape(t.shape[0] // n, n, *t.shape[1:]).roll(
-        -shift, dims=1).reshape(t.shape)
+def ring_table(shifts: Sequence[int], n: int) -> torch.Tensor:
+    """The neighbour table of a ring over n views: row i lists
+    (v + shifts[i]) % n for v = 0..n-1 (int32, on the CPU)."""
+    return torch.tensor([[(v + s) % n for v in range(n)] for s in shifts],
+                        dtype=torch.int32)
+
+
+def take_views(t: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Views gathered by a neighbour list on a flattened (B*n, ...) batch
+    of n views a sample: out[(b, j)] = t[(b, idx[j])], (B*m, ...) for m
+    indices (JAX ``core/transformer.py`` ``_take_views``)."""
+    tv = t.reshape(t.shape[0] // n, n, *t.shape[1:])
+    return tv.index_select(1, idx).reshape(-1, *t.shape[1:])
 
 
 def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                           wv: torch.Tensor, heads: int, scale: float,
-                          shifts: Tuple[int, int, int]) -> torch.Tensor:
-    """K2. sum over the two ring neighbours s1, s2 of n views of separate
-    softmax attentions, summed in fp32: x (B, L, C) -> (B, L, H*D)."""
-    s1, s2, n = shifts
+                          table: torch.Tensor) -> torch.Tensor:
+    """K2. The sum over the two neighbour lists of ``table`` (2, n) of
+    separate softmax attentions, summed in fp32: view v of a sample attends
+    to k and v projected from views table[0, v] and table[1, v] of the same
+    sample. x (B, L, C), B a multiple of n -> (B, L, H*D)."""
+    n = table.shape[1]
     q, k, v = _project(x, x, wq, wk, wv, scale)
-    o = sum(_attend(q, ring_views(k, s, n), ring_views(v, s, n), heads)
-            for s in (s1, s2))
+    o = sum(_attend(q, take_views(k, idx, n), take_views(v, idx, n), heads)
+            for idx in table)
     return o.to(x.dtype)
 
 
@@ -128,10 +138,10 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
 def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  wk: torch.Tensor, wv: torch.Tensor,
                                  wout: torch.Tensor, heads: int, scale: float,
-                                 shifts: Tuple[int, int, int]) -> torch.Tensor:
+                                 table: torch.Tensor) -> torch.Tensor:
     """The K8 pair. K2's output (the fp32 sum, cast once) out-projected."""
     return out_projection(
-        kvstat_attention_pair(x, wq, wk, wv, heads, scale, shifts), wout)
+        kvstat_attention_pair(x, wq, wk, wv, heads, scale, table), wout)
 
 
 def _gated(x: torch.Tensor, w1: torch.Tensor,

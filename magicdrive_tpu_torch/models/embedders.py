@@ -11,12 +11,19 @@ from torch import nn
 from magicdrive_tpu_torch.config import BBoxEmbedderConfig
 from magicdrive_tpu_torch.core.embeddings import fourier_embed
 
+# the corners' range under ``minmax_normalize`` (ref:bbox_embedder.py:10-11)
+XYZ_MIN = (-200.0, -300.0, -20.0)
+XYZ_RANGE = (350.0, 650.0, 80.0)
+
 
 class ContinuousBBoxWithTextEmbedding(nn.Module):
     """3D box (corners + class) -> one cross-attention token: corners ->
     Fourier -> ``bbox_proj`` -> SiLU, concat the class token, MLP. Padded
     slots (mask 0) blend to the learned null position and class features
-    (ref:bbox_embedder.py:145-189)."""
+    (ref:bbox_embedder.py:145-189). The class tokens are a frozen buffer
+    (CLIP-initialised at prepare time), or with ``trainable_class_token`` a
+    parameter drawn from N(0, 1); with ``minmax_normalize`` the corners are
+    mapped by (xyz - XYZ_MIN) / XYZ_RANGE first."""
 
     def __init__(self, cfg: BBoxEmbedderConfig):
         super().__init__()
@@ -25,9 +32,11 @@ class ContinuousBBoxWithTextEmbedding(nn.Module):
         self.null_pos_feature = nn.Parameter(torch.zeros(cfg.pos_dim))
         self.null_class_feature = nn.Parameter(
             torch.zeros(cfg.class_token_dim))
-        # CLIP-initialized class-name tokens, frozen
-        self.register_buffer("_class_tokens", torch.zeros(
-            cfg.n_classes, cfg.class_token_dim))
+        shape = (cfg.n_classes, cfg.class_token_dim)
+        if cfg.trainable_class_token:
+            self._class_tokens = nn.Parameter(torch.randn(shape))
+        else:
+            self.register_buffer("_class_tokens", torch.zeros(shape))
         self.bbox_proj = nn.Linear(cfg.pos_dim, d[0])
         self.second_linear = nn.Sequential(
             nn.Linear(d[0] + cfg.class_token_dim, d[1]), nn.SiLU(),
@@ -37,7 +46,11 @@ class ContinuousBBoxWithTextEmbedding(nn.Module):
                 masks: torch.Tensor) -> torch.Tensor:
         """bboxes (..., P, 3), classes (...,) int, masks (...,) -> (..., d)."""
         dt = self.bbox_proj.weight.dtype
-        pos = fourier_embed(bboxes.float(), self.cfg.embedder_num_freq)
+        bboxes = bboxes.float()
+        if self.cfg.minmax_normalize:
+            bboxes = (bboxes - bboxes.new_tensor(XYZ_MIN)) / \
+                bboxes.new_tensor(XYZ_RANGE)
+        pos = fourier_embed(bboxes, self.cfg.embedder_num_freq)
         pos = pos.reshape(*pos.shape[:-2], -1).to(dt)
         m = masks.to(dt)[..., None]
         pos = pos * m + self.null_pos_feature * (1 - m)

@@ -79,7 +79,8 @@ def _transformer(cfg: UNetConfig, ch: int) -> Transformer2DModel:
     return Transformer2DModel(
         cfg.num_attention_heads, ch // cfg.num_attention_heads,
         cfg.cross_attention_dim, cfg.norm_num_groups,
-        cfg.neighboring_view_pair, cfg.temporal_frames)
+        cfg.neighboring_view_pair, cfg.temporal_frames,
+        cfg.neighboring_attn_type, cfg.zero_module_type)
 
 
 class CrossAttnDownBlock(nn.Module):

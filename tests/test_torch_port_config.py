@@ -88,15 +88,9 @@ def _same_fields(port, ref, where="preset"):
     return extra
 
 
-# the JAX preset fields the port has no counterpart for: the UNet's launch
-# layout (the port has one layout), the ControlNet's training drop ratios
-# (the port's TrainConfig), and the
-# options the port implements at one value (config._PORTED)
+# the JAX preset fields the port has no counterpart for: the ControlNet's
+# training drop ratios (the port's TrainConfig)
 _NOT_MIRRORED = {
-    "unet.neighboring_attn_type": "add", "unet.zero_module_type":
-    "zero_linear", "unet.neighbor_batched": False,
-    "controlnet.bbox.trainable_class_token": False,
-    "controlnet.bbox.minmax_normalize": False,
     "controlnet.drop_cond_ratio": 0.25, "controlnet.drop_cam_num": 6,
 }
 
@@ -114,8 +108,6 @@ def test_preset_from_config_matches_jax(overrides):
     got = preset_from_config(compose(CONFIGS, overrides=overrides))
     want = jpreset(jcompose(CONFIGS, overrides=overrides))
     extra = _same_fields(got, want)
-    extra -= {"controlnet.unet." + k[5:] for k in _NOT_MIRRORED
-              if k.startswith("unet.")}
     assert extra == set(_NOT_MIRRORED), extra
     for key, value in _NOT_MIRRORED.items():
         obj = want
@@ -148,15 +140,51 @@ def test_preset_from_config_matches_the_hand_made_presets():
         assert got == preset, exp
 
 
-def test_preset_from_config_raises_for_unported_options():
+# the options of the cross-view forms and the box embedder, each named in a
+# config as a user would; the port builds every value the JAX package does.
+# YAML reads a bare none as null, which the JAX block rejects: the
+# connector's "none" is the quoted string; neighbor_batched is in no config
+_OPTIONS = ["model.unet.neighboring_attn_type=concat",
+            "model.unet.neighboring_attn_type=self",
+            "model.unet.zero_module_type=gated",
+            "model.unet.zero_module_type='none'",
+            "+model.unet.neighbor_batched=true",
+            "model.bbox_embedder_param.minmax_normalize=true",
+            "model.bbox_embedder_param.trainable_class_token=true"]
+
+
+@pytest.mark.parametrize("option", _OPTIONS)
+def test_preset_from_config_builds_every_option(option):
+    """Each option's preset equals the JAX package's field for field, and
+    the port's modules build from it on the CPU with the option's
+    structure."""
+    from magicdrive_tpu.config.loader import compose as jcompose
+    from magicdrive_tpu.config.presets import preset_from_config as jpreset
+
     from magicdrive_tpu_torch.config import preset_from_config
     from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.models.controlnet import BEVControlNet
+    from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 
-    for ov in ("model.unet.neighboring_attn_type=concat",
-               "model.unet.zero_module_type=gated",
-               "model.bbox_embedder_param.minmax_normalize=true"):
-        with pytest.raises(NotImplementedError, match=ov.split("=")[0][6:]):
-            preset_from_config(compose(CONFIGS, overrides=[ov]))
+    overrides = ["model=tiny_debug", "runner=debug", option]
+    got = preset_from_config(compose(CONFIGS, overrides=overrides))
+    want = jpreset(jcompose(CONFIGS, overrides=overrides))
+    assert _same_fields(got, want) == set(_NOT_MIRRORED)
+    key, value = option.strip("+").replace("'", "").split("=")
+    obj = got.controlnet.bbox if "bbox" in key else got.unet
+    assert str(getattr(obj, key.split(".")[-1])).lower() == value
+    with torch.device("cpu"):
+        unet = UNet2DConditionModel(got.unet)
+        cn = BEVControlNet(got.controlnet)
+    keys = set(unet.state_dict())
+    block = unet.down_blocks[0].attentions[0].transformer_blocks[0]
+    assert block.attn_type == got.unet.neighboring_attn_type
+    assert any(k.endswith("connector.alpha") for k in keys) == \
+        (got.unet.zero_module_type == "gated")
+    assert any(".connector." in k for k in keys) == \
+        (got.unet.zero_module_type != "none")
+    assert isinstance(cn.bbox_embedder._class_tokens, torch.nn.Parameter) \
+        == got.controlnet.bbox.trainable_class_token
 
 
 def test_run_config_replays_across_packages(tmp_path):

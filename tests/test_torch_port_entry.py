@@ -38,6 +38,75 @@ def test_create_train_state_defaults_to_the_card_and_raises_without_one(
                for p in m.parameters())
 
 
+def test_chip_smoke_names_the_failing_phase(no_card, capsys):
+    """Without a card the script's first phase fails: one line on stdout
+    names it, and no result line follows."""
+    import chip_smoke
+
+    with pytest.raises(SystemExit):
+        chip_smoke.main()
+    assert capsys.readouterr().out.splitlines() == [
+        "chip_smoke FAILED in environment: SystemExit: chip_smoke: no CUDA "
+        "device (torch.cuda.is_available() is False)"]
+
+
+def test_frozen_snapshot_at_another_dtype_raises():
+    """A frozen-weight snapshot taken before the train state casts the
+    modules to bf16 would report every frozen weight changed, led by the
+    UNet's time embedding and conv_in; chip_smoke's comparison refuses it,
+    and a snapshot taken after the cast finds nothing changed."""
+    import chip_smoke
+    from magicdrive_tpu_torch.config import tiny_debug
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+
+    torch.manual_seed(0)
+    modules = MagicDriveModules.create(tiny_debug(), device="cpu")
+    with torch.no_grad():
+        for _, m in modules.items():
+            for p in m.parameters():
+                p.add_(0.1 * torch.randn_like(p))
+    before = chip_smoke._frozen(modules)
+    create_train_state(modules, TrainConfig(), device="cpu")
+    stale = [k for k, t in chip_smoke._frozen(modules).items()
+             if not torch.equal(t, before[k])]
+    assert stale[:5] == ["unet.time_embedding.linear_1.weight",
+                         "unet.time_embedding.linear_1.bias",
+                         "unet.time_embedding.linear_2.weight",
+                         "unet.time_embedding.linear_2.bias",
+                         "unet.conv_in.weight"]
+    with pytest.raises(AssertionError, match="another dtype"):
+        chip_smoke.frozen_changed(modules, before)
+    assert chip_smoke.frozen_changed(modules,
+                                     chip_smoke._frozen(modules)) == []
+
+
+@pytest.mark.parametrize("bf16_floor", [False, True])
+def test_call_checker_holds_each_output_to_its_own_scale(bf16_floor):
+    """The per-call check of a kernel with outputs of scales 1e-3 and 1e3
+    (a backward's dq and dk, say) held 5e-3 from its plain version in each
+    passes, with or without the plain bf16 version as a floor; 5e-2 off in
+    the small output alone fails."""
+    import chip_smoke
+
+    def plain(x):
+        return x * 1e-3, x * 1e3
+
+    def make_kernel(off):
+        return lambda x: tuple(o * (1 + e) for o, e in
+                               zip(plain(x), off))
+
+    x = torch.linspace(-1, 1, 64).to(torch.bfloat16)
+    stats = {}
+    check = chip_smoke._call_checker(stats, bf16_floor)
+    check("k", make_kernel((5e-3, 5e-3)), plain)(x)
+    # calls, then each distance / max|ref|: kernel to fp32, and with the
+    # floor kernel to plain bf16 and plain bf16 to fp32
+    assert stats["k"][0] == 1 and max(stats["k"][1:]) < 1e-2
+    with pytest.raises(AssertionError, match="max|ref|"):
+        check("k", make_kernel((5e-2, 0.0)), plain)(x)
+
+
 def test_entry_points_build_on_the_cpu_when_asked():
     from magicdrive_tpu_torch.config import tiny_debug
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
@@ -139,17 +208,18 @@ def test_k2_bound_counts_projections_once_and_attention_per_neighbour(
         L, C, H, D):
     """The pair's neighbours share k and v, so the projections count once;
     q k^T and p v count once per neighbour. x is read once, the output
-    written once."""
+    written once, and the neighbour table (2 x 6 int32) read once."""
     import chip_smoke
+    from magicdrive_tpu_torch.kernels import reference
 
     B, HD = 6, H * D
     x, w = _bf16(B, L, C), [_bf16(HD, C) for _ in range(3)]
-    args = (x, *w, H, D ** -0.5, (5, 1, 6))
+    args = (x, *w, H, D ** -0.5, reference.ring_table((5, 1), 6))
     assert chip_smoke._flops("kvstat_attention_pair", args) == \
         2 * B * 3 * L * C * HD + 2 * 4 * B * L * L * HD
     assert chip_smoke._bytes("kvstat_attention_pair", args,
                              _bf16(B, L, HD)) == \
-        2 * (B * L * C + 3 * HD * C + B * L * HD)
+        2 * (B * L * C + 3 * HD * C + B * L * HD) + 4 * 2 * 6
 
 
 def _normal(*shape, scale=1.0, seed=0):
@@ -176,15 +246,16 @@ def test_composed_k1_yardstick_matches_the_plain_version():
 
 @pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
 def test_composed_k2_yardstick_matches_the_plain_version(shifts):
-    """The pair's yardstick, two SDPA calls on the ring-indexed k/v summed
-    in fp32, computes K2's function under both ring-shift sets."""
+    """The pair's yardstick, two SDPA calls on the table-gathered k/v
+    summed in fp32, computes K2's function under both rings' tables."""
     import chip_smoke
     from magicdrive_tpu_torch.kernels import reference
 
     B, L, C, H, D = 12, 13, 24, 2, 8
     args = (_normal(B, L, C, seed=6),
             *(_normal(H * D, C, scale=C ** -0.5, seed=7 + i)
-              for i in range(3)), H, D ** -0.5, shifts)
+              for i in range(3)), H, D ** -0.5,
+            reference.ring_table(shifts[:2], shifts[2]))
     torch.testing.assert_close(
         chip_smoke.composed_kvstat_attention_pair(*args),
         reference.kvstat_attention_pair(*args), atol=2e-4, rtol=2e-3)

@@ -63,9 +63,9 @@ def test_k1_plain_matches_pallas(B, Lq, Lk, C, Ck, H, D):
 
 @pytest.mark.parametrize("H,D", [(3, 16), (2, 40)])
 def test_k2_plain_matches_pallas_ring_shifts(H, D):
-    """The pair with the in-kernel ring shifts (5, 1) over 6 views, as the
-    nuScenes neighbours give them, against the JAX shifts=(s1, s2, n)
-    path."""
+    """The pair over the ring's neighbour table for the shifts (5, 1) over
+    6 views, as the nuScenes neighbours give them, against the JAX
+    shifts=(s1, s2, n) path."""
     rs = np.random.RandomState(1)
     n, Bg, L, C = 6, 2, 36, 48
     x = rs.randn(Bg * n, L, C).astype(np.float32)
@@ -77,7 +77,52 @@ def test_k2_plain_matches_pallas_ring_shifts(H, D):
                                            scale=scale, interpret=True,
                                            shifts=shifts)
     got = reference.kvstat_attention_pair(torch.from_numpy(x), tq, tk, tv, H,
-                                          scale, shifts)
+                                          scale, reference.ring_table(
+                                              shifts[:2], n))
+    np.testing.assert_allclose(got.numpy(), _unpad(want, Bg * n, L, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+# neighbour lists of 6 views that a ring shift does not give: the nuScenes
+# ring with the cameras numbered another way, and two triangles (view 2 is
+# no view's first neighbour, view 0 that of two); the ring itself
+TABLES = {"ring": ((5, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 0)),
+          "permuted": ((1, 2), (4, 0), (0, 5), (5, 4), (3, 1), (2, 3)),
+          "not_a_permutation": ((1, 2), (0, 2), (0, 1), (4, 5), (3, 5),
+                                (3, 4))}
+
+
+def table_of(name):
+    """The port's (2, n) int32 table of a neighbour list of TABLES."""
+    return torch.tensor(TABLES[name], dtype=torch.int32).t().contiguous()
+
+
+def gathered(x, name, i, n=6):
+    """The JAX side's x_kv of neighbour list i: the views gathered along
+    the view axis, as ``_take_views`` does before the Pallas pair with
+    shifts=None."""
+    idx = jnp.asarray([p[i] for p in TABLES[name]])
+    return jnp.take(x.reshape(-1, n, *x.shape[1:]), idx, axis=1).reshape(
+        x.shape)
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_k2_plain_matches_pallas_tables(name):
+    """The pair over a neighbour table against the JAX pair with
+    shifts=None on the views gathered by the same lists (the ring's table
+    here and its shifts in test_k2_plain_matches_pallas_ring_shifts give
+    the same function)."""
+    rs = np.random.RandomState(10)
+    n, Bg, L, C, H, D = 6, 2, 36, 48, 2, 40
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, C, H, D) for _ in range(3))
+    scale = D ** -0.5
+    xj = jnp.asarray(x)
+    want = jfa.fused_kvstat_attention_pair(
+        xj, gathered(xj, name, 0), gathered(xj, name, 1), jq, jk, jv,
+        heads=H, scale=scale, interpret=True, shifts=None)
+    got = reference.kvstat_attention_pair(torch.from_numpy(x), tq, tk, tv, H,
+                                          scale, table_of(name))
     np.testing.assert_allclose(got.numpy(), _unpad(want, Bg * n, L, H, D),
                                atol=ATOL, rtol=RTOL)
 
@@ -323,18 +368,19 @@ def test_cpu_wrappers_run_plain_versions_uncounted():
     w = [torch.from_numpy(rs.randn(16, 16).astype(np.float32))
          for _ in range(4)]
     b = torch.from_numpy(rs.randn(32).astype(np.float32))
+    ring = reference.ring_table((5, 1), 6)
     dispatch.reset_launches()
     torch.testing.assert_close(
         dispatch.kvstat_attention(x, x, *w[:3], 2, 0.3),
         reference.kvstat_attention(x, x, *w[:3], 2, 0.3), rtol=0, atol=0)
     torch.testing.assert_close(
-        dispatch.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
-        reference.kvstat_attention_pair(x, *w[:3], 2, 0.3, (5, 1, 6)),
+        dispatch.kvstat_attention_pair(x, *w[:3], 2, 0.3, ring),
+        reference.kvstat_attention_pair(x, *w[:3], 2, 0.3, ring),
         rtol=0, atol=0)
     for name, args in (("fused_qkv_attention", (x, x, *w[:3], 2, 0.3)),
                        ("fused_qkv_out_attention", (x, x, *w, 2, 0.3)),
                        ("fused_qkv_out_attention_pair",
-                        (x, *w, 2, 0.3, (5, 1, 6)))):
+                        (x, *w, 2, 0.3, ring))):
         torch.testing.assert_close(getattr(dispatch, name)(*args),
                                    getattr(reference, name)(*args),
                                    rtol=0, atol=0)
@@ -517,9 +563,10 @@ def test_k1_autograd_matches_jax_vjp(B, Lq, Lk, C, Ck, H, D):
 
 @pytest.mark.parametrize("shifts", [(5, 1, 6), (1, 2, 6)])
 def test_k2_autograd_matches_jax_vjp_ring_shifts(shifts):
-    """The K2 Function's gradients against jax.vjp of the JAX pair with
-    in-grid ring shifts. (1, 2) is not symmetric: a sign error in the
-    inverse roll of dx_kv would show there even where (5, 1) hid it."""
+    """The K2 Function's gradients over the ring's table against jax.vjp
+    of the JAX pair with in-grid ring shifts. (1, 2) is not symmetric: a
+    scatter of dx_kv to the wrong views would show there even where (5, 1)
+    hid it."""
     rs = np.random.RandomState(8)
     n, Bg, L, C, H, D = 6, 1, 36, 32, 2, 16
     x = rs.randn(Bg * n, L, C).astype(np.float32)
@@ -535,13 +582,65 @@ def test_k2_autograd_matches_jax_vjp_ring_shifts(shifts):
 
     _, vjp = jax.vjp(pair, jnp.asarray(x), jq, jk, jv)
     want = vjp(jnp.asarray(dy_pad))
+    table = reference.ring_table(shifts[:2], n)
     got = _grads_of(lambda *a: autograd.kvstat_attention_pair(
-        *a, H, scale, shifts), (x, tq.numpy(), tk.numpy(), tv.numpy()), dy)
+        *a, H, scale, table), (x, tq.numpy(), tk.numpy(), tv.numpy()), dy)
     np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
                                rtol=RTOL)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g, _pad_rows(w, H, D), atol=ATOL,
                                    rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", ["permuted", "not_a_permutation"])
+def test_k2_autograd_matches_jax_vjp_tables(name):
+    """The K2 Function's gradients over a neighbour table against jax.vjp
+    of the JAX pair on gathered views. Off a permutation a view's dx_kv is
+    the sum over the views that read it, or zero where none does."""
+    rs = np.random.RandomState(11)
+    n, Bg, L, C, H, D = 6, 2, 36, 32, 2, 16
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, C, H, D) for _ in range(3))
+    dy = rs.randn(Bg * n, L, H * D).astype(np.float32)
+    scale = D ** -0.5
+    dy_pad = np.pad(dy.reshape(-1, L, H, D), ((0, 0),) * 3 + ((0, DP - D),))
+
+    def pair(x, wq, wk, wv):
+        return jfa.fused_kvstat_attention_pair(
+            x, gathered(x, name, 0), gathered(x, name, 1), wq, wk, wv,
+            heads=H, scale=scale, interpret=True, shifts=None)
+
+    _, vjp = jax.vjp(pair, jnp.asarray(x), jq, jk, jv)
+    want = vjp(jnp.asarray(dy_pad))
+    table = table_of(name)
+    got = _grads_of(lambda *a: autograd.kvstat_attention_pair(
+        *a, H, scale, table), (x, tq.numpy(), tk.numpy(), tv.numpy()), dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, _pad_rows(w, H, D), atol=ATOL,
+                                   rtol=RTOL)
+
+
+def test_pair_tables_are_checked():
+    """A pair entry takes a (2, n) int32 table on its input's device whose
+    n divides the batch and whose entries lie in [0, n), on either device
+    type."""
+    x = torch.zeros(12, 8, 16)
+    w = [torch.zeros(16, 16)] * 3
+    for bad in (table_of("ring")[:1], table_of("ring").long(),
+                table_of("ring").t(), torch.zeros(2, 5, dtype=torch.int32),
+                torch.full((2, 6), 6, dtype=torch.int32),
+                torch.full((2, 6), -1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="neighbour table"):
+            dispatch.kvstat_attention_pair(x, *w, 2, 0.3, bad)
+        with pytest.raises(ValueError, match="neighbour table"):
+            dispatch.fused_qkv_out_attention_pair(x, *w, w[0], 2, 0.3, bad)
+    table = table_of("ring")
+    dispatch.kvstat_attention_pair(x, *w, 2, 0.3, table)
+    table[0, 0] = 7  # an in-place change is checked again
+    with pytest.raises(ValueError, match="outside"):
+        dispatch.kvstat_attention_pair(x, *w, 2, 0.3, table)
 
 
 @pytest.mark.parametrize("with_bias", [True, False])

@@ -22,7 +22,8 @@ import jax.numpy as jnp
 from magicdrive_tpu.kernels import fused_attention as jfa
 
 from magicdrive_tpu_torch.kernels import autograd, dispatch, reference
-from test_torch_port_kernels import (ATOL, DP, RTOL, _grads_of, _pad_rows,
+from test_torch_port_kernels import (ATOL, DP, RTOL, TABLES, _grads_of,
+                                     _pad_rows, gathered, table_of,
                                      _unpad, _weights)
 
 torch.set_num_threads(1)
@@ -92,8 +93,9 @@ def test_k8_plain_matches_pallas(B, Lq, Lk, C, Ck, H, D, C_out):
                                rtol=RTOL)
 
 
-# (1, 2) is not symmetric: a branch that reads the wrong neighbour, or an
-# inverse roll with the wrong sign, shows there even where (5, 1) hides it
+# (1, 2) is not symmetric: a branch that reads the wrong neighbour, or a
+# gradient scattered to the wrong views, shows there even where (5, 1) hides
+# it; the port takes the ring's neighbour table, the JAX pair the shifts
 _PAIR_CASES = [((5, 1, 6), 3, 16, 48), ((1, 2, 6), 2, 40, 24),
                ((5, 1, 6), 2, 40, 48), ((1, 2, 6), 3, 16, 24)]
 
@@ -111,8 +113,64 @@ def test_k8_pair_plain_matches_pallas_ring_shifts(shifts, H, D, C_out):
         xj, xj, xj, *(j for j, _ in w), jo, heads=H, scale=scale,
         interpret=True, shifts=shifts)
     got = reference.fused_qkv_out_attention_pair(
-        torch.from_numpy(x), *(t for _, t in w), to, H, scale, shifts)
+        torch.from_numpy(x), *(t for _, t in w), to, H, scale,
+        reference.ring_table(shifts[:2], n))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_k8_pair_plain_matches_pallas_tables(name):
+    """The K8 pair over a neighbour table against the JAX pair with
+    shifts=None on the gathered views."""
+    rs = np.random.RandomState(28)
+    n, Bg, L, C, H, D, C_out = 6, 2, 36, 48, 2, 40, 24
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    w = [_weights(rs, C, H, D) for _ in range(3)]
+    jo, to = _wout(rs, H, D, C_out)
+    scale = D ** -0.5
+    xj = jnp.asarray(x)
+    want = jfa.fused_qkv_out_attention_pair(
+        xj, gathered(xj, name, 0), gathered(xj, name, 1),
+        *(j for j, _ in w), jo, heads=H, scale=scale, interpret=True,
+        shifts=None)
+    got = reference.fused_qkv_out_attention_pair(
+        torch.from_numpy(x), *(t for _, t in w), to, H, scale,
+        table_of(name))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_k8_pair_autograd_matches_jax_vjp_not_a_permutation():
+    """Every gradient of the K8 pair Function over two triangles, against
+    jax.vjp of the JAX pair on the gathered views: dx sums over the views
+    that read each one."""
+    rs = np.random.RandomState(29)
+    n, Bg, L, C, H, D, C_out = 6, 2, 36, 32, 2, 16, 24
+    x = rs.randn(Bg * n, L, C).astype(np.float32)
+    w = [_weights(rs, C, H, D) for _ in range(3)]
+    jo, to = _wout(rs, H, D, C_out)
+    dy = rs.randn(Bg * n, L, C_out).astype(np.float32)
+    scale = D ** -0.5
+    name = "not_a_permutation"
+
+    def pair(x, wq, wk, wv, wo):
+        return jfa.fused_qkv_out_attention_pair(
+            x, gathered(x, name, 0), gathered(x, name, 1), wq, wk, wv, wo,
+            heads=H, scale=scale, interpret=True, shifts=None)
+
+    _, vjp = jax.vjp(pair, jnp.asarray(x), *(j for j, _ in w), jo)
+    want = vjp(jnp.asarray(dy))
+    table = table_of(name)
+    got = _grads_of(lambda *a: autograd.fused_qkv_out_attention_pair(
+        *a, H, scale, table), (x, *(t.numpy() for _, t in w), to.numpy()),
+        dy)
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
+                               rtol=RTOL)
+    for g, wt in zip(got[1:4], want[1:4]):
+        np.testing.assert_allclose(g, _pad_rows(wt, H, D), atol=ATOL,
+                                   rtol=RTOL)
+    np.testing.assert_allclose(got[4], _unpad_wout(want[4], H, D), atol=ATOL,
                                rtol=RTOL)
 
 
@@ -162,8 +220,9 @@ def test_k8_pair_autograd_matches_jax_vjp_ring_shifts(shifts):
 
     _, vjp = jax.vjp(pair, jnp.asarray(x), *(j for j, _ in w), jo)
     want = vjp(jnp.asarray(dy))
+    table = reference.ring_table(shifts[:2], n)
     got = _grads_of(lambda *a: autograd.fused_qkv_out_attention_pair(
-        *a, H, scale, shifts), (x, *(t.numpy() for _, t in w), to.numpy()),
+        *a, H, scale, table), (x, *(t.numpy() for _, t in w), to.numpy()),
         dy)
     np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL,
                                rtol=RTOL)
@@ -187,7 +246,7 @@ def test_k7_runs_only_for_dwout(pair, monkeypatch):
     w = [torch.from_numpy(rs.randn(16, 16).astype(np.float32))
          for _ in range(4)]
     fn = (lambda *a: autograd.fused_qkv_out_attention_pair(
-        *a, 2, 0.3, (5, 1, 6))) if pair else \
+        *a, 2, 0.3, reference.ring_table((5, 1), 6))) if pair else \
         (lambda x, *ws: autograd.fused_qkv_out_attention(x, x, *ws, 2, 0.3))
     xg = x.clone().requires_grad_()
     fn(xg, *w).sum().backward()
@@ -256,6 +315,7 @@ def test_two_step_plain_k8_pair_matches_pallas_ring_shifts(shifts, dtype):
     want = jfa.fused_qkv_out_attention_pair(
         jx, jx, jx, *jw, jwo, heads=H, scale=scale, interpret=True,
         shifts=shifts)
-    o = reference.kvstat_attention_pair(tx, *tw, H, scale, shifts)
+    o = reference.kvstat_attention_pair(tx, *tw, H, scale,
+                                        reference.ring_table(shifts[:2], n))
     got = reference.out_projection(o, to.to(dtype))
     _assert_close(got, want, dtype)
