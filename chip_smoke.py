@@ -182,14 +182,31 @@ prints no result line. Each phase logs its wall seconds as it ends
      remat modes (``outside_remat``), so a checked step keeps what it
      keeps unchecked.
      The seconds of the build, each step, checkpoint write, validation and
-     export, and the peak memory are printed with the card.
+     export, and the peak memory are printed with the card;
+ 10. multi-GPU (run_multi_gpu), across processes on the one card, each
+     child under a time limit (RANK_TIMEOUT) and any child's failure the
+     phase's: ``python -m magicdrive_tpu_torch.cli.train`` as an NCCL job
+     of one rank (the backend and the all-reduces from its train.log, its
+     losses against the same run without a process group); then two gloo
+     ranks (``python chip_smoke.py --rank ...``, loading the library the
+     build phase made): dp=2 training in both fused modes against one
+     process at B=2 on the same draws (EPS_TOL), the ranks' masters
+     bitwise equal after every step, a rank-0 step's kernel calls against
+     their plain versions; a (dp=1, view=2) request against the unsharded
+     one from the same latents (EPS_TOL), with the launches of
+     view-sharded attn4 (K1 a neighbour list over the gathered cameras) and
+     a sharded guided step's kernel calls checked; ``cli.val_set_gen
+     --multihost`` on the evaluation phase's run and tree: the one-process
+     run's PNG names, and rank 0's first sample within KERNEL_TOL of that
+     run's (bitwise equality logged).
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
-path runs of phases 4-6 and 9 (the forced routes, the generation paths,
-the options, given-view, generation CLI, val-set, map-drop and video paths,
-training, and the training CLI's runs, its generation, the options, remat,
-video training and the cache step) and "launches_by_path" gives each. The
+path runs of phases 4-6, 9 and 10 (the forced routes, the generation
+paths, the options, given-view, generation CLI, val-set, map-drop and video
+paths, training, the training CLI's runs, its generation, the options,
+remat, video training and the cache step, and the gloo ranks' training,
+view-sharded request and val_set_gen) and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
@@ -1325,25 +1342,32 @@ def attention_calls(route, neighbours: int = 0):
     return _CALLS_OF[route], 1, 1
 
 
-def cross_view_calls(unet_cfg, L: int, C: int, D: int, esize: int):
+def cross_view_calls(unet_cfg, L: int, C: int, D: int, esize: int,
+                     view: int = 1):
     """``attention_calls`` of a UNet transformer's cross-view attention at
     latent length L, by its form: "add" takes ``pair_route``'s over its k
     neighbour lists, "concat" ``attention_route``'s with the k lists' views
     end to end (Lk = k L) and "self" ``attention_route``'s over the (n l)
-    tokens of a sample."""
+    tokens of a sample. Over ``view`` > 1 ranks (a view-sharded pipeline)
+    the pairs take their per-neighbour loops, and "self"'s queries are the
+    rank's n / view cameras."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     pairs = unet_cfg.neighboring_view_pair
     n, k = len(pairs), len(pairs[0])
     kind = unet_cfg.neighboring_attn_type
     if kind == "add":
-        return attention_calls(dispatch.pair_route(L, C, D, esize, k), k)
-    lq, lk = (L, k * L) if kind == "concat" else (n * L, n * L)
+        route = dispatch.pair_route(L, C, D, esize, k)
+        if view > 1 and route in _PAIR_CALLS_OF:
+            route += "_loop"
+        return attention_calls(route, k)
+    lq, lk = (L, k * L) if kind == "concat" else (n // view * L, n * L)
     return attention_calls(dispatch.attention_route(lq, lk, C, D, esize))
 
 
 def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
-                      esize: int = 2, recompute: bool = False):
+                      esize: int = 2, recompute: bool = False,
+                      view: int = 1):
     """Kernel launches (``dispatch.LAUNCHES``' keys) of ``forwards`` guided
     ControlNet+UNet evaluations and ``steps`` train steps under the fused
     ``mode``, derived from the block structure and the routing rules: per
@@ -1361,7 +1385,9 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     transformer sits in a remat unit (the UNet's down, mid and up blocks,
     the ControlNet's down and mid blocks), whose forward runs again in the
     backward: each forward kernel call of a train step launches twice,
-    that attn1 included; the backward's K5, K6 and K7 do not change."""
+    that attn1 included; the backward's K5, K6 and K7 do not change.
+    ``view`` > 1: the forwards of a rank of a view-sharded pipeline
+    (``cross_view_calls``)."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     n = dict.fromkeys(dispatch.LAUNCHES, 0)
@@ -1378,7 +1404,8 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
                     L, ctx, max(C, ctx_dim), D, esize)), False, not unet)]
             if unet:
                 attentions.append((cross_view_calls(preset.unet, L, C, D,
-                                                    esize), False, True))
+                                                    esize, view), False,
+                                   True))
             for call, no_backward, wout_trains in attentions:
                 if call is None:
                     continue
@@ -2343,7 +2370,17 @@ def write_inception_weights(path: str, seed: int = 0) -> None:
     torch.save(sd, path)
 
 
-def run_evaluation(by_path, timing, card: str) -> None:
+@contextlib.contextmanager
+def _scratch(path=None):
+    """``path``, or a temporary directory removed after the block."""
+    if path is not None:
+        yield path
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        yield tmp
+
+
+def run_evaluation(by_path, timing, card: str, keep: str = None) -> dict:
     """The evaluation chain as a user runs it, at full width (224x400), in
     a temporary directory:
       1. weight conversion: the script's seeded modules written as the
@@ -2375,7 +2412,10 @@ def run_evaluation(by_path, timing, card: str) -> None:
     Prints the trees' sizes and the seconds to write and to convert them,
     the seconds per batch from asking the loader to the last PNG (the first
     cold), 6-view frames/s at B=4, the peak memory above what the script
-    holds, FID seconds and Inception images/s, with the card."""
+    holds, FID seconds and Inception images/s, with the card.
+    With ``keep`` (a directory) the run, the tree and the generated set stay
+    there for the multi-GPU phase (the released trees do not); -> their
+    paths."""
     from PIL import Image
 
     from magicdrive_tpu_torch.cli import convert_weights, fid, val_set_gen
@@ -2393,7 +2433,7 @@ def run_evaluation(by_path, timing, card: str) -> None:
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
     from magicdrive_tpu_torch.utils.serialization import load_params
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with _scratch(keep) as tmp:
         overrides = ["exp=224x400"]
         cfg = compose(CONFIG_DIR, overrides=overrides)
         preset = preset_from_config(cfg)
@@ -2522,7 +2562,12 @@ def run_evaluation(by_path, timing, card: str) -> None:
             f"Inception {rate:.1f} images/s at batch {ext.batch_size}, the "
             f"files' decode and resize included ({card})")
         timing["s FID tokens"] = [tokens_s]
+        for d in ("released", "sd15"):
+            shutil.rmtree(os.path.join(tmp, d))
+        kept = {"run_dir": run_dir, "root": root, "version": version,
+                "out": out}
     run_map_drop_step(by_path)
+    return kept
 
 
 def run_map_drop_step(by_path) -> None:
@@ -3461,6 +3506,654 @@ def run_train_cli(by_path, timing, card: str) -> None:
         run_cache(by_path, card, tmp, root, version)
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: the process group, data-parallel training, view-sharded
+# sampling and val_set_gen --multihost
+# ---------------------------------------------------------------------------
+
+RANK_TIMEOUT = 420      # seconds a job of ranks may take
+DP_STEPS = 3            # dp=2 training steps a mode, then one checked step
+# dp=2 against one process at B=2 after DP_STEPS: the logged gradient
+# norms' relative error, and the relative L2 of the update (the masters
+# minus those before the steps) and of Adam's first moment, which keeps the
+# gradient's scale where AdamW's update does not. Read on an H100:
+# 6.7e-05, 2.7e-03, 1.2e-03; with rank 0's half-batch gradient applied on
+# both ranks 4.4e-02, 1.6e-01, 7.2e-02.
+DP_NORM_TOL, DP_UPDATE_TOL, DP_MOMENT_TOL = 5e-3, 2e-2, 1e-2
+# the dp=2 ranks' Runner: the recipe's optimizer with a one-step warm-up
+# (train_set_up's), B=1 a rank, no checkpoint in the steps
+DP_ARGS = ("exp=224x400", "runner.lr_warmup_steps=1",
+           "runner.checkpointing_steps=100000", "runner.train_batch_size=1",
+           "parallel.mesh_shape=[2,1]")
+# the NCCL run of the training CLI: B=1, 2 steps (the first at lr 0) on the
+# fixture scenes, its checkpoint and weights at the end
+NCCL_ARGS = ("exp=224x400", "runner.train_batch_size=1",
+             "runner.lr_warmup_steps=1", "runner.max_train_steps=2",
+             "runner.num_workers=1")
+
+
+def _checksums(tensors) -> list:
+    """One exact integer a tensor from its bits (weighted by position), so
+    equal lists mean bitwise equal tensors but for a collision."""
+    out = []
+    for t in tensors.values():
+        bits = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device) % 65521
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def _fresh_state(masters0, cfg):
+    from magicdrive_tpu_torch.train.state import TrainState, make_optimizer
+
+    masters = {k: t.clone() for k, t in masters0.items()}
+    return TrainState(0, masters, make_optimizer(masters, cfg))
+
+
+def _one_process(runner, modules, cfg, masters0, batch) -> tuple:
+    """DP_STEPS steps of one process at the global batch from ``masters0``
+    with the draws the Runner makes (a generator seeded from seed and
+    step), without a mesh; -> (state, losses, gradient norms, seconds)."""
+    from magicdrive_tpu_torch.train import train_step
+
+    state = _fresh_state(masters0, cfg)
+    batch = dict(batch, bev_map=batch["bev_map"][..., :runner.map_channels])
+    losses, norms, seconds = [], [], []
+    for _ in range(DP_STEPS):
+        gen = torch.Generator("cuda").manual_seed(
+            runner.seed * 1_000_003 + state.step)
+        t0 = time.perf_counter()
+        m = train_step(modules, state, batch, cfg, generator=gen,
+                       schedule=runner.schedule)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        seconds.append(time.perf_counter() - t0)
+    return state, losses, norms, seconds
+
+
+def first_moments(state) -> dict:
+    """Adam's first moment of every trainable tensor in fp32 (the 8-bit
+    optimizer's dequantized). Unlike AdamW's update it keeps the
+    gradient's scale."""
+    from magicdrive_tpu_torch.train.adam8bit import AdamW8bit, dequantize
+
+    opt = getattr(state.opt, "inner", state.opt)  # MultiSteps' AdamW
+    if isinstance(opt, AdamW8bit):
+        return {k: dequantize(*opt.mu[k], t.shape)
+                for k, t in state.masters.items()}
+    return dict(opt.mu)
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of the dicts."""
+    num = sum(float((got[k].double() - w.double()).square().sum())
+              for k, w in want.items())
+    den = sum(float(w.double().square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def _rank_train(out: str) -> dict:
+    """(2a) on one rank, per fused mode: DP_STEPS dp=2 steps through the
+    Runner (``parallel.mesh_shape=[2,1]``) at B=1, this rank's row of a
+    global fixture batch of 2, the masters' checksums of both ranks after
+    each step; the launch counts; one more dp step with every kernel call
+    of rank 0's against its plain version (KERNEL_TOL); the frozen weights
+    bitwise unchanged. Rank 0 then takes DP_STEPS steps of one process at
+    B=2 from the same masters and draws and holds the dp run to them."""
+    from magicdrive_tpu_torch.cli.train import CONFIG_DIR
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset, make_sample)
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.parallel import multihost, shard_batch
+    from magicdrive_tpu_torch.train import Runner
+
+    rank = multihost.process_index()
+    preset, modules, cfg, state0, _ = train_set_up(1)
+    masters0 = {k: t.clone() for k, t in state0.masters.items()}
+    del state0
+    frozen = _frozen(modules)
+    batch = collate_fn([make_sample(i, with_images=True) for i in range(2)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    res = {}
+    for mode in dispatch.FUSED_MODES:
+        with dispatch.fused_mode(mode):
+            run_dir = os.path.join(out, f"dp_{mode}")
+            runner = Runner(compose(CONFIG_DIR, overrides=list(DP_ARGS)),
+                            preset, modules, make_dataset(2),
+                            run_dir=run_dir)
+            if runner.tcfg != cfg:
+                raise AssertionError(f"{runner.tcfg} != {cfg}")
+            local = shard_batch(batch, runner.mesh)
+            state = _fresh_state(masters0, cfg)
+            torch.cuda.reset_peak_memory_stats()
+            dispatch.reset_launches()
+            seconds, equal = [], []
+            for _ in range(DP_STEPS):
+                t0 = time.perf_counter()
+                runner.train(state, [local])
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                a, b = multihost.all_gather_objects(_checksums(state.masters))
+                equal.append(a == b)
+            launches = dict(dispatch.LAUNCHES)
+            want = expected_launches(preset, mode, steps=DP_STEPS)
+            if launches != want:
+                raise AssertionError(f"rank {rank}, dp=2 ({mode}): launches "
+                                     f"{launches}, derived {want}")
+            if not all(equal):
+                raise AssertionError(f"dp=2 ({mode}): the ranks' masters "
+                                     f"differ after the steps {equal}")
+            peak = torch.cuda.max_memory_allocated()
+            dp_masters = {k: t.clone() for k, t in state.masters.items()}
+            dp_moments = {k: t.clone() for k, t in
+                          first_moments(state).items()}
+            stats, names = {}, training_calls(mode)
+            checker = _call_checker(stats) if rank == 0 else \
+                (lambda name, kern, plain: kern)
+            with patched_kernels(checker, names):
+                runner.train(state, [local])
+            if rank == 0:
+                _report_calls(f"a dp=2 training step of rank 0 ({mode})",
+                              stats, names)
+            runner.logger.close()
+            changed = frozen_changed(modules, frozen)
+            if changed:
+                raise AssertionError(f"rank {rank}: {len(changed)} frozen "
+                                     f"weights changed, e.g. {changed[:5]}")
+            r = {"seconds": seconds, "peak_gib": peak / 2**30,
+                 "tensors": len(masters0),
+                 "launches": launches, "ranks_bitwise_equal": equal,
+                 "moved": sum(not torch.equal(dp_masters[k], t)
+                              for k, t in masters0.items())}
+            if rank == 0:
+                with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                    logged = [json.loads(x) for x in f]
+                r["losses"] = [x["loss"] for x in logged]
+                r["norms"] = [x["grad_norm"] for x in logged]
+                torch.cuda.reset_peak_memory_stats()
+                ref, r["one_losses"], r["one_norms"], r["one_seconds"] = \
+                    _one_process(runner, modules, cfg, masters0, batch)
+                r["one_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                r["masters_rel_l2"] = rel_l2(dp_masters, ref.masters)
+                r["update_rel_l2"] = rel_l2(
+                    {k: t - masters0[k] for k, t in dp_masters.items()},
+                    {k: t - masters0[k] for k, t in ref.masters.items()})
+                r["moment_rel_l2"] = rel_l2(dp_moments, first_moments(ref))
+                r["moved_one"] = sum(not torch.equal(ref.masters[k], t)
+                                     for k, t in masters0.items())
+                del ref
+            del dp_masters, dp_moments, state
+            torch.cuda.empty_cache()
+            multihost.barrier("one-process reference")
+            res[mode] = r
+    return res
+
+
+def mgpu_latents(preset) -> torch.Tensor:
+    """(1, n_cam, h, w, 4): a latent per view, so a cross-view exchange
+    that mixes up cameras would show."""
+    c = preset.pipeline
+    return torch.randn((1, c.n_cam, c.latent_height, c.latent_width, 4),
+                       generator=torch.Generator("cuda").manual_seed(13),
+                       device="cuda")
+
+
+def _rank_sample(out: str) -> dict:
+    """(2b) on one rank: the full-width pipeline (this script's seeded
+    weights) on a (dp=1, view=2) mesh, one request of set_up's first
+    fixture batch under "kvstat" from mgpu_latents, this rank's 3 cameras;
+    its launch counts equal to those derived for view-sharded attn4 and
+    one gather a cross-view block and step; then every kernel call of one
+    guided step against its plain version, on the gathered inputs. The
+    rank of view index 0 then makes the unsharded request of the same
+    batch and latents (out/sample_ref.pt)."""
+    from magicdrive_tpu_torch import config
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.parallel import (COLLECTIVES, make_mesh,
+                                               shard_batch)
+    from magicdrive_tpu_torch.parallel.mesh import local_views
+    from magicdrive_tpu_torch.parallel.multihost import reset_collectives
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
+
+    preset = config.sd15mv_rawbox_224x400()
+    modules = _new_modules(preset).to("cuda", preset.pipeline.dtype)
+    mesh = make_mesh((1, 2))
+    pipe = MagicDrivePipeline(modules, preset.pipeline, mesh=mesh)
+    batch = collate_fn(make_dataset(1, image_hw=preset.image_size,
+                                    map_hw=preset.map_hw,
+                                    map_channels=preset.map_channels),
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    local = shard_batch(dict(batch, latents=mgpu_latents(preset)), mesh,
+                        n_cam=preset.pipeline.n_cam)
+    steps = preset.pipeline.num_inference_steps
+    blocks = sum(getattr(b, "cross_view", False)
+                 for b in modules.unet.modules())
+    res = {"views": list(range(preset.pipeline.n_cam))[
+        local_views(mesh, preset.pipeline.n_cam)]}
+    with dispatch.fused_mode("kvstat"):
+        dispatch.reset_launches()
+        reset_collectives()
+        img, res["seconds"] = _timed(lambda: pipe(local,
+                                                  latents=local["latents"]))
+        launches = dict(dispatch.LAUNCHES)
+        want = expected_launches(preset, "kvstat", forwards=steps, view=2)
+        if launches != want:
+            raise AssertionError(f"view-sharded request launches "
+                                 f"{launches}, derived {want}")
+        if COLLECTIVES["all_gather"] != blocks * steps:
+            raise AssertionError(f"{COLLECTIVES['all_gather']} gathers, not "
+                                 f"{blocks} blocks x {steps} steps")
+        res.update(launches=launches, gathers=COLLECTIVES["all_gather"])
+        torch.save(img.cpu(), os.path.join(
+            out, f"sample_{mesh.index('view')}.pt"))
+        h, w = preset.pipeline.latent_height, preset.pipeline.latent_width
+        x = torch.randn((1, pipe.n_views, 4, h, w), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(
+                            7 + mesh.index("view")))
+        stats = {}
+        names = tuple(k for k, v in want.items() if v)
+        with patched_kernels(_call_checker(stats), names):
+            pipe.guided_eps(x, int(pipe.coeffs.timesteps[0]),
+                            pipe.conditioning(local))
+        _report_calls(f"a view-sharded guided step, cameras {res['views']}",
+                      stats, names)
+        res["worst"] = {k: v[1] for k, v in stats.items()}
+        if mesh.index("view") == 0:  # the unsharded request, rank 1 idle
+            ref, res["unsharded_seconds"] = _timed(lambda: MagicDrivePipeline(
+                modules, preset.pipeline)(batch, latents=mgpu_latents(preset)))
+            torch.save(ref.cpu(), os.path.join(out, "sample_ref.pt"))
+    return res
+
+
+def _rank_val_set_gen(out: str, run_dir: str, root: str,
+                      version: str) -> dict:
+    """(2c) on one rank: ``cli.val_set_gen --multihost`` into out/vsg."""
+    from magicdrive_tpu_torch.cli import val_set_gen
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    dispatch.reset_launches()
+    with dispatch.fused_mode("kvstat"):
+        made = val_set_gen.main(
+            ["--run_dir", run_dir, "--out", os.path.join(out, "vsg"),
+             "--multihost", f"dataset.dataset_root={root}",
+             f"dataset.version={version}"])
+    return {"samples": len(made.dataset), "seconds": made.seconds,
+            "launches": dict(dispatch.LAUNCHES)}
+
+
+PARTS = ("train", "sample", "val_set_gen")
+
+
+def rank_main(argv) -> None:
+    """A rank of the multi-GPU phase's gloo job (``torchrun ...
+    chip_smoke.py --rank OUT RUN_DIR ROOT VERSION``): it loads the kernel library the
+    parent built, joins the group from the environment under gloo (the two
+    ranks share the one card) and runs (2a), (2b) and (2c); its results go
+    to OUT/rank<r>.json."""
+    from magicdrive_tpu_torch.kernels import build
+    from magicdrive_tpu_torch.parallel import multihost
+
+    out, run_dir, root, version = argv
+    if not build.library_path().exists():
+        raise RuntimeError("the kernel library is not built: the parent "
+                           "builds it before it starts the ranks")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not multihost.initialize_if_needed(backend="gloo", device="cuda"):
+        raise RuntimeError("not started as a rank (no env:// variables)")
+    rank = multihost.process_index()
+    res = {"rank": rank, "backend": multihost.backend(),
+           "device": str(multihost.rank_device("cuda"))}
+    for part, fn in (("train", lambda: _rank_train(out)),
+                     ("sample", lambda: _rank_sample(out)),
+                     ("val_set_gen", lambda: _rank_val_set_gen(
+                         out, run_dir, root, version))):
+        t0 = time.perf_counter()
+        res[part] = fn()
+        res[part]["part_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        multihost.barrier(part)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def torchrun(args, nproc: int, what: str, log_dir: str) -> list:
+    """``python -m torch.distributed.run --standalone
+    --nproc_per_node=nproc args`` from this script's directory, each rank's
+    output under ``log_dir``, within RANK_TIMEOUT; -> each rank's stdout.
+    A rank that fails fails the job: this raises, naming ``what``, with
+    every rank's stderr. At the time limit the launcher is told to stop its
+    ranks (SIGTERM), then killed."""
+    import glob
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "--redirects", "3", "--log-dir",
+           log_dir, *args]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        text, late = proc.communicate(timeout=RANK_TIMEOUT)[0], False
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            text = proc.communicate(timeout=60)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text = proc.communicate()[0]
+        late = True
+
+    def rank_log(r, name):
+        paths = glob.glob(os.path.join(log_dir, "*", "attempt_*", str(r),
+                                       name))
+        if not paths:
+            return ""
+        with open(paths[0]) as f:
+            return f.read()
+    if late or proc.returncode:
+        raise AssertionError(
+            f"{what}: " + (f"stopped at {RANK_TIMEOUT} s; " if late else "")
+            + f"exit {proc.returncode}: {text[-2000:]}" +
+            "".join(f"\n-- rank {r}: {rank_log(r, 'stderr.log')[-3000:]}"
+                    for r in range(nproc)))
+    return [rank_log(r, "stdout.log") for r in range(nproc)]
+
+
+def _log_rank(rank: int, output: str) -> None:
+    """A rank's own log lines (the script's), prefixed with its rank."""
+    for line in output.splitlines():
+        if line.startswith(("training:", "path calls", "[process")):
+            log(f"  [rank {rank}] {line}")
+
+
+def run_nccl_cli(card: str, tmp: str) -> None:
+    """(1) ``python -m magicdrive_tpu_torch.cli.train`` at B=1, 2 steps,
+    as a torchrun job of one rank with ``parallel.multihost=true``: train.log names the nccl backend and
+    counts one all-reduce a bucket and step; its losses against the same
+    run in this process without a process group, made while the child
+    runs (its checkpoint and export left out), bitwise or within EPS_TOL
+    relative."""
+    import re
+    import threading
+
+    from magicdrive_tpu_torch.cli import train as train_cli
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+    from magicdrive_tpu_torch.train import runner as runner_mod
+    from magicdrive_tpu_torch.train.state import trainable_parameters
+    from magicdrive_tpu_torch.train.train_step import buckets
+
+    args = [*NCCL_ARGS, f"dataset.dataset_root={tmp}/none"]
+    child = {}
+
+    def run_child():
+        t0 = time.perf_counter()
+        try:
+            child["res"] = torchrun(
+                ["-m", "magicdrive_tpu_torch.cli.train", *args,
+                 "parallel.multihost=true", f"log_root_prefix={tmp}/nccl"],
+                1, "the NCCL training CLI", os.path.join(tmp, "nccl_logs"))
+        except BaseException as e:  # raised below, in this thread
+            child["error"] = e
+        child["wall"] = time.perf_counter() - t0
+
+    # the same run without a process group, here, while the child runs
+    # (its checkpoint and export left out)
+    thread = threading.Thread(target=run_child)
+    thread.start()
+    saved = runner_mod.Runner.save, runner_mod.Runner.save_deployable
+    runner_mod.Runner.save = runner_mod.Runner.save_deployable = \
+        lambda self, state: None
+    try:
+        one = train_cli.main([*args, f"log_root_prefix={tmp}/alone"])
+    finally:
+        runner_mod.Runner.save, runner_mod.Runner.save_deployable = saved
+        thread.join()
+    if "error" in child:
+        raise child["error"]
+    wall = child["wall"]
+    with open(os.path.join(one.run_dir, "metrics.jsonl")) as f:
+        alone = [json.loads(x)["loss"] for x in f]
+    del one
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(tmp, "nccl", os.listdir(
+        os.path.join(tmp, "nccl"))[0])
+    with open(os.path.join(run_dir, "train.log")) as f:
+        text = f.read()
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(x)["loss"] for x in f]
+    preset = preset_from_config(compose(train_cli.CONFIG_DIR,
+                                        overrides=list(args)))
+    sizes = [p.numel() for p in trainable_parameters(
+        MagicDriveModules.create(preset, device="meta")).values()]
+    want = 2 * len(buckets(sizes + [1]))
+    m = re.search(r"collectives \{'all_reduce': (\d+)", text)
+    if "rank 0 of 1 (backend nccl)" not in text or not m or \
+            int(m.group(1)) != want:
+        raise AssertionError(f"the NCCL run's log: backend or all-reduces "
+                             f"(want {want}): {text[-1500:]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, alone))
+    log(f"multi-GPU (1): cli.train as a 1-rank NCCL job, {want} all-reduces "
+        f"({want // 2} buckets a step), losses {losses} vs {alone} without a "
+        f"process group: bitwise {losses == alone}, max relative "
+        f"{rel:.3e}; {wall:.1f} s from launch to exit, its checkpoint and "
+        f"export included, beside the run without a group ({card})")
+    if len(losses) != 2 or not rel <= EPS_TOL:
+        raise AssertionError(f"NCCL losses {losses} vs {alone}")
+
+
+def _val_set_for_mgpu(tmp: str) -> dict:
+    """A run directory of this script's seeded 224x400 weights, a synthetic
+    tree of EVAL_SAMPLES samples and one process's val_set_gen on it: what
+    run_evaluation leaves, for this phase run alone."""
+    from magicdrive_tpu_torch.cli import val_set_gen
+    from magicdrive_tpu_torch.cli.generate import CONFIG_DIR
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose, save_run_config
+    from magicdrive_tpu_torch.convert import modules_to_jax_params
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.utils.serialization import save_params
+
+    overrides = ["exp=224x400"]
+    cfg = compose(CONFIG_DIR, overrides=overrides)
+    run_dir = os.path.join(tmp, "run")
+    save_run_config(cfg, run_dir, overrides)
+    save_params(modules_to_jax_params(_new_modules(preset_from_config(cfg))),
+                os.path.join(run_dir, "weights"))
+    torch.cuda.empty_cache()
+    root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"),
+                                       n_samples=EVAL_SAMPLES,
+                                       images_per_sample=True)
+    out = os.path.join(tmp, "generated")
+    with dispatch.fused_mode("kvstat"):
+        val_set_gen.main(["--run_dir", run_dir, "--out", out,
+                          f"dataset.dataset_root={root}",
+                          f"dataset.version={version}"])
+    return {"run_dir": run_dir, "root": root, "version": version,
+            "out": out}
+
+
+def _first_pngs(evaluation: dict) -> list:
+    """The PNG names of the tree's first validation sample, rep 0."""
+    from magicdrive_tpu_torch.cli.generate import CONFIG_DIR
+    from magicdrive_tpu_torch.config_loader import compose, load_run_overrides
+    from magicdrive_tpu_torch.data.datasets import build_datasets
+
+    cfg = compose(CONFIG_DIR, overrides=load_run_overrides(
+        evaluation["run_dir"]) + [
+        f"dataset.dataset_root={evaluation['root']}",
+        f"dataset.version={evaluation['version']}"])
+    return [os.path.splitext(os.path.basename(f))[0] + "_gen0.png"
+            for f in build_datasets(cfg)[1].filenames(0)]
+
+
+def run_multi_gpu(by_path, timing, card: str,
+                  evaluation: dict = None) -> None:
+    """The port across processes on the one card:
+      1. NCCL at world size 1 through the training CLI (run_nccl_cli);
+      2. a gloo job of two ranks on the card (rank_main), full width:
+         (a) dp=2 training in both fused modes (_rank_train): the ranks'
+             masters bitwise equal after every step, the launch counts,
+             every kernel call of a rank-0 step within KERNEL_TOL, the
+             frozen weights bitwise unchanged; against one process at
+             B=2 on the same draws, the per-step losses within EPS_TOL
+             relative, the gradient norms within DP_NORM_TOL, and after
+             the last step the update and Adam's first moment within
+             DP_UPDATE_TOL and DP_MOMENT_TOL relative L2;
+         (b) a (dp=1, view=2) request (_rank_sample): the two ranks'
+             cameras put together within EPS_TOL relative L2 of the
+             unsharded request from the same latents, which rank 0 then
+             makes; the launch counts of view-sharded attn4 (K1 once a
+             neighbour list over the gathered cameras, no K2); every kernel
+             call of a sharded guided step within KERNEL_TOL;
+         (c) ``cli.val_set_gen --multihost`` on ``evaluation``'s run and
+             tree (run_evaluation's, or made here): the union of the
+             ranks' PNG names that of one process's run, and rank 0's
+             first sample's PNGs (the same sample and latents as one
+             process's first) bitwise that run's.
+    Prints s/step at dp=2 against one process at B=2, the peak memory a
+    rank, and s/request of the sharded request, with the card."""
+    from PIL import Image
+
+    from magicdrive_tpu_torch import config
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_nccl_cli(card, tmp)
+        if evaluation is None:
+            evaluation = _val_set_for_mgpu(tmp)
+        out = os.path.join(tmp, "ranks")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        outputs = torchrun(
+            [os.path.abspath(__file__), "--rank", out, evaluation["run_dir"],
+             evaluation["root"], evaluation["version"]], 2,
+            "the gloo job of two ranks", os.path.join(tmp, "gloo_logs"))
+        wall = time.perf_counter() - t0
+        for rank, output in enumerate(outputs):
+            _log_rank(rank, output)
+        res = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        log(f"multi-GPU (2): two gloo ranks on the card, {wall:.1f} s from "
+            f"launch to exit; devices {[x['device'] for x in res]}; seconds "
+            f"of each part " + json.dumps([{p: round(x[p]["part_s"], 1)
+                                            for p in PARTS} for x in res]))
+        for r, x in enumerate(res):
+            by_path[f"dp2_train_rank{r}"] = {
+                k: sum(x["train"][m]["launches"][k]
+                       for m in dispatch.FUSED_MODES)
+                for k in dispatch.LAUNCHES}
+            by_path[f"view2_request_rank{r}"] = x["sample"]["launches"]
+            by_path[f"val_set_gen_rank{r}"] = x["val_set_gen"]["launches"]
+
+        # (a)
+        for mode in dispatch.FUSED_MODES:
+            a, b = (x["train"][mode] for x in res)
+            rel = max(abs(p - q) / abs(q) for p, q in zip(a["losses"],
+                                                          a["one_losses"]))
+            norm = max(abs(p - q) / abs(q) for p, q in zip(a["norms"],
+                                                           a["one_norms"]))
+            log(f"multi-GPU (2a) {mode}: dp=2 losses {a['losses']} vs one "
+                f"process at B=2 {a['one_losses']} (max relative {rel:.3e});"
+                f" gradient norms {a['norms']} vs {a['one_norms']} (max "
+                f"relative {norm:.3e}, limit {DP_NORM_TOL}); after step "
+                f"{DP_STEPS} the update {a['update_rel_l2']:.3e} relative L2"
+                f" from one process's (limit {DP_UPDATE_TOL}), Adam's first"
+                f" moment {a['moment_rel_l2']:.3e} (limit {DP_MOMENT_TOL}), "
+                f"the masters {a['masters_rel_l2']:.3e}; the ranks bitwise "
+                f"equal after each step {a['ranks_bitwise_equal']}; moved "
+                f"{a['moved']} (one process {a['moved_one']}) of "
+                f"{a['tensors']} trainable tensors")
+            log(f"multi-GPU (2a) {mode}: s/step dp=2 (B=1 a rank, 2 ranks "
+                f"on one card, gloo) rank 0 {a['seconds']}, rank 1 "
+                f"{b['seconds']}; one process at B=2 {a['one_seconds']} (the "
+                f"first of each cold); peak memory rank 0 {a['peak_gib']:.2f}"
+                f" GiB, rank 1 {b['peak_gib']:.2f} GiB, one process at B=2 "
+                f"{a['one_peak_gib']:.2f} GiB ({card})")
+            timing[f"s/step dp=2 {mode}"] = a["seconds"]
+            timing[f"s/step one process B=2 {mode}"] = a["one_seconds"]
+            if not (rel <= EPS_TOL and norm <= DP_NORM_TOL and
+                    a["update_rel_l2"] <= DP_UPDATE_TOL and
+                    a["moment_rel_l2"] <= DP_MOMENT_TOL and
+                    len(a["losses"]) == DP_STEPS and
+                    all(np.isfinite(a["losses"]))):
+                raise AssertionError(
+                    f"dp=2 ({mode}) against one process: losses {rel:.3e}, "
+                    f"gradient norms {norm:.3e}, update "
+                    f"{a['update_rel_l2']:.3e}, first moment "
+                    f"{a['moment_rel_l2']:.3e}")
+            if a["moved"] < 0.9 * a["moved_one"]:
+                raise AssertionError(f"dp=2 ({mode}) moved {a['moved']}")
+
+        # (b)
+        preset = config.sd15mv_rawbox_224x400()
+        batch = collate_fn(make_dataset(1, image_hw=preset.image_size,
+                                        map_hw=preset.map_hw,
+                                        map_channels=preset.map_channels),
+                           CollateConfig(bbox_max_len=preset.bbox_max_len))
+        got = torch.cat([torch.load(os.path.join(out, f"sample_{j}.pt"))
+                         for j in range(2)], dim=1)
+        ref = torch.load(os.path.join(out, "sample_ref.pt"))
+        s = res[0]["sample"]["unsharded_seconds"]
+        rel = ((got - ref).norm() / ref.norm()).item()
+        err, _ = _worst(got, ref)
+        log(f"multi-GPU (2b): a (dp=1, view=2) request, cameras "
+            f"{[x['sample']['views'] for x in res]}, "
+            f"{res[0]['sample']['gathers']} gathers a rank, against the "
+            f"unsharded request from the same latents: relative L2 "
+            f"{rel:.3e}, max abs err {err:.3e}; "
+            f"{check_images(got, batch, preset)}; s/request (cold) rank 0 "
+            f"{res[0]['sample']['seconds']:.3f}, rank 1 "
+            f"{res[1]['sample']['seconds']:.3f}, unsharded {s:.3f} (rank 0, "
+            f"rank 1 idle) ({card})")
+        timing["s/request view=2"] = [res[0]["sample"]["seconds"]]
+        if not rel <= EPS_TOL:
+            raise AssertionError(f"view-sharded images {rel:.3e} from the "
+                                 "unsharded")
+
+        # (c)
+        names = sorted(os.listdir(os.path.join(out, "vsg")))
+        one = sorted(os.listdir(evaluation["out"]))
+        if names != one or sum(x["val_set_gen"]["samples"]
+                               for x in res) != EVAL_SAMPLES:
+            raise AssertionError(f"val_set_gen --multihost wrote "
+                                 f"{len(names)} PNGs, one process "
+                                 f"{len(one)}")
+        first = _first_pngs(evaluation)
+        if len(first) != 6 or not set(first) <= set(names):
+            raise AssertionError(f"the first sample's PNGs {first}")
+        got, want = (np.stack([np.asarray(Image.open(os.path.join(d, f)))
+                               for f in first]).astype(np.int16)
+                     for d in (os.path.join(out, "vsg"), evaluation["out"]))
+        diff = np.abs(got - want)
+        log(f"multi-GPU (2c): val_set_gen --multihost over 2 ranks: "
+            f"{len(names)} PNGs, the one-process run's names; rank 0's "
+            f"first sample (6 PNGs, the one process's first sample and "
+            f"latents) against the one process's: bitwise "
+            f"{bool((diff == 0).all())}, max {int(diff.max())} levels, "
+            f"{(diff > 0).mean():.3e} of the values differ; s/batch rank 0 "
+            f"{res[0]['val_set_gen']['seconds']}, rank 1 "
+            f"{res[1]['val_set_gen']['seconds']} ({card})")
+        # one request repeats bit for bit in another process (the SDPA
+        # backends of core/attention.py)
+        if diff.max() > 0:
+            raise AssertionError(f"rank 0's first sample is up to "
+                                 f"{diff.max()} levels from the one-process "
+                                 "run's")
+
+
 def time_kernels(requests: int = 2) -> dict:
     """The CUDA-event ms of the REDESIGNED kernels (K1-K4, K7, K8 and the
     K8 pair) at their path shapes (as in ``check_kernels``, K1 with its kv
@@ -3603,6 +4296,9 @@ def log_pair_tables(rows) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--rank"]:  # a rank of the multi-GPU phase
+        rank_main(sys.argv[2:])
+        return
     from magicdrive_tpu_torch.kernels import dispatch
 
     with phase("environment"):
@@ -3646,10 +4342,12 @@ def main() -> None:
         run_cross_view_forms(pipe, batches, by_path, timing, card)
     del pipe
     torch.cuda.empty_cache()
+    # the evaluation's run, tree and val set, kept for the multi-GPU phase
+    kept = tempfile.TemporaryDirectory()
     with phase("evaluation"):
         log("the evaluation chain: conversion, the generation CLI, val-set "
             "generation, FID; the map drop:")
-        run_evaluation(by_path, timing, card)
+        evaluation = run_evaluation(by_path, timing, card, keep=kept.name)
     with phase("hi-res"):
         run_hires(by_path, timing)
     with phase("video"):
@@ -3668,6 +4366,12 @@ def main() -> None:
         log("the training CLI, its resume and export, the training options, "
             "video training and the cache:")
         run_train_cli(by_path, timing, card)
+    with phase("multi-GPU"):
+        log("across processes: NCCL through the training CLI; two gloo "
+            "ranks on the card: dp=2 training, a view-sharded request, "
+            "val_set_gen --multihost:")
+        run_multi_gpu(by_path, timing, card, evaluation)
+    kept.cleanup()
     with phase("kernels line"):
         log(f"path times (the first of each includes one-time setup): "
             f"{timing}")

@@ -18,6 +18,15 @@ checkpoints, validation images, the profile window and, at the end,
 The model trains on the card in ``runner.mixed_precision`` (bf16 in every
 runner config); ``main(argv, device="cpu")`` runs on the CPU, with
 ``runner.mixed_precision=no`` for fp32.
+
+Several processes, one card each (NCCL), data parallel:
+
+    torchrun --nproc_per_node=N -m magicdrive_tpu_torch.cli.train
+        exp=224x400 parallel.multihost=true [key=value ...]
+
+Every rank joins the job's process group (``train/runner.py``
+``join_job``) and takes rank 0's run directory; rank 0 alone writes the
+run's files, and the other ranks log to ``train_rank<r>.log`` there.
 """
 from __future__ import annotations
 
@@ -32,9 +41,10 @@ import torch
 from magicdrive_tpu_torch.config import preset_from_config
 from magicdrive_tpu_torch.config_loader import compose, save_run_config
 from magicdrive_tpu_torch.data.datasets import build_datasets
-from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from magicdrive_tpu_torch.device import DEFAULT_DEVICE
+from magicdrive_tpu_torch.parallel import multihost
 from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
-from magicdrive_tpu_torch.train.runner import Runner, check_parallel
+from magicdrive_tpu_torch.train.runner import Runner, join_job
 from magicdrive_tpu_torch.train.state import TrainState
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -58,14 +68,16 @@ def build_modules(preset, device) -> MagicDriveModules:
 def main(argv: Optional[Sequence[str]] = None,
          device=DEFAULT_DEVICE) -> TrainRun:
     overrides = list(argv if argv is not None else sys.argv[1:])
-    device = resolve_device(device)
     cfg = compose(CONFIG_DIR, overrides=overrides)
-    check_parallel(cfg)
+    device = join_job(cfg, device)
+    rank = multihost.process_index()
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M")
-    run_dir = os.path.join(cfg["log_root_prefix"],
-                           f"{cfg['task_id']}_{stamp}")
+    # rank 0's: ranks may read the clock on either side of a minute
+    run_dir = multihost.all_gather_objects(os.path.join(
+        cfg["log_root_prefix"], f"{cfg['task_id']}_{stamp}"))[0]
     os.makedirs(run_dir, exist_ok=True)
-    handler = logging.FileHandler(os.path.join(run_dir, "train.log"))
+    handler = logging.FileHandler(os.path.join(
+        run_dir, "train.log" if rank == 0 else f"train_rank{rank}.log"))
     handler.setFormatter(logging.Formatter(
         "%(asctime)s %(levelname)s %(name)s: %(message)s"))
     root = logging.getLogger()
@@ -79,18 +91,18 @@ def main(argv: Optional[Sequence[str]] = None,
         train_ds, val_ds = build_datasets(cfg)
         runner = Runner(cfg, preset, modules, train_ds, val_dataset=val_ds,
                         run_dir=run_dir, device=device)
-        save_run_config(cfg, run_dir, overrides)
+        if rank == 0:
+            save_run_config(cfg, run_dir, overrides)
         state = runner.init_state()
         if cfg.get("validation_only"):
             runner.resume(state)
-            runner.validator.validate(state, runner.logger, state.step,
-                                      run_dir)
+            runner.validate(state)
             logging.info("validation_only done; run dir: %s", run_dir)
         else:
             runner.run(state,
                        resume=cfg.get("resume_from_checkpoint") is not None)
-            logging.info("done at step %d; run dir: %s", state.step,
-                         run_dir)
+            logging.info("done at step %d; collectives %s; run dir: %s",
+                         state.step, dict(multihost.COLLECTIVES), run_dir)
         runner.logger.close()
         return TrainRun(run_dir, runner, state)
     finally:
@@ -103,3 +115,4 @@ if __name__ == "__main__":
     logging.basicConfig(format="%(asctime)s %(levelname)s %(name)s: "
                         "%(message)s")
     main()
+    multihost.shutdown()

@@ -2,7 +2,10 @@
 of ``tools/val_set_gen.py``; ref:perception/data_prepare/val_set_gen.py).
 
     python -m magicdrive_tpu_torch.cli.val_set_gen --run_dir RUN --out OUT
-        [--times T] [--batch_size 4] [--seed 42] [overrides...]
+        [--times T] [--batch_size 4] [--seed 42] [--multihost]
+        [overrides...]
+    torchrun --nproc_per_node=N -m magicdrive_tpu_torch.cli.val_set_gen
+        --multihost --run_dir RUN --out OUT [...]
 
 Recomposes the run's config (its saved overrides, then these), loads the
 run's ``weights/``, and generates every validation sample's 6 views in
@@ -14,8 +17,14 @@ names ``cli.fid``'s ``tokens`` mode pairs with the real images
 as the JAX tool does. The model reads the first
 ``dataset.map_channels_used`` channels of the rasterized map. The latents
 of (rep, batch) come from a ``torch.Generator`` seeded from (seed, rep,
-batch) by numpy's SeedSequence. One process, one card: ``--multihost``
-raises.
+batch, process index) by numpy's SeedSequence.
+
+With ``--multihost`` each process joins the job's process group (NCCL,
+one card a rank; ``parallel/multihost.py``) and generates every
+``process_count``-th sample from its index on (``shard_for_process``),
+into the shared ``--out``; alone, or without the flag, it takes every
+sample. Process 0's stream is the one process's: the SeedSequence of
+(seed, rep, batch, 0) is that of (seed, rep, batch).
 
 The model runs on the card in bf16, as the JAX package's tool builds it;
 ``main(argv, device="cpu", dtype=torch.float32)`` runs it on the CPU.
@@ -39,15 +48,16 @@ from magicdrive_tpu_torch.data.datasets import build_datasets
 from magicdrive_tpu_torch.data.loader import DataLoader, shard_for_process
 from magicdrive_tpu_torch.data.nuscenes import ListSetWrapper
 from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from magicdrive_tpu_torch.parallel import multihost
 from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
 
 
 class ValSet(NamedTuple):
-    """What ``main`` made: the output directory, the pipeline, this
-    process's samples, and per batch the host-clock seconds from asking the
-    loader for it to its last PNG written, every rep included (the wait for
-    the loader, the pipeline's calls, the images' copy to the host and the
-    PNGs' encoding)."""
+    """What ``main`` made on this process: the output directory, the
+    pipeline, this process's samples, and per batch the host-clock seconds
+    from asking the loader for it to its last PNG written, every rep
+    included (the wait for the loader, the pipeline's calls, the images'
+    copy to the host and the PNGs' encoding)."""
     out_dir: str
     pipe: MagicDrivePipeline
     dataset: ListSetWrapper
@@ -69,29 +79,32 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def batch_generator(seed: int, rep: int, batch: int,
-                    device) -> torch.Generator:
-    """The generator of one (rep, batch): seeded from (seed, rep, batch)
-    by numpy's SeedSequence, so no two share a stream."""
-    state = np.random.SeedSequence([seed, rep, batch]).generate_state(1)[0]
+def batch_generator(seed: int, rep: int, batch: int, device,
+                    process: int = 0) -> torch.Generator:
+    """The generator of one (rep, batch) of a process: seeded from (seed,
+    rep, batch, process) by numpy's SeedSequence, so no two share a
+    stream (a trailing 0 leaves SeedSequence's state as it is, so process
+    0 draws what the one-process tool drew)."""
+    state = np.random.SeedSequence(
+        [seed, rep, batch, process]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
 def main(argv: Optional[Sequence[str]] = None, device=DEFAULT_DEVICE,
          dtype: torch.dtype = torch.bfloat16) -> ValSet:
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: generation across processes comes with the "
-            "port's multi-GPU support (ROADMAP Queue A, A7)")
     device = resolve_device(device)
+    if args.multihost:
+        multihost.initialize_if_needed(device=device)
+        device = multihost.rank_device(device)
+    rank, world = multihost.process_index(), multihost.process_count()
     cfg = compose(CONFIG_DIR, overrides=load_run_overrides(args.run_dir)
                   + list(args.overrides))
     preset = preset_from_config(cfg)
     pipe = load_pipeline(preset, os.path.join(args.run_dir, "weights"),
                          device, dtype)
     _, val_ds = build_datasets(cfg)
-    ids = shard_for_process(range(len(val_ds)), 0, 1)
+    ids = shard_for_process(range(len(val_ds)), rank, world)
     ds = ListSetWrapper(val_ds, ids)
     loader = DataLoader(ds, batch_size=args.batch_size,
                         cfg=collate_config(cfg),
@@ -108,8 +121,8 @@ def main(argv: Optional[Sequence[str]] = None, device=DEFAULT_DEVICE,
         batch.pop("pixel_values", None)  # generation takes no images
         batch["bev_map"] = batch["bev_map"][..., :n_map]
         for rep in range(args.times):
-            latents = pipe.prepare_latents(
-                len(files), batch_generator(args.seed, rep, bi, device))
+            latents = pipe.prepare_latents(len(files), batch_generator(
+                args.seed, rep, bi, device, rank))
             imgs = pipe(batch, latents=latents).cpu().numpy()
             for b, views in enumerate(files):
                 for v, fname in enumerate(views):
@@ -120,9 +133,12 @@ def main(argv: Optional[Sequence[str]] = None, device=DEFAULT_DEVICE,
         made.seconds.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         done += len(files)
-        print(f"{done}/{len(ds)} ({made.seconds[-1]:.3f} s for the batch)")
+        print(f"[process {rank}] {done}/{len(ds)} "
+              f"({made.seconds[-1]:.3f} s for the batch)")
+    multihost.barrier("val_set_gen")
     return made
 
 
 if __name__ == "__main__":
     main()
+    multihost.shutdown()

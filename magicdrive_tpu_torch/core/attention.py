@@ -19,8 +19,28 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from magicdrive_tpu_torch.kernels import autograd, dispatch
+
+
+# The SDPA backends the port lets PyTorch choose from on the card: flash
+# where the head fits, else memory-efficient, else math; not cuDNN's, which
+# on an H100 (torch 2.11, cuDNN attention) gave the same inputs other bits
+# in another process (8 heads of 160 at L=91), so one request's images
+# differed from process to process. These three repeat across processes.
+CUDA_SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+
+
+def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, **kwargs) -> torch.Tensor:
+    """``F.scaled_dot_product_attention``, on the card restricted to
+    CUDA_SDPA_BACKENDS."""
+    if not q.is_cuda:
+        return F.scaled_dot_product_attention(q, k, v, **kwargs)
+    with sdpa_kernel(CUDA_SDPA_BACKENDS):
+        return F.scaled_dot_product_attention(q, k, v, **kwargs)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -29,8 +49,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     B, Lq, HD = q.shape
     split = lambda t: t.reshape(t.shape[0], t.shape[1], heads, -1
                                 ).transpose(1, 2)
-    o = F.scaled_dot_product_attention(split(q), split(k), split(v),
-                                       scale=scale)
+    o = scaled_dot_product_attention(split(q), split(k), split(v),
+                                     scale=scale)
     return o.transpose(1, 2).reshape(B, Lq, HD)
 
 

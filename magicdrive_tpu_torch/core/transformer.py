@@ -21,6 +21,8 @@ from magicdrive_tpu_torch.core.attention import Attention, sdpa
 from magicdrive_tpu_torch.core.resnet import GroupNorm
 from magicdrive_tpu_torch.kernels import autograd, dispatch
 from magicdrive_tpu_torch.kernels.reference import take_views
+from magicdrive_tpu_torch.parallel.mesh import (gather_views, local_views,
+                                               view_mesh)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -199,16 +201,33 @@ class BasicTransformerBlock(nn.Module):
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
         """The cross-view attention of h (B*n, L, C), before the
-        connector."""
+        connector. Under a view-sharded pipeline (``parallel.mesh.
+        sharded_views``) h holds this rank's m = n / view cameras of each
+        sample: the queries stay local, and the neighbours are read from
+        the normed hidden states of all n cameras, gathered over the view
+        group. K2 and the K8 pair take their queries and keys from one
+        tensor, so there the "add" form takes their per-neighbour routes
+        (K1 or K8 once a neighbour list), which compute only the local
+        queries' rows."""
         a, table = self.attn4, self.neighbors
         k, n = table.shape
         BN, L, C = h.shape
+        src, mesh = h, view_mesh()
+        if mesh is not None:
+            table = table[:, local_views(mesh, n)]
+            src = gather_views(h, mesh, table.shape[1])
+        m = table.shape[1]  # the query cameras of a sample
         if self.attn_type == "self":
-            return a(h.reshape(BN // n, n * L, C)).reshape(BN, L, C)
+            if src is h:
+                return a(h.reshape(BN // n, n * L, C)).reshape(BN, L, C)
+            return a(h.reshape(BN // m, m * L, C),
+                     src.reshape(BN // m, n * L, C)).reshape(BN, L, C)
         if self.attn_type == "concat":
-            return a(h, take_views(h, table.t().reshape(-1), n).reshape(
+            return a(h, take_views(src, table.t().reshape(-1), n).reshape(
                 BN, k * L, C))
         route = dispatch.pair_route(L, C, a.dim_head, h.element_size(), k)
+        if src is not h and route in ("kvstat", "out"):
+            route += "_loop"
         w = (a.to_q.weight, a.to_k.weight, a.to_v.weight)
         lin = a.to_out[0]
         if route in ("out", "out_loop"):
@@ -217,20 +236,20 @@ class BasicTransformerBlock(nn.Module):
                     h, *w, lin.weight, a.heads, a.scale, table)
             else:
                 y = sum(autograd.fused_qkv_out_attention(
-                    h, take_views(h, idx, n), *w, lin.weight, a.heads,
+                    h, take_views(src, idx, n), *w, lin.weight, a.heads,
                     a.scale) for idx in table)
             return y if lin.bias is None else y + k * lin.bias
         if route == "kvstat":
             o = autograd.kvstat_attention_pair(h, *w, a.heads, a.scale,
                                                table)
         elif route == "kvstat_loop":
-            o = sum(autograd.kvstat_attention(h, take_views(h, idx, n), *w,
-                                              a.heads, a.scale)
+            o = sum(autograd.kvstat_attention(h, take_views(src, idx, n),
+                                              *w, a.heads, a.scale)
                     for idx in table)
         else:
             attend = autograd.flash_attention if route == "projected_loop" \
                 else sdpa
-            q, kk, vv = a.to_q(h), a.to_k(h), a.to_v(h)
+            q, kk, vv = a.to_q(h), a.to_k(src), a.to_v(src)
             o = sum(attend(q, take_views(kk, idx, n), take_views(vv, idx, n),
                            a.heads, a.scale) for idx in table)
         return a.project_out(o, n_summed=k)

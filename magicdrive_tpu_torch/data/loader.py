@@ -7,13 +7,20 @@ card does not wait on the host. Each pass is an epoch: with ``shuffle`` its
 order is a permutation drawn from (seed, epoch), and each batch's collate
 draws (training augmentation only) come from (seed, epoch, its first
 index), as in the JAX package, so a run's batches repeat from its seed.
+
+With ``shard=(i, parts)`` the loader is one rank's of a data-parallel job:
+it walks the global batches of ``batch_size * parts`` samples in the order
+every rank draws alike, and loads only rows [i b, (i+1) b) of each. A
+rank's collate draws come from its own first index, so where the collate
+draws (``bbox_drop_ratio``/``bbox_add_ratio`` > 0) they follow another
+stream than one process's at the global batch.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -24,14 +31,15 @@ class DataLoader:
     """Iterable over collated numpy batches of ``batch_size``, in the
     dataset's order or, with ``shuffle``, in a new order each epoch; with
     ``drop_last`` an incomplete tail batch is dropped, so every batch has
-    the same shapes."""
+    the same shapes. ``shard``: see the module docstring."""
 
     def __init__(self, dataset, batch_size: int, cfg: CollateConfig,
                  shuffle: bool = False, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.cfg = cfg
         self.shuffle = shuffle
         self.seed = seed
@@ -41,16 +49,24 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
+        size = self.batch_size * self.shard[1]
+        n = len(self.dataset) // size
+        if not self.drop_last and len(self.dataset) % size:
             n += 1
         return n
 
     def _batches(self, order: np.ndarray):
-        for i in range(0, len(order), self.batch_size):
-            idx = order[i:i + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
+        index, parts = self.shard
+        size = self.batch_size * parts
+        for i in range(0, len(order), size):
+            idx = order[i:i + size]
+            if self.drop_last and len(idx) < size:
                 return
+            if parts > 1:
+                idx = idx[index * self.batch_size:
+                          (index + 1) * self.batch_size]
+                if not len(idx):  # a short tail without rows for this rank
+                    return
             yield idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from magicdrive_tpu_torch.config import CLIPTextConfig
+from magicdrive_tpu_torch.core.attention import scaled_dot_product_attention
 
 
 class CLIPAttention(nn.Module):
@@ -23,7 +24,7 @@ class CLIPAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, d = x.shape
         split = lambda t: t.reshape(B, L, self.heads, -1).transpose(1, 2)
-        o = F.scaled_dot_product_attention(
+        o = scaled_dot_product_attention(
             split(self.q_proj(x)), split(self.k_proj(x)),
             split(self.v_proj(x)), is_causal=True)
         return self.out_proj(o.transpose(1, 2).reshape(B, L, d))

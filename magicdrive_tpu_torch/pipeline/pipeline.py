@@ -33,6 +33,7 @@ from magicdrive_tpu_torch.models.clip_text import CLIPTextModel
 from magicdrive_tpu_torch.models.controlnet import BEVControlNet
 from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 from magicdrive_tpu_torch.models.vae import AutoencoderKL
+from magicdrive_tpu_torch.parallel.mesh import Mesh, sharded_views
 
 
 @dataclasses.dataclass
@@ -89,11 +90,26 @@ class Conditioning(NamedTuple):
 
 class MagicDrivePipeline:
     """Callable generation pipeline over :class:`MagicDriveModules` (already
-    on their device and in the working dtype)."""
+    on their device and in the working dtype).
 
-    def __init__(self, modules: MagicDriveModules, cfg: PipelineConfig):
+    With a ``mesh`` (``parallel.make_mesh``) it generates this rank's block
+    of a batch that ``parallel.shard_batch(batch, mesh, n_cam)`` cut: its
+    samples, and with a ``view`` axis > 1 its cameras. Every per-view
+    operation runs on the local cameras as it does unsharded; the
+    cross-view attention gathers the other ranks' cameras over the view
+    group (``core/transformer.py``). Pass the latents of ``shard_batch``:
+    latents drawn from a generator are this rank's own."""
+
+    def __init__(self, modules: MagicDriveModules, cfg: PipelineConfig,
+                 mesh: Optional[Mesh] = None):
         self.m = modules
         self.cfg = cfg
+        self.mesh = mesh
+        view = mesh.view if mesh is not None else 1
+        if cfg.n_cam % view:
+            raise ValueError(f"a view axis of {view} ranks does not divide "
+                             f"the {cfg.n_cam} cameras")
+        self.n_views = cfg.n_cam // view  # the cameras a rank generates
         self.schedule = NoiseSchedule.create()
         self.coeffs = make_sampler_coeffs(self.schedule,
                                           cfg.num_inference_steps,
@@ -113,7 +129,7 @@ class MagicDrivePipeline:
         lat = torch.randn((1 if fix_seed_within_batch else batch_size, 1,
                            c.latent_height, c.latent_width, 4),
                           generator=generator, device=self.device)
-        return lat.expand(batch_size, c.n_cam, -1, -1, -1)
+        return lat.expand(batch_size, self.n_views, -1, -1, -1)
 
     def _tensor(self, v, dtype=None) -> torch.Tensor:
         return torch.as_tensor(v, device=self.device, dtype=dtype)
@@ -193,6 +209,11 @@ class MagicDrivePipeline:
         x (B, N, 4, h, w) at timestep t, combined at the guidance scale; in
         guess mode the ControlNet runs at batch B on the cond branch and the
         uncond branch takes zero residuals."""
+        with sharded_views(self.mesh):
+            return self._guided_eps(x, t, cond)
+
+    def _guided_eps(self, x: torch.Tensor, t: int,
+                    cond: Conditioning) -> torch.Tensor:
         m, cfg = self.m, self.cfg
         tokens2 = cond.tokens
         B, N = x.shape[:2]

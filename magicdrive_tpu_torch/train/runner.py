@@ -31,6 +31,20 @@ device:
 Each step draws from a generator seeded with (seed, step), so a resumed run
 continues the draws it would have made. The JAX package's ``pair_bwd`` is a
 TPU trace-time knob with no counterpart here: it is logged and ignored.
+
+Several processes (``parallel``; the JAX runner's mesh, :214-273): the
+ranks form the mesh of ``parallel.mesh_shape`` (null: every rank on
+``dp``), after ``parallel.multihost`` or a ``WORLD_SIZE`` > 1 in the
+environment has joined the job's process group. The global batch is
+``train_batch_size`` x dp: every rank shuffles alike from the seed and
+loads only its rows (ranks of one view group take the same rows, as JAX's
+dp-only batch sharding replicates over ``view``); each step draws the
+global batch's draws and keeps its rows, and the gradients and the loss
+are the dp group's mean (``train_step``), so every rank makes the same
+update. Rank 0 alone writes the checkpoints, metrics, validation grids,
+profile and weights, with a barrier after each write; every rank reads a
+resume checkpoint. JAX's runner reads no ``shard_views``: it is logged as
+having no effect in training.
 """
 from __future__ import annotations
 
@@ -50,6 +64,8 @@ from magicdrive_tpu_torch.data.collate import CollateConfig, collate_fn
 from magicdrive_tpu_torch.data.loader import DataLoader
 from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from magicdrive_tpu_torch.diffusion import NoiseSchedule
+from magicdrive_tpu_torch.parallel import multihost
+from magicdrive_tpu_torch.parallel.mesh import make_mesh
 from .state import (TrainConfig, TrainState, create_train_state,
                     reset_lr_schedule)
 from .train_step import train_step
@@ -77,26 +93,26 @@ def train_config_from_cfg(rc) -> TrainConfig:
         frames_per_clip=rc.get("frames_per_clip"))
 
 
-def check_parallel(cfg) -> None:
-    """The port trains on one device: a ``parallel`` group asking for more
-    (a mesh of several devices, ``multihost``, ``shard_views``) raises."""
+def join_job(cfg, device=DEFAULT_DEVICE) -> torch.device:
+    """Join the job's process group where ``parallel.multihost`` asks for
+    it or the environment holds a job of several processes; -> this rank's
+    device for ``device`` (``parallel.multihost.rank_device``)."""
     pc = cfg.get("parallel") or {}
-    shape = pc.get("mesh_shape")
-    if shape and int(np.prod(shape)) > 1 or pc.get("multihost") or \
-            pc.get("shard_views"):
-        raise NotImplementedError(
-            f"parallel={dict(pc)}: training across devices comes with the "
-            "port's multi-GPU support (ROADMAP Queue A, A7); the port "
-            "trains on one device (mesh_shape null or [1, 1])")
+    if pc.get("multihost") or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        multihost.initialize_if_needed(device=device)
+    return multihost.rank_device(resolve_device(device))
 
 
 class MetricsLogger:
-    """Scalars as JSON lines, and to tensorboard where it imports."""
+    """Scalars as JSON lines, and to tensorboard where it imports; with
+    ``write`` False (the ranks other than 0) nothing."""
 
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, write: bool = True):
+        self.f = self.tb = None
+        if not write:
+            return
         os.makedirs(run_dir, exist_ok=True)
         self.f = open(os.path.join(run_dir, "metrics.jsonl"), "a")
-        self.tb = None
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -106,6 +122,8 @@ class MetricsLogger:
             self.tb = SummaryWriter(os.path.join(run_dir, "tb"))
 
     def log(self, step: int, scalars: Mapping[str, float]) -> None:
+        if self.f is None:
+            return
         rec = {"step": int(step), **{k: float(v) for k, v in scalars.items()}}
         self.f.write(json.dumps(rec) + "\n")
         self.f.flush()
@@ -119,7 +137,8 @@ class MetricsLogger:
             self.tb.add_image(tag, grid, int(step), dataformats="HWC")
 
     def close(self) -> None:
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
         if self.tb:
             self.tb.close()
 
@@ -193,19 +212,30 @@ class Runner:
         runner = Runner(cfg, preset, modules, train_ds, val_ds, run_dir)
         state = runner.run()
 
-    The modules train on ``device`` in ``runner.mixed_precision`` (bf16, or
-    fp32 for any other value) over fp32 masters, as the JAX package's
-    ``init_state`` keeps them."""
+    The modules train on ``device`` (a CUDA device without an index: this
+    rank's card) in ``runner.mixed_precision`` (bf16, or fp32 for any other
+    value) over fp32 masters, as the JAX package's ``init_state`` keeps
+    them."""
 
     def __init__(self, cfg, preset, modules, train_dataset,
                  val_dataset=None, run_dir: str = "runs/dev",
                  device=DEFAULT_DEVICE):
-        check_parallel(cfg)
         rc = cfg["runner"]
         self.cfg, self.rc = cfg, rc
         self.modules = modules
         self.run_dir = run_dir
-        self.device = resolve_device(device)
+        self.device = join_job(cfg, device)
+        pc = cfg.get("parallel") or {}
+        self.mesh = make_mesh(pc.get("mesh_shape"),
+                              tuple(pc.get("axis_names") or ("dp", "view")))
+        self.main = multihost.process_index() == 0
+        log.info("rank %d of %d (backend %s) at %s of the %s mesh",
+                 multihost.process_index(), multihost.process_count(),
+                 multihost.backend(), self.mesh.coords, self.mesh.shape)
+        if pc.get("shard_views"):
+            log.info("parallel.shard_views=true: the JAX package's runner "
+                     "reads no shard_views (its batch is dp-sharded only); "
+                     "it has no effect in training")
         self.dtype = torch.bfloat16 if rc["mixed_precision"] == "bf16" \
             else torch.float32
         self.tcfg = train_config_from_cfg(rc)
@@ -227,7 +257,7 @@ class Runner:
         self.loader = DataLoader(
             train_dataset, batch_size=rc["train_batch_size"], cfg=self.ccfg,
             shuffle=True, seed=self.seed, num_workers=rc["num_workers"],
-            drop_last=True)
+            drop_last=True, shard=(self.mesh.index("dp"), self.mesh.dp))
         self.validator = None
         if val_dataset is not None:
             self.validator = Validator(
@@ -236,7 +266,7 @@ class Runner:
                 map_channels=self.map_channels)
         self.ckpt_dir = os.path.join(run_dir, "checkpoints")
         self.max_to_keep = rc.get("checkpoints_total_limit") or 5
-        self.logger = MetricsLogger(run_dir)
+        self.logger = MetricsLogger(run_dir, write=self.main)
         self.schedule = NoiseSchedule.create()
         self._profiler = None
 
@@ -259,7 +289,12 @@ class Runner:
 
     def save(self, state: TrainState) -> None:
         """Checkpoint ``state`` (once per step) and keep the newest
-        ``max_to_keep``."""
+        ``max_to_keep``: on rank 0, then a barrier."""
+        if self.main:
+            self._save(state)
+        multihost.barrier("checkpoint")
+
+    def _save(self, state: TrainState) -> None:
         ckpts = self.checkpoints()
         if ckpts and ckpts[-1][0] == state.step:
             return
@@ -312,8 +347,7 @@ class Runner:
         if resume:
             self.resume(state)
         if self.rc.get("validation_before_run") and self.validator:
-            self.validator.validate(state, self.logger, state.step,
-                                    self.run_dir)
+            self.validate(state)
         for epoch in range(self.rc["num_train_epochs"]):
             if state.step >= self.tcfg.max_train_steps:
                 break
@@ -321,6 +355,13 @@ class Runner:
         self.save(state)
         self.save_deployable(state)
         return state
+
+    def validate(self, state: TrainState) -> None:
+        """The Validator's grids of ``state`` on rank 0, then a barrier."""
+        if self.main:
+            self.validator.validate(state, self.logger, state.step,
+                                    self.run_dir)
+        multihost.barrier("validation")
 
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -368,19 +409,21 @@ class Runner:
         for batch in batches:
             if state.step >= self.tcfg.max_train_steps:
                 break
-            if window and state.step == window[0]:
+            if window and state.step == window[0] and self.main:
                 self._start_profile()
             batch = dict(batch, bev_map=np.asarray(
                 batch["bev_map"])[..., :self.map_channels])
             gen = torch.Generator(self.device).manual_seed(
                 self.seed * 1_000_003 + state.step)
             metrics = train_step(self.modules, state, batch, self.tcfg,
-                                 generator=gen, schedule=self.schedule)
+                                 generator=gen, schedule=self.schedule,
+                                 mesh=self.mesh)
             if window and state.step == window[1] and self._profiler:
                 self._stop_profile(window)
             if pending is not None:
                 check(pending)
-            pending = (state.step, metrics, len(batch["input_ids"]))
+            pending = (state.step, metrics,
+                       len(batch["input_ids"]) * self.mesh.dp)
             at_ckpt = state.step % rc["checkpointing_steps"] == 0
             at_val = self.validator is not None and \
                 state.step % rc["validation_steps"] == 0
@@ -390,8 +433,7 @@ class Runner:
             if at_ckpt:
                 self.save(state)
             if at_val:
-                self.validator.validate(state, self.logger, state.step,
-                                        self.run_dir)
+                self.validate(state)
         if pending is not None:
             check(pending)
         return state
@@ -400,9 +442,11 @@ class Runner:
         """The run's weights in ``<run_dir>/weights``: the modules' tree
         with the trainable leaves from the fp32 masters (the counterpart
         of the reference's save_pretrained dirs,
-        ref:multiview_runner.py:233-242)."""
+        ref:multiview_runner.py:233-242), on rank 0, then a barrier."""
         from magicdrive_tpu_torch.convert import modules_to_jax_params
         from magicdrive_tpu_torch.utils.serialization import save_params
 
-        save_params(modules_to_jax_params(self.modules, state.masters),
-                    os.path.join(self.run_dir, "weights"))
+        if self.main:
+            save_params(modules_to_jax_params(self.modules, state.masters),
+                        os.path.join(self.run_dir, "weights"))
+        multihost.barrier("export")

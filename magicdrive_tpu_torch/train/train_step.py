@@ -8,11 +8,19 @@ Every random draw of a step is a field of ``StepDraws``: ``sample_draws``
 makes them from a ``torch.Generator``, and a caller may pass its own (the
 tests feed the JAX package's draws, since ``jax.random`` and
 ``torch.Generator`` never agree).
+
+Data parallel (a ``parallel.Mesh`` with a process group): each rank steps
+on its rows of the global batch. It draws the global batch's draws and
+keeps its rows, so a dp run takes the draws of one process at the global
+batch; after the backward the trainable gradients and the loss are
+averaged over the ``dp`` group in a few flat fp32 buckets
+(``all_reduce_mean``), before the clip, the accumulation and the update,
+so every rank makes the same update.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +43,17 @@ class StepDraws:
     drop_mask: Optional[torch.Tensor]  # (B, N), 1 -> uncond cam and text
     # (B,), 1 -> the ControlNet's unconditional map
     map_drop_mask: Optional[torch.Tensor] = None
+
+    def rows(self, index: int, parts: int) -> "StepDraws":
+        """The draws of block ``index`` of ``parts`` equal blocks of the
+        samples (frames)."""
+        def take(t):
+            if t is None:
+                return None
+            b = len(t) // parts  # vae_noise: a row per view
+            return t[index * b:(index + 1) * b]
+        return StepDraws(*(take(getattr(self, f.name))
+                           for f in dataclasses.fields(self)))
 
 
 def make_drop_mask(generator: torch.Generator, batch: int, n_cam: int,
@@ -148,23 +167,74 @@ def loss_and_grads(modules, state: TrainState,
         for (k, _), g in zip(params.items(), grads)}
 
 
+# elements of one all-reduce bucket (256 MiB of fp32)
+BUCKET_ELEMENTS = 1 << 26
+
+
+def buckets(sizes: Sequence[int]) -> List[Tuple[int, int]]:
+    """[start, stop) runs of consecutive tensors of ``sizes`` elements, each
+    run one bucket: at most BUCKET_ELEMENTS elements unless one tensor
+    alone is larger."""
+    runs, start, n = [], 0, 0
+    for i, s in enumerate(sizes):
+        if n and n + s > BUCKET_ELEMENTS:
+            runs.append((start, i))
+            start, n = i, 0
+        n += s
+    runs.append((start, len(sizes)))
+    return runs
+
+
+def all_reduce_mean(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                    mesh) -> torch.Tensor:
+    """Average ``grads`` (fp32, in place) and ``loss`` over the mesh's
+    ``dp`` group: one all-reduce a bucket of the flattened tensors, the
+    loss in the last bucket; -> the mean loss. Every rank gets the same
+    bits."""
+    import torch.distributed as dist
+
+    from magicdrive_tpu_torch.parallel.multihost import COLLECTIVES
+
+    tensors = list(grads.values()) + [loss.detach().float().reshape(1)]
+    dp = mesh.dp
+    for start, stop in buckets([t.numel() for t in tensors]):
+        part = tensors[start:stop]
+        flat = torch.cat([t.reshape(-1) for t in part])
+        dist.all_reduce(flat, group=mesh.group("dp"))
+        COLLECTIVES["all_reduce"] += 1
+        flat.div_(dp)
+        for t, v in zip(part, flat.split([t.numel() for t in part])):
+            t.copy_(v.view_as(t))
+    return tensors[-1].reshape(())
+
+
 def train_step(modules, state: TrainState, batch: Mapping[str, Any],
                cfg: TrainConfig, draws: Optional[StepDraws] = None,
                generator: Optional[torch.Generator] = None,
-               schedule: Optional[NoiseSchedule] = None
+               schedule: Optional[NoiseSchedule] = None, mesh=None
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step on ``batch`` (a ``collate_fn`` batch with
     ``pixel_values``); ``draws`` default to ``sample_draws`` from
     ``generator``. Updates ``state`` in place and returns its metrics as
-    tensors (no host sync): the loss and the gradients' global norm."""
+    tensors (no host sync): the loss and the gradients' global norm.
+
+    With a ``mesh`` (``parallel.Mesh``) ``batch`` is this rank's rows of a
+    global batch of ``len(batch) * mesh.dp`` samples: the default draws
+    are the global batch's, cut to this rank's rows, and where a process
+    group is up the gradients and the loss are the ``dp`` group's mean."""
     schedule = schedule or NoiseSchedule.create()
     device = next(iter(state.masters.values())).device
     batch = batch_tensors(batch, device)
+    dp = mesh.dp if mesh is not None else 1
     if draws is None:
         B, N, H, W = batch["pixel_values"].shape[:4]
         f = 2 ** (len(modules.vae.cfg.block_out_channels) - 1)
-        draws = sample_draws(cfg, schedule, B, N, (H // f, W // f),
+        draws = sample_draws(cfg, schedule, B * dp, N, (H // f, W // f),
                              generator, device,
                              modules.controlnet.cfg.use_uncond_map)
+        if dp > 1:
+            draws = draws.rows(mesh.index("dp"), dp)
     loss, grads = loss_and_grads(modules, state, batch, draws, cfg, schedule)
+    if mesh is not None and mesh.group("dp") is not None:
+        loss = all_reduce_mean(grads, loss, mesh)
     return {"loss": loss, "grad_norm": state.apply_gradients(grads)}

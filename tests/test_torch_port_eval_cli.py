@@ -31,6 +31,7 @@ import torch
 from PIL import Image
 
 from test_torch_port_modules import scaled_kernels, shaped
+from test_torch_port_parallel import Background
 
 torch.set_num_threads(1)
 
@@ -204,12 +205,57 @@ def test_val_set_gen_images_match_jax_pipeline(run, port_cli, jax_cli):
         np.testing.assert_allclose(got, want, atol=2e-3)
 
 
-def test_val_set_gen_multihost_raises(run, tmp_path):
+_RANK = """
+import sys
+import torch
+from magicdrive_tpu_torch.cli import val_set_gen
+torch.set_num_threads(1)
+made = val_set_gen.main(sys.argv[1:], device="cpu", dtype=torch.float32)
+assert torch.distributed.get_world_size() == 2
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "flax", "magicdrive_tpu")]
+assert not bad, bad
+print(len(made.dataset))
+"""
+
+
+def test_val_set_gen_multihost_raises(run, port_cli, tmp_path):
+    """``--multihost`` over two gloo ranks on the CPU (``torchrun``)
+    writes the one-process run's file set into the shared ``--out``, each
+    rank every second sample from its rank on; rank 0's first batch draws
+    the one-process run's first latents (process 0's seeds are the one
+    process's), so its first sample's PNGs are that run's, byte for
+    byte. The ranks load no jax, flax or JAX package module."""
+    from test_torch_port_parallel import torchrun
+
+    out = str(tmp_path / "out")
+    one = str(tmp_path / "one")
+    common = ["--run_dir", run[0], "--batch_size", str(BATCH), "--times",
+              "1", "--seed", "5", *run[1]]
     from magicdrive_tpu_torch.cli import val_set_gen
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        val_set_gen.main(["--run_dir", run[0], "--out", str(tmp_path),
-                          "--multihost"], device="cpu")
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK)
+    ranks = Background(lambda: torchrun(
+        str(script), ["--out", out, "--multihost", *common],
+        str(tmp_path / "logs"), timeout=300))
+    try:  # the one-process run meanwhile
+        made = val_set_gen.main(["--out", one, *common], device="cpu",
+                                dtype=torch.float32)
+    finally:
+        results = ranks.join()
+    assert [o.strip().splitlines()[-1] for o in results] == [
+        str(N_SAMPLES // 2)] * 2
+    assert "[process 1] 2/2" in results[1]
+    names = sorted(os.listdir(one))
+    assert sorted(os.listdir(out)) == names
+    assert names == sorted(f for f in os.listdir(port_cli[0].out_dir)
+                           if f.endswith("_gen0.png"))
+    for f in made.dataset[0]["metas"]["filename"]:
+        png = os.path.splitext(os.path.basename(f))[0] + "_gen0.png"
+        with open(os.path.join(out, png), "rb") as a, \
+                open(os.path.join(one, png), "rb") as b:
+            assert a.read() == b.read(), png
 
 
 def test_val_set_gen_seeds_per_rep_and_batch():

@@ -217,7 +217,9 @@ def test_chip_smoke_imports_only_the_port():
 
 def test_port_imports_no_jax():
     """A process that imports the port (its training modules and 8-bit
-    optimizer, the given-view and video pipelines, the config loader, the
+    optimizer, the parallel package, ``cli.val_set_gen`` with
+    ``--multihost`` alone, the given-view and video pipelines, the config
+    loader, the
     nuScenes data path with its flip, rot-scale-trans and cache, the native
     codecs, the viz, the run weights, the weight converter, the loader, the
     demo fixtures, the FID layer and every CLI included), makes
@@ -258,9 +260,17 @@ def test_port_imports_no_jax():
         from magicdrive_tpu_torch.train import (Runner, TrainConfig,
                                                 adam8bit, create_train_state,
                                                 train_step)
+        from magicdrive_tpu_torch import parallel
+        from magicdrive_tpu_torch.parallel import mesh, multihost
         torch.set_num_threads(1)
         batch = collate_fn(make_dataset(1), CollateConfig(bbox_max_len=8))
         assert batch["bboxes"].shape == (1, 6, 8, 8, 3)
+        local = parallel.shard_batch(batch, mesh.Mesh((1, 2), coords=(0, 1)),
+                                     n_cam=6)
+        assert local["bboxes"].shape == (1, 3, 8, 8, 3)
+        args = val_set_gen.parse_args(["--run_dir", "r", "--out", "o",
+                                       "--multihost"])
+        assert args.multihost and not multihost.initialize_if_needed("cpu")
         blk = BasicTransformerBlock(16, 2, 8, 16, ((5, 1), (0, 2), (1, 3),
                                                    (2, 4), (3, 5), (4, 0)))
         with torch.no_grad():

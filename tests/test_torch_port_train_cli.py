@@ -23,9 +23,9 @@ and the validator's grid below). Held equal:
     latents, at atol 2e-3.
 Also: ``resume_reset_scheduler`` restarts the port's learning-rate schedule
 (and keeps Adam's count) on an external resume, where JAX's runner resets
-it only on resuming from the run's own checkpoints; a parallel config
-asking for more than one device raises; ``pair_bwd`` is logged as having no
-effect.
+it only on resuming from the run's own checkpoints; the ``parallel`` group
+runs as JAX's runner reads it (two gloo ranks on the CPU; a mesh larger
+than the job raises); ``pair_bwd`` is logged as having no effect.
 """
 import dataclasses
 import json
@@ -256,12 +256,71 @@ def test_resume_reset_scheduler_restarts_the_schedule(runs, port_cli):
     assert moved > 0.9 * len(run.state.opt.mu)  # the moments did update
 
 
+# a small run: 112x200 images (a 14x25 latent through the Plus map
+# embedder), one step, no validation
+SMALL = ("dataset.image_size=[112,200]",
+         "model.controlnet.use_map_embedder_plus=true",
+         "model.controlnet.map_embedder_plus_size=[14,25]",
+         "runner.max_train_steps=1", "runner.validation_before_run=false",
+         "runner.validation_steps=100")
+
+_RANK = """
+import json, sys
+import torch
+from magicdrive_tpu_torch.cli import train
+torch.set_num_threads(1)
+out, argv = sys.argv[1], sys.argv[2:]
+run = train.main(argv, device="cpu")
+r = torch.distributed.get_rank()
+torch.save(run.state.masters, f"{out}/masters{r}.pt")
+print(json.dumps({"rank": r, "run_dir": run.run_dir, "step": run.state.step,
+                  "mesh": list(run.runner.mesh.shape),
+                  "backend": torch.distributed.get_backend()}))
+"""
+
+
 @pytest.mark.parametrize("override", ["parallel.mesh_shape=[2,1]",
                                       "parallel.multihost=true",
-                                      "parallel.shard_views=true"])
-def test_parallel_configs_raise(port_cli, override):
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_cli("parallel", override)
+                                      "parallel.shard_views=true",
+                                      "parallel.mesh_shape=[2,2]"])
+def test_parallel_configs_raise(port_cli, tmp_path, override):
+    """The ``parallel`` group as JAX's runner reads it, on a small run:
+    a mesh of two ranks, and ``multihost`` with every rank on dp, run as
+    two gloo ranks on the CPU (``torchrun``): both take the step,
+    on a (2, 1) mesh, into rank 0's run directory, and end with the same
+    weights; ``shard_views`` (which JAX's runner never reads) trains as
+    without it and says so in train.log; a mesh larger than the job
+    raises, as JAX's assert does."""
+    from test_torch_port_parallel import torchrun
+
+    if override == "parallel.mesh_shape=[2,2]":
+        with pytest.raises(ValueError, match="needs 4 ranks, the job has 1"):
+            port_cli("parallel", override, *SMALL)
+        return
+    if override == "parallel.shard_views=true":
+        plain = port_cli("plain", *SMALL)
+        run = port_cli("views", override, *SMALL)
+        for k, t in plain.state.masters.items():
+            assert torch.equal(run.state.masters[k], t), k
+        with open(os.path.join(run.run_dir, "train.log")) as f:
+            assert "shard_views=true" in f.read()
+        return
+    extra = ("parallel.mesh_shape=null",) if "multihost" in override else ()
+    argv = [*COMMON, *SMALL, f"log_root_prefix={tmp_path}/runs", override,
+            *extra]
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK)
+    outs = torchrun(str(script), [str(tmp_path), *argv],
+                    str(tmp_path / "logs"), timeout=300)
+    got = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert [g["rank"] for g in got] == [0, 1]
+    assert {(g["run_dir"], g["step"], tuple(g["mesh"]), g["backend"])
+            for g in got} == {(got[0]["run_dir"], 1, (2, 1), "gloo")}
+    assert os.path.isdir(os.path.join(got[0]["run_dir"], "weights"))
+    m0, m1 = (torch.load(tmp_path / f"masters{r}.pt", weights_only=True)
+              for r in range(2))
+    for k, t in m0.items():
+        assert torch.equal(m1[k], t), k
 
 
 def test_pair_bwd_is_logged_and_ignored(runs):
