@@ -198,7 +198,19 @@ prints no result line. Each phase logs its wall seconds as it ends
      a sharded guided step's kernel calls checked; ``cli.val_set_gen
      --multihost`` on the evaluation phase's run and tree: the one-process
      run's PNG names, and rank 0's first sample within KERNEL_TOL of that
-     run's (bitwise equality logged).
+     run's (bitwise equality logged); the 16-frame video model on a
+     (dp=1, t=2) mesh, each rank 8 frames: a request (SHARDED_SAMPLER_STEPS
+     UniPC steps) against the unsharded one from the same latents
+     (EPS_TOL), its launches and frame exchanges, a sharded guided step's
+     kernel calls checked, each rank's peak memory beside the unsharded
+     request's, and SHARDED_STEPS train steps (remat "dots") against one
+     process on the same draws (losses within EPS_TOL, gradient norms,
+     update and Adam's first moment within the DP_*_TOLs, the ranks'
+     masters bitwise equal); the same steps of the 224x400 model on a
+     (dp=1, view=2) mesh (attn4's K1 a neighbour list over the gathered
+     cameras, forward and backward); and, as a job of four ranks where
+     their replicated states fit the card, the video steps on a (dp=1, t=2,
+     view=2) mesh against the one-process steps kept.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
 two launches as two entries, K8 and its pair as two) at the shape where its
 error was largest, with every shape under "shapes"; "launches" sums the
@@ -206,7 +218,8 @@ path runs of phases 4-6, 9 and 10 (the forced routes, the generation
 paths, the options, given-view, generation CLI, val-set, map-drop and video
 paths, training, the training CLI's runs, its generation, the options,
 remat, video training and the cache step, and the gloo ranks' training,
-view-sharded request and val_set_gen) and "launches_by_path" gives each. The
+view-sharded request, val_set_gen, frame-sharded request and the frame-
+and view-sharded steps) and "launches_by_path" gives each. The
 whole K6's rows (time, bound, library time) are logged on a line of their
 own before it. The last line is {"ok": true, "device": {...}}.
 
@@ -3784,14 +3797,319 @@ def _rank_val_set_gen(out: str, run_dir: str, root: str,
             "launches": dict(dispatch.LAUNCHES)}
 
 
-PARTS = ("train", "sample", "val_set_gen")
+# frame- and view-sharded paths (2d-2f): UniPC steps of the frame-sharded
+# request (the recipe's 20 cut to what the image gate needs), and train
+# steps of each sharded step (the first at lr 0 under the one-step warm-up)
+SHARDED_SAMPLER_STEPS = 4
+SHARDED_STEPS = 2
+
+
+def _sharded_steps(modules, cfg, state, batch, mesh, what: str) -> dict:
+    """SHARDED_STEPS steps of ``train_step`` on this rank's block ``batch``
+    of ``mesh`` (default draws from a generator seeded 200 + step, the
+    global batch's cut to the block), each step's masters' checksums of
+    every rank, the launches, the peak; -> the results and copies of the
+    masters and of Adam's first moment."""
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.parallel import multihost
+    from magicdrive_tpu_torch.parallel.multihost import (COLLECTIVES,
+                                                         reset_collectives)
+    from magicdrive_tpu_torch.train import train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    reset_collectives()
+    r = {"losses": [], "norms": [], "seconds": [], "equal": []}
+    with dispatch.fused_mode("kvstat"):
+        for i in range(SHARDED_STEPS):
+            gen = torch.Generator("cuda").manual_seed(200 + i)
+            m, sec = _timed(lambda: train_step(modules, state, batch, cfg,
+                                               generator=gen, mesh=mesh))
+            r["losses"].append(float(m["loss"]))
+            r["norms"].append(float(m["grad_norm"]))
+            r["seconds"].append(sec)
+            sums = multihost.all_gather_objects(_checksums(state.masters))
+            r["equal"].append(all(x == sums[0] for x in sums))
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["launches"] = dict(dispatch.LAUNCHES)
+    r["collectives"] = dict(COLLECTIVES)
+    if not all(r["equal"]):
+        raise AssertionError(f"{what}: the ranks' masters differ after the "
+                             f"steps {r['equal']}")
+    return r, {k: t.clone() for k, t in state.masters.items()}, \
+        {k: t.clone() for k, t in first_moments(state).items()}
+
+
+def _one_process_steps(modules, cfg, masters0, batch, r, masters, moments,
+                       keep: str = None):
+    """The same SHARDED_STEPS steps in this process without a mesh, at the
+    global batch from ``masters0``, on the same draws; their numbers and
+    the sharded run's distance from them go into ``r``. ``keep``: a file
+    for the steps' losses, norms, masters and first moment (on the
+    host)."""
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import train_step
+
+    state = _fresh_state(masters0, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, seconds = [], [], []
+    with dispatch.fused_mode("kvstat"):
+        for i in range(SHARDED_STEPS):
+            gen = torch.Generator("cuda").manual_seed(200 + i)
+            m, sec = _timed(lambda: train_step(modules, state, batch, cfg,
+                                               generator=gen))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            seconds.append(sec)
+    r.update(one_losses=losses, one_norms=norms, one_seconds=seconds,
+             one_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             update_rel_l2=rel_l2(
+                 {k: t - masters0[k] for k, t in masters.items()},
+                 {k: t - masters0[k] for k, t in state.masters.items()}),
+             moment_rel_l2=rel_l2(moments, first_moments(state)),
+             moved=_moved(masters, masters0),
+             moved_one=_moved(state.masters, masters0),
+             tensors=len(masters0))
+    if keep:
+        torch.save({"losses": losses, "norms": norms, "seconds": seconds,
+                    "peak_gib": r["one_peak_gib"], "moved": r["moved_one"],
+                    "masters": {k: t.cpu() for k, t in state.masters.items()},
+                    "mu": {k: t.cpu() for k, t in
+                           first_moments(state).items()}}, keep)
+
+
+def _state_gib(modules, state) -> float:
+    """The replicated training state a rank holds: the modules' weights,
+    the fp32 masters and Adam's moments."""
+    n = sum(t.numel() * t.element_size() for _, m in modules.items()
+            for t in m.parameters())
+    n += sum(t.numel() * 4 * 3 for t in state.masters.values())
+    return n / 2**30
+
+
+def _video_modules():
+    """The 16-frame video model at full width on seeded weights, bf16,
+    with remat "dots" in its UNet and ControlNet (its one-process training
+    step's, run_train_options)."""
+    import dataclasses
+
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_video_16f
+
+    vp = sd15mv_rawbox_video_16f()
+    remat = dict(gradient_checkpointing=True, remat_policy="dots")
+    vp = dataclasses.replace(
+        vp, unet=dataclasses.replace(vp.unet, **remat),
+        controlnet=dataclasses.replace(vp.controlnet, unet=dataclasses.replace(
+            vp.controlnet.unet, **remat)),
+        pipeline=dataclasses.replace(
+            vp.pipeline, num_inference_steps=SHARDED_SAMPLER_STEPS))
+    return vp, _new_modules(vp).to("cuda", vp.pipeline.dtype)
+
+
+def _rank_video(out: str) -> dict:
+    """(2d) and (2e) on one rank of a (dp=1, t=2) mesh, the 16-frame video
+    model at full width (_video_modules), this rank's 8 frames of one clip:
+    (2d) one request from a latent per frame and view (``video_latents``),
+    SHARDED_SAMPLER_STEPS UniPC steps, its launches those of the unsharded
+    request and two all-to-alls a temporal block and step, the peak
+    memory, and every kernel call of one frame-sharded guided step against
+    its plain version; the rank of t index 0 then makes the unsharded
+    request (out/video_ref.pt). (2e) SHARDED_STEPS train steps on the
+    rank's frames (_sharded_steps, launches with the recompute), then,
+    the other rank idle, the same steps in one process at the clip."""
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.parallel import (COLLECTIVES, make_mesh,
+                                               multihost, shard_batch)
+    from magicdrive_tpu_torch.parallel.multihost import reset_collectives
+    from magicdrive_tpu_torch.pipeline.video import VideoPipeline
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+
+    vp, modules = _video_modules()
+    F = vp.unet.temporal_frames
+    mesh = make_mesh((1, 2), ("dp", "t"))
+    first = mesh.index("t") == 0
+    c = vp.pipeline
+    clip = collate_fn(make_dataset(F, image_hw=vp.image_size,
+                                   map_hw=vp.map_hw, with_images=True),
+                      CollateConfig(bbox_max_len=vp.bbox_max_len))
+    request = {k: v for k, v in clip.items() if k != "pixel_values"}
+    lat = torch.randn((F, c.n_cam, c.latent_height, c.latent_width, 4),
+                      generator=torch.Generator("cuda").manual_seed(17),
+                      device="cuda")
+    local = shard_batch(dict(request, latents=lat), mesh, c.n_cam, F)
+    pipe = VideoPipeline(modules, c, F, mesh=mesh)
+    blocks = sum(getattr(b, "frames", None) is not None
+                 for b in modules.unet.modules())
+    res = {"frames": list(range(F))[mesh.index("t") * F // 2:
+                                    (mesh.index("t") + 1) * F // 2]}
+    with dispatch.fused_mode("kvstat"):
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        reset_collectives()
+        img, res["seconds"] = _timed(lambda: pipe(local,
+                                                  latents=local["latents"]))
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        want = expected_launches(vp, "kvstat", forwards=c.num_inference_steps)
+        if dict(dispatch.LAUNCHES) != want:
+            raise AssertionError(f"frame-sharded request launches "
+                                 f"{dict(dispatch.LAUNCHES)}, derived {want}")
+        if COLLECTIVES["all_to_all"] != 2 * blocks * c.num_inference_steps:
+            raise AssertionError(f"{COLLECTIVES['all_to_all']} all-to-alls, "
+                                 f"not 2 x {blocks} temporal blocks x "
+                                 f"{c.num_inference_steps} steps")
+        res.update(launches=dict(dispatch.LAUNCHES),
+                   exchanges=COLLECTIVES["all_to_all"])
+        torch.save(img.cpu(), os.path.join(out, f"video_{mesh.index('t')}"
+                                                ".pt"))
+        x = torch.randn((F // 2, c.n_cam, 4, c.latent_height,
+                         c.latent_width), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(
+                            19 + mesh.index("t")))
+        stats, names = {}, tuple(k for k, v in want.items() if v)
+        with patched_kernels(_call_checker(stats), names):
+            pipe.pipe.guided_eps(x, int(pipe.pipe.coeffs.timesteps[0]),
+                                 pipe.pipe.conditioning(local))
+        _report_calls(f"a frame-sharded guided step, frames {res['frames']}",
+                      stats, names)
+        res["worst"] = {k: v[1] for k, v in stats.items()}
+        if first:  # the unsharded request, the other rank idle
+            torch.cuda.reset_peak_memory_stats()
+            ref, res["unsharded_seconds"] = _timed(lambda: VideoPipeline(
+                modules, c, F)(request, latents=lat))
+            res["unsharded_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+            torch.save(ref.cpu(), os.path.join(out, "video_ref.pt"))
+            del ref
+    del img, pipe
+    torch.cuda.empty_cache()
+    multihost.barrier("frame-sharded request")
+
+    cfg = TrainConfig(lr_warmup_steps=1, frames_per_clip=F)
+    state = create_train_state(modules, cfg)
+    masters0 = {k: t.clone() for k, t in state.masters.items()}
+    res["state_gib"] = _state_gib(modules, state)
+    r, masters, moments = _sharded_steps(
+        modules, cfg, state, shard_batch(clip, mesh, c.n_cam, F), mesh,
+        "(2e) frame-sharded video training")
+    want = expected_launches(vp, "kvstat", steps=SHARDED_STEPS,
+                             recompute=True)
+    if r["launches"] != want:
+        raise AssertionError(f"frame-sharded training launches "
+                             f"{r['launches']}, derived {want}")
+    del state
+    torch.cuda.empty_cache()
+    multihost.barrier("frame-sharded steps")
+    if first:
+        _one_process_steps(modules, cfg, masters0, clip, r, masters, moments,
+                           keep=os.path.join(out, "video_one.pt"))
+    multihost.barrier("one-process video steps")
+    res["train"] = r
+    return res
+
+
+def _rank_video_tv(out: str) -> dict:
+    """(2g) on one rank of a (dp=1, t=2, view=2) mesh: the 16-frame video
+    model's SHARDED_STEPS train steps on this rank's 8 frames of 3 cameras
+    (_sharded_steps; the frame exchange over t, attn4's gather and K1 once
+    a neighbour list over view, launches with the recompute); rank 0 then
+    holds them to the one-process steps (2e) kept (out/video_one.pt: the
+    same weights, clip and draws), on the host."""
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_dataset)
+    from magicdrive_tpu_torch.parallel import make_mesh, shard_batch
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+
+    vp, modules = _video_modules()
+    F = vp.unet.temporal_frames
+    mesh = make_mesh((1, 2, 2), ("dp", "t", "view"))
+    clip = collate_fn(make_dataset(F, image_hw=vp.image_size,
+                                   map_hw=vp.map_hw, with_images=True),
+                      CollateConfig(bbox_max_len=vp.bbox_max_len))
+    cfg = TrainConfig(lr_warmup_steps=1, frames_per_clip=F)
+    state = create_train_state(modules, cfg)
+    masters0 = {k: t.cpu() for k, t in state.masters.items()}
+    r, masters, moments = _sharded_steps(
+        modules, cfg, state, shard_batch(clip, mesh, vp.pipeline.n_cam, F),
+        mesh, "(2g) frame- and view-sharded video training")
+    want = expected_launches(vp, "kvstat", steps=SHARDED_STEPS,
+                             recompute=True, view=2)
+    if r["launches"] != want:
+        raise AssertionError(f"(dp, t, view) training launches "
+                             f"{r['launches']}, derived {want}")
+    if mesh.coords == (0, 0, 0):
+        one = torch.load(os.path.join(out, "video_one.pt"))
+        masters = {k: t.cpu() for k, t in masters.items()}
+        r.update(one_losses=one["losses"], one_norms=one["norms"],
+                 one_seconds=one["seconds"], one_peak_gib=one["peak_gib"],
+                 update_rel_l2=rel_l2(
+                     {k: t - masters0[k] for k, t in masters.items()},
+                     {k: t - masters0[k] for k, t in one["masters"].items()}),
+                 moment_rel_l2=rel_l2({k: t.cpu() for k, t in
+                                       moments.items()}, one["mu"]),
+                 moved=_moved(masters, masters0), moved_one=one["moved"],
+                 tensors=len(masters0))
+    return r
+
+
+def rank_tv_main(out: str) -> None:
+    """A rank of the four-rank gloo job (``torchrun ... chip_smoke.py
+    --rank-tv OUT``): (2g), its result to OUT/tv<r>.json."""
+    from magicdrive_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not multihost.initialize_if_needed(backend="gloo", device="cuda"):
+        raise RuntimeError("not started as a rank (no env:// variables)")
+    t0 = time.perf_counter()
+    res = _rank_video_tv(out)
+    res["part_s"] = time.perf_counter() - t0
+    multihost.barrier("(2g)")
+    with open(os.path.join(out, f"tv{multihost.process_index()}.json"),
+              "w") as f:
+        json.dump(res, f)
+    multihost.shutdown()
+
+
+def _rank_image_view(out: str) -> dict:
+    """(2f) on one rank of a (dp=1, view=2) mesh: SHARDED_STEPS train steps
+    of the 224x400 model at B=1 on this rank's 3 cameras (_sharded_steps;
+    attn4 "add" takes K1 once a neighbour list over the gathered cameras,
+    in the forward and the backward, by the derived launches), then, the
+    other rank idle, the same steps in one process at all 6 cameras."""
+    from magicdrive_tpu_torch.parallel import (make_mesh, multihost,
+                                               shard_batch)
+
+    preset, modules, cfg, state, batch = train_set_up(1)
+    mesh = make_mesh((1, 2))
+    masters0 = {k: t.clone() for k, t in state.masters.items()}
+    r, masters, moments = _sharded_steps(
+        modules, cfg, state, shard_batch(batch, mesh, n_cam=6), mesh,
+        "(2f) view-sharded training")
+    want = expected_launches(preset, "kvstat", steps=SHARDED_STEPS, view=2)
+    if r["launches"] != want:
+        raise AssertionError(f"view-sharded training launches "
+                             f"{r['launches']}, derived {want}")
+    del state
+    torch.cuda.empty_cache()
+    multihost.barrier("view-sharded steps")
+    if mesh.index("view") == 0:
+        _one_process_steps(modules, cfg, masters0, batch, r, masters,
+                           moments)
+    multihost.barrier("one-process image steps")
+    return r
+
+
+PARTS = ("train", "sample", "val_set_gen", "video", "image_view")
 
 
 def rank_main(argv) -> None:
     """A rank of the multi-GPU phase's gloo job (``torchrun ...
     chip_smoke.py --rank OUT RUN_DIR ROOT VERSION``): it loads the kernel library the
     parent built, joins the group from the environment under gloo (the two
-    ranks share the one card) and runs (2a), (2b) and (2c); its results go
+    ranks share the one card) and runs (2a) to (2f); its results go
     to OUT/rank<r>.json."""
     from magicdrive_tpu_torch.kernels import build
     from magicdrive_tpu_torch.parallel import multihost
@@ -3811,7 +4129,9 @@ def rank_main(argv) -> None:
     for part, fn in (("train", lambda: _rank_train(out)),
                      ("sample", lambda: _rank_sample(out)),
                      ("val_set_gen", lambda: _rank_val_set_gen(
-                         out, run_dir, root, version))):
+                         out, run_dir, root, version)),
+                     ("video", lambda: _rank_video(out)),
+                     ("image_view", lambda: _rank_image_view(out))):
         t0 = time.perf_counter()
         res[part] = fn()
         res[part]["part_s"] = time.perf_counter() - t0
@@ -4018,9 +4338,27 @@ def run_multi_gpu(by_path, timing, card: str,
              tree (run_evaluation's, or made here): the union of the
              ranks' PNG names that of one process's run, and rank 0's
              first sample's PNGs (the same sample and latents as one
-             process's first) bitwise that run's.
+             process's first) bitwise that run's;
+         (d) a (dp=1, t=2) 16-frame request (_rank_video): the ranks'
+             frames put together within EPS_TOL relative L2 of the
+             unsharded request from the same latents, the launches of one
+             process's request, two all-to-alls a temporal block and step,
+             every kernel call of a frame-sharded guided step within
+             KERNEL_TOL, each rank's peak memory beside the unsharded
+             request's;
+         (e) SHARDED_STEPS (dp=1, t=2) video train steps against one
+             process's on the same draws: losses within EPS_TOL, gradient
+             norms, update and Adam's first moment within the DP_*_TOLs,
+             the ranks' masters bitwise equal after every step, the
+             launches with the recompute;
+         (f) the same for the 224x400 model on (dp=1, view=2)
+             (_rank_image_view), attn4's K1 once a neighbour list;
+         (g) the (dp=1, t=2, view=2) video steps as a job of four ranks
+             (rank_tv_main) against (e)'s one-process steps, where four
+             replicated states and a quarter of (e)'s activations each fit
+             in 80 % of the card; else why not is logged.
     Prints s/step at dp=2 against one process at B=2, the peak memory a
-    rank, and s/request of the sharded request, with the card."""
+    rank, and s/request of the sharded requests, with the card."""
     from PIL import Image
 
     from magicdrive_tpu_torch import config
@@ -4152,6 +4490,103 @@ def run_multi_gpu(by_path, timing, card: str,
             raise AssertionError(f"rank 0's first sample is up to "
                                  f"{diff.max()} levels from the one-process "
                                  "run's")
+
+        # (2d)
+        vp = config.sd15mv_rawbox_video_16f()
+        v0, v1 = (x["video"] for x in res)
+        got = torch.cat([torch.load(os.path.join(out, f"video_{j}.pt"))
+                         for j in range(2)])
+        ref = torch.load(os.path.join(out, "video_ref.pt"))
+        rel = ((got - ref).norm() / ref.norm()).item()
+        err, _ = _worst(got, ref)
+        log(f"multi-GPU (2d): a (dp=1, t=2) 16-frame request "
+            f"({SHARDED_SAMPLER_STEPS} UniPC steps), frames "
+            f"{[v0['frames'], v1['frames']]}, {v0['exchanges']} all-to-alls "
+            f"a rank, against the unsharded request from the same latents: "
+            f"relative L2 {rel:.3e}, max abs err {err:.3e}; "
+            f"{check_images(got, {'camera_param': got[:, 0, 0, 0]}, vp)}; "
+            f"s/request (cold) rank 0 {v0['seconds']:.3f}, rank 1 "
+            f"{v1['seconds']:.3f}, unsharded {v0['unsharded_seconds']:.3f} "
+            f"(rank 1 idle); peak memory rank 0 {v0['peak_gib']:.2f} GiB, "
+            f"rank 1 {v1['peak_gib']:.2f} GiB, unsharded "
+            f"{v0['unsharded_peak_gib']:.2f} GiB ({card})")
+        timing["s/request video 16f t=2"] = [v0["seconds"], v1["seconds"]]
+        if not rel <= EPS_TOL:
+            raise AssertionError(f"frame-sharded video {rel:.3e} from the "
+                                 "unsharded")
+        # (2g) the (dp=1, t=2, view=2) step as a four-rank job, where the
+        # ranks' replicated states and their quarters of (2e)'s activations
+        # fit the card
+        state, peak = v0["state_gib"], v0["train"]["peak_gib"]
+        need = 4 * state + (peak - state)
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        cases = [("2e", "(dp=1, t=2) 16-frame video training (remat dots)",
+                  v0["train"], v1["train"]),
+                 ("2f", "(dp=1, view=2) 224x400 training at B=1",
+                  res[0]["image_view"], res[1]["image_view"])]
+        if need <= 0.8 * total:
+            t0 = time.perf_counter()
+            outputs = torchrun(
+                [os.path.abspath(__file__), "--rank-tv", out], 4,
+                "the gloo job of four ranks", os.path.join(tmp, "tv_logs"))
+            for rank, output in enumerate(outputs):
+                _log_rank(rank, output)
+            tv = []
+            for r in range(4):
+                with open(os.path.join(out, f"tv{r}.json")) as f:
+                    tv.append(json.load(f))
+            log(f"multi-GPU (2g): four gloo ranks on the card, "
+                f"{time.perf_counter() - t0:.1f} s from launch to exit "
+                f"(each rank's state {state:.2f} GiB; about {need:.1f} GiB "
+                f"of {total:.1f} from (2e)'s rank peak)")
+            cases.append(("2g", "(dp=1, t=2, view=2) 16-frame video "
+                                "training (remat dots), four ranks",
+                          tv[0], tv[1]))
+            for r, x in enumerate(tv):
+                by_path[f"video_t2v2_train_rank{r}"] = x["launches"]
+        else:
+            log(f"multi-GPU (2g): the (dp=1, t=2, view=2) video step on four "
+                f"ranks is left out: each holds the replicated training "
+                f"state ({state:.2f} GiB) beside a quarter of (2e)'s "
+                f"activations, about {need:.1f} GiB of the card's "
+                f"{total:.1f} (the CPU test holds the (2, 2, 2) step to "
+                f"JAX's)")
+        # (2e), (2f), (2g)
+        for tag, what, a, b in cases:
+            rel = max(abs(p - q) / abs(q) for p, q in zip(a["losses"],
+                                                          a["one_losses"]))
+            norm = max(abs(p - q) / abs(q) for p, q in zip(a["norms"],
+                                                           a["one_norms"]))
+            log(f"multi-GPU ({tag}): {what}, {SHARDED_STEPS} steps: losses "
+                f"{a['losses']} vs one process {a['one_losses']} (max "
+                f"relative {rel:.3e}); gradient norms {a['norms']} vs "
+                f"{a['one_norms']} (max relative {norm:.3e}, limit "
+                f"{DP_NORM_TOL}); the update {a['update_rel_l2']:.3e} "
+                f"relative L2 from one process's (limit {DP_UPDATE_TOL}), "
+                f"Adam's first moment {a['moment_rel_l2']:.3e} (limit "
+                f"{DP_MOMENT_TOL}); ranks bitwise equal {a['equal']}; moved "
+                f"{a['moved']} (one process {a['moved_one']}) of "
+                f"{a['tensors']}; collectives a rank {a['collectives']}; "
+                f"s/step rank 0 {a['seconds']}, rank 1 {b['seconds']}, one "
+                f"process {a['one_seconds']}; peak memory rank 0 "
+                f"{a['peak_gib']:.2f} GiB, rank 1 {b['peak_gib']:.2f} GiB, "
+                f"one process {a['one_peak_gib']:.2f} GiB ({card})")
+            timing[f"s/step {tag}"] = a["seconds"]
+            if not (rel <= EPS_TOL and norm <= DP_NORM_TOL and
+                    a["update_rel_l2"] <= DP_UPDATE_TOL and
+                    a["moment_rel_l2"] <= DP_MOMENT_TOL and
+                    all(np.isfinite(a["losses"])) and
+                    a["moved"] >= 0.9 * a["moved_one"]):
+                raise AssertionError(
+                    f"({tag}) against one process: losses {rel:.3e}, "
+                    f"gradient norms {norm:.3e}, update "
+                    f"{a['update_rel_l2']:.3e}, first moment "
+                    f"{a['moment_rel_l2']:.3e}, moved {a['moved']}")
+        for r, x in enumerate(res):
+            by_path[f"video_t2_request_rank{r}"] = x["video"]["launches"]
+            by_path[f"video_t2_train_rank{r}"] = x["video"]["train"][
+                "launches"]
+            by_path[f"view2_train_rank{r}"] = x["image_view"]["launches"]
 
 
 def time_kernels(requests: int = 2) -> dict:
@@ -4299,6 +4734,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--rank"]:  # a rank of the multi-GPU phase
         rank_main(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--rank-tv"]:  # a rank of its four-rank job
+        rank_tv_main(sys.argv[2])
+        return
     from magicdrive_tpu_torch.kernels import dispatch
 
     with phase("environment"):
@@ -4369,7 +4807,9 @@ def main() -> None:
     with phase("multi-GPU"):
         log("across processes: NCCL through the training CLI; two gloo "
             "ranks on the card: dp=2 training, a view-sharded request, "
-            "val_set_gen --multihost:")
+            "val_set_gen --multihost, a frame-sharded video request and "
+            "step, a view-sharded step; four gloo ranks: the (dp, t, view) "
+            "video step:")
         run_multi_gpu(by_path, timing, card, evaluation)
     kept.cleanup()
     with phase("kernels line"):

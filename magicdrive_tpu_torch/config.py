@@ -255,6 +255,47 @@ def tiny_video_debug(n_frames: int = 4, n_cam: int = 6) -> ModelPreset:
         unet=dataclasses.replace(base.unet, temporal_frames=n_frames))
 
 
+def micro_debug(n_cam: int = 6) -> ModelPreset:
+    """The smallest shapes with the train step's whole semantics (VAE
+    encode, CLIP, the ControlNet with its condition drop, the multi-view
+    UNet): two UNet levels at a 4x8 latent of 32x64 images, the Plus map
+    embedder on a 32x32 map. The sharded tests' model (JAX
+    ``config/presets.py`` ``micro_debug``)."""
+    neighbors = NUSCENES_NEIGHBORS[:n_cam] if n_cam == 6 else tuple(
+        ((i - 1) % n_cam, (i + 1) % n_cam) for i in range(n_cam))
+    unet = UNetConfig(
+        block_out_channels=(8, 16), layers_per_block=1,
+        num_attention_heads=2, cross_attention_dim=16, norm_num_groups=4,
+        down_block_has_attn=(True, True), neighboring_view_pair=neighbors)
+    cn = BEVControlNetConfig(
+        unet=dataclasses.replace(unet, neighboring_view_pair=None),
+        camera_out_dim=16, map_size=(8, 32, 32),
+        map_embedder_out_channels=(4, 4, 8, 8),
+        use_map_embedder_plus=True, map_embedder_plus_size=(4, 8),
+        bbox=BBoxEmbedderConfig(class_token_dim=16, proj_dims=(16, 8, 8, 16)),
+    )
+    return ModelPreset(
+        name="micro-debug", unet=unet, controlnet=cn,
+        vae=VAEConfig(block_out_channels=(4, 4, 8, 8), layers_per_block=1,
+                      norm_num_groups=2),
+        clip=CLIPTextConfig(vocab_size=49408, hidden_size=16, num_layers=2,
+                            num_heads=2, intermediate_size=32),
+        pipeline=PipelineConfig(latent_height=4, latent_width=8,
+                                num_inference_steps=2, n_cam=n_cam,
+                                dtype=torch.float32),
+        image_size=(32, 64), map_hw=(32, 32), bbox_max_len=8,
+    )
+
+
+def micro_video_debug(n_frames: int = 4, n_cam: int = 6) -> ModelPreset:
+    """``micro_debug`` with temporal attention over ``n_frames`` frames in
+    the UNet (JAX ``micro_video_debug``): the frame-sharded tests' model."""
+    base = micro_debug(n_cam=n_cam)
+    return dataclasses.replace(
+        base, name="micro-video-debug",
+        unet=dataclasses.replace(base.unet, temporal_frames=n_frames))
+
+
 def small_parity(n_cam: int = 6) -> ModelPreset:
     """Every key pattern of the released checkpoints (4 UNet and 4 VAE
     blocks, CLIP's layout) at narrow widths: the converter's self-test

@@ -7,7 +7,9 @@ view indices, in "add", "concat" or "self" form, through a zero_linear,
 gated or no connector (``BasicTransformerBlock``). The video model's
 temporal attention runs over the frames of each view and position, the
 batch then laid out (B*F*N_cam) with views innermost, through a connector
-of the same kind.
+of the same kind. Under a mesh (``parallel.mesh``) the cross-view attention
+gathers the cameras of the ``view`` axis and the temporal attention
+exchanges the frames of the ``t`` axis.
 """
 from __future__ import annotations
 
@@ -21,8 +23,9 @@ from magicdrive_tpu_torch.core.attention import Attention, sdpa
 from magicdrive_tpu_torch.core.resnet import GroupNorm
 from magicdrive_tpu_torch.kernels import autograd, dispatch
 from magicdrive_tpu_torch.kernels.reference import take_views
-from magicdrive_tpu_torch.parallel.mesh import (gather_views, local_views,
-                                               view_mesh)
+from magicdrive_tpu_torch.parallel.mesh import (exchange_frames, frame_mesh,
+                                               gather_views, local_views,
+                                               return_frames, view_mesh)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -190,12 +193,33 @@ class BasicTransformerBlock(nn.Module):
         """Self-attention over the frames at each view and position:
         (b f n) l c -> (b n l) f c, ``attn_temp`` (Lq = Lk = F, under the
         kernels' threshold: SDPA, as the JAX package leaves it to XLA), and
-        back (JAX ``core/transformer.py`` ``_temporal``)."""
+        back (JAX ``core/transformer.py`` ``_temporal``). Under a
+        frame-sharded run (``parallel.mesh.sharded_frames``) h holds this
+        rank's F/t frames, and under a view-sharded one its n/view cameras:
+        the (b n l) rows are exchanged over the t group so that each rank
+        attends over every frame of its run of the rows, then sent back
+        (``exchange_frames``)."""
         f, n = self.frames
+        fm, vm = frame_mesh(), view_mesh()
+        for axis, mesh, count in (("t", fm, f), ("view", vm, n)):
+            if mesh is not None and count % mesh.size(axis):
+                raise ValueError(f"a {axis} axis of {mesh.size(axis)} ranks "
+                                 f"does not divide the {count} "
+                                 f"{'frames' if axis == 't' else 'views'}")
+        f //= fm.t if fm is not None else 1
+        n //= vm.view if vm is not None else 1
         bfn, L, C = h.shape
+        if bfn % (f * n):
+            raise ValueError(f"a batch of {bfn} is no whole number of {f} "
+                             f"frames of {n} views")
         b = bfn // (f * n)
-        h = h.reshape(b, f, n, L, C).permute(0, 2, 3, 1, 4)
-        o = self.attn_temp(h.reshape(b * n * L, f, C))
+        h = h.reshape(b, f, n, L, C).permute(0, 2, 3, 1, 4).reshape(
+            b * n * L, f, C)
+        if fm is None:
+            o = self.attn_temp(h)
+        else:
+            o = return_frames(self.attn_temp(exchange_frames(h, fm)), fm,
+                              b * n * L)
         return o.reshape(b, n, L, f, C).permute(0, 3, 1, 2, 4).reshape(
             bfn, L, C)
 

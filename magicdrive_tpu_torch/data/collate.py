@@ -114,13 +114,17 @@ def preprocess_bbox(samples: Sequence[dict], cfg: CollateConfig,
 
 
 def collate_fn(samples: Sequence[dict], cfg: CollateConfig, tokenizer=None,
-               rng: Optional[np.random.Generator] = None
+               rng: Optional[np.random.Generator] = None,
+               boxes: Optional[Dict[str, np.ndarray]] = None
                ) -> Dict[str, np.ndarray]:
     """A static-shape batch from per-frame sample dicts: img (N, H, W, 3)
     in [-1, 1] (optional), boxes (Nb, 7+), labels (Nb,), bev_map
     (H_m, W_m, C), camera_intrinsics, camera2lidar, lidar2camera,
     lidar2image and img_aug_matrix (N, 4, 4), metas {location,
-    description}. ``tokenizer`` defaults to ``HashTokenizer``."""
+    description}. ``tokenizer`` defaults to ``HashTokenizer``. ``boxes``,
+    ``preprocess_bbox``'s output for these samples made elsewhere (a
+    data-parallel rank's rows of the global batch's), takes the place of
+    the boxes drawn here from ``rng``."""
     tokenizer = tokenizer or HashTokenizer()
     out: Dict[str, np.ndarray] = {}
     if "img" in samples[0]:
@@ -138,5 +142,6 @@ def collate_fn(samples: Sequence[dict], cfg: CollateConfig, tokenizer=None,
         [s["metas"] for s in samples], tokenizer, cfg.template)
     out["input_ids"] = np.asarray(input_ids, np.int32)
     out["uncond_ids"] = np.asarray(uncond_ids, np.int32)
-    out.update(preprocess_bbox(samples, cfg, rng))
+    out.update(boxes if boxes is not None else
+               preprocess_bbox(samples, cfg, rng))
     return out

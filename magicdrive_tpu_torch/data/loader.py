@@ -10,10 +10,13 @@ index), as in the JAX package, so a run's batches repeat from its seed.
 
 With ``shard=(i, parts)`` the loader is one rank's of a data-parallel job:
 it walks the global batches of ``batch_size * parts`` samples in the order
-every rank draws alike, and loads only rows [i b, (i+1) b) of each. A
-rank's collate draws come from its own first index, so where the collate
-draws (``bbox_drop_ratio``/``bbox_add_ratio`` > 0) they follow another
-stream than one process's at the global batch.
+every rank draws alike, and loads only rows [i b, (i+1) b) of each. Where
+the collate draws (``bbox_drop_ratio``/``bbox_add_ratio`` > 0), each rank
+draws the boxes of the whole global batch from the global batch's
+generator (``preprocess_bbox``, which reads each sample's boxes, labels
+and view matrices, ``box_sample``) and keeps its rows, so its boxes and
+masks are one process's at the global batch (JAX's runner collates the
+global batch, ``train/runner.py:229-232``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,16 @@ from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 
-from .collate import CollateConfig, collate_fn
+from .collate import CollateConfig, collate_fn, preprocess_bbox
+
+
+def box_sample(dataset, i: int, cfg: CollateConfig) -> dict:
+    """What ``preprocess_bbox`` reads of sample ``i`` (boxes, labels, view
+    matrices): the dataset's ``box_sample`` (without images or map) where
+    it has one and the 3D filter is on (the canvas filter reads the image
+    augmentation's matrix), else the sample itself."""
+    fn = getattr(dataset, "box_sample", None)
+    return fn(i) if fn is not None and cfg.use_3d_filter else dataset[i]
 
 
 class DataLoader:
@@ -55,18 +67,24 @@ class DataLoader:
             n += 1
         return n
 
-    def _batches(self, order: np.ndarray):
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of n samples."""
         index, parts = self.shard
-        size = self.batch_size * parts
+        if parts == 1:
+            return slice(None)
+        b = self.batch_size
+        return slice(min(index * b, n), min((index + 1) * b, n))
+
+    def _batches(self, order: np.ndarray):
+        """The global batches' sample indices, up to a short tail without
+        rows for this rank."""
+        size = self.batch_size * self.shard[1]
         for i in range(0, len(order), size):
             idx = order[i:i + size]
             if self.drop_last and len(idx) < size:
                 return
-            if parts > 1:
-                idx = idx[index * self.batch_size:
-                          (index + 1) * self.batch_size]
-                if not len(idx):  # a short tail without rows for this rank
-                    return
+            if not len(idx[self._rows(len(idx))]):
+                return
             yield idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -79,9 +97,19 @@ class DataLoader:
         stop = threading.Event()
 
         def make_batch(idx):
-            return collate_fn([self.dataset[int(j)] for j in idx], self.cfg,
-                              rng=np.random.default_rng(
-                                  (self.seed, epoch, int(idx[0]))))
+            rng = np.random.default_rng((self.seed, epoch, int(idx[0])))
+            rows = self._rows(len(idx))
+            own = [self.dataset[int(j)] for j in idx[rows]]
+            c = self.cfg
+            if rows == slice(None) or not c.is_train or not (
+                    c.bbox_drop_ratio > 0 or c.bbox_add_ratio > 0):
+                return collate_fn(own, c, rng=rng)
+            every = [own[k - rows.start] if rows.start <= k < rows.stop
+                     else box_sample(self.dataset, int(j), c)
+                     for k, j in enumerate(idx)]
+            boxes = preprocess_bbox(every, c, rng)
+            return collate_fn(own, c, boxes={k: v[rows]
+                                             for k, v in boxes.items()})
 
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:

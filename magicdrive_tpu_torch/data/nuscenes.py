@@ -446,7 +446,19 @@ class NuScenesDataset:
         info = self.index.infos[self.ids[i]]
         return [info.image_paths[j] for j in self.order]
 
-    def __getitem__(self, i: int) -> dict:
+    def box_sample(self, i: int) -> dict:
+        """Sample ``i``'s boxes, labels, camera matrices and metas, without
+        images or BEV map, for the collate's box draws over a global batch
+        (``loader.DataLoader`` under ``shard``); its ``img_aug_matrix`` is
+        the identity. With 3D transforms, which draw and move the boxes,
+        the whole sample."""
+        if self.transforms_3d or self.transforms:
+            return self[i]
+        sample = self._cameras_and_boxes(i)
+        sample["img_aug_matrix"] = np.stack([np.eye(4)] * len(self.order))
+        return sample
+
+    def _cameras_and_boxes(self, i: int) -> dict:
         info = self.index.infos[self.ids[i]]
         o = self.order
 
@@ -456,8 +468,7 @@ class NuScenesDataset:
         boxes = info.gt_boxes[keep]
         labels = info.gt_labels[keep]
         vis = info.visibility[keep]
-
-        sample = {
+        return {
             "boxes": boxes, "labels": labels, "visibility": vis,
             "camera_intrinsics": info.camera_intrinsics[o],
             "camera2lidar": info.camera2lidar[o],
@@ -473,6 +484,10 @@ class NuScenesDataset:
             },
         }
 
+    def __getitem__(self, i: int) -> dict:
+        info = self.index.infos[self.ids[i]]
+        o = self.order
+        sample = self._cameras_and_boxes(i)
         if self.with_images:
             imgs, mats = [], []
             for j in o:

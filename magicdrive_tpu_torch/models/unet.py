@@ -30,6 +30,8 @@ from magicdrive_tpu_torch.core.embeddings import get_timestep_embedding
 from magicdrive_tpu_torch.core.resnet import (Downsample2D, GroupNorm,
                                               ResnetBlock2D, Upsample2D)
 from magicdrive_tpu_torch.core.transformer import Transformer2DModel
+from magicdrive_tpu_torch.parallel.mesh import (frame_mesh, sharded_frames,
+                                               sharded_views, view_mesh)
 
 
 _aten = torch.ops.aten
@@ -68,11 +70,18 @@ def remat_context(policy: Optional[str]):
 def run_block(block: nn.Module, context_fn, *args):
     """``block(*args)``; as one remat unit (``context_fn``: None or
     ``remat_context``'s) where ``block`` is marked for it and gradients are
-    being taken."""
+    being taken. The recompute runs under the meshes of the forward: on the
+    card the backward runs in the autograd engine's thread, which does not
+    see the caller's ``sharded_views`` / ``sharded_frames``."""
     if not (block.remat and torch.is_grad_enabled()):
         return block(*args)
     kw = {} if context_fn is None else {"context_fn": context_fn}
-    return checkpoint(block, *args, use_reentrant=False, **kw)
+    views, frames = view_mesh(), frame_mesh()
+
+    def unit(*a):
+        with sharded_views(views), sharded_frames(frames):
+            return block(*a)
+    return checkpoint(unit, *args, use_reentrant=False, **kw)
 
 
 def _transformer(cfg: UNetConfig, ch: int) -> Transformer2DModel:

@@ -16,7 +16,8 @@ which lets several ranks share a card (ranks then go round the visible
 cards); NCCL with more ranks on a node than visible cards raises.
 
 ``COLLECTIVES`` counts the collective calls the port's data paths make
-(the gradient all-reduce, the cross-view gather), one per call.
+(the gradient all-reduce, the cross-view gather, the frame exchange and
+the gather's adjoint), one per call.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Any, List, Optional, Union
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "all_to_all": 0}
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 

@@ -33,7 +33,8 @@ from magicdrive_tpu_torch.models.clip_text import CLIPTextModel
 from magicdrive_tpu_torch.models.controlnet import BEVControlNet
 from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 from magicdrive_tpu_torch.models.vae import AutoencoderKL
-from magicdrive_tpu_torch.parallel.mesh import Mesh, sharded_views
+from magicdrive_tpu_torch.parallel.mesh import (Mesh, sharded_frames,
+                                               sharded_views)
 
 
 @dataclasses.dataclass
@@ -94,10 +95,12 @@ class MagicDrivePipeline:
 
     With a ``mesh`` (``parallel.make_mesh``) it generates this rank's block
     of a batch that ``parallel.shard_batch(batch, mesh, n_cam)`` cut: its
-    samples, and with a ``view`` axis > 1 its cameras. Every per-view
-    operation runs on the local cameras as it does unsharded; the
-    cross-view attention gathers the other ranks' cameras over the view
-    group (``core/transformer.py``). Pass the latents of ``shard_batch``:
+    samples, with a ``view`` axis > 1 its cameras, and for the video model
+    with a ``t`` axis > 1 its frames. Every per-view operation runs on the
+    local cameras as it does unsharded; the cross-view attention gathers
+    the other ranks' cameras over the view group and the temporal
+    attention exchanges the frames over the t group
+    (``core/transformer.py``). Pass the latents of ``shard_batch``:
     latents drawn from a generator are this rank's own."""
 
     def __init__(self, modules: MagicDriveModules, cfg: PipelineConfig,
@@ -109,6 +112,10 @@ class MagicDrivePipeline:
         if cfg.n_cam % view:
             raise ValueError(f"a view axis of {view} ranks does not divide "
                              f"the {cfg.n_cam} cameras")
+        frames = modules.unet.cfg.temporal_frames or 1
+        if mesh is not None and frames % mesh.t:
+            raise ValueError(f"a t axis of {mesh.t} ranks does not divide "
+                             f"the UNet's {frames} frames")
         self.n_views = cfg.n_cam // view  # the cameras a rank generates
         self.schedule = NoiseSchedule.create()
         self.coeffs = make_sampler_coeffs(self.schedule,
@@ -209,7 +216,7 @@ class MagicDrivePipeline:
         x (B, N, 4, h, w) at timestep t, combined at the guidance scale; in
         guess mode the ControlNet runs at batch B on the cond branch and the
         uncond branch takes zero residuals."""
-        with sharded_views(self.mesh):
+        with sharded_views(self.mesh), sharded_frames(self.mesh):
             return self._guided_eps(x, t, cond)
 
     def _guided_eps(self, x: torch.Tensor, t: int,

@@ -15,6 +15,7 @@ from typing import Mapping, Optional
 import torch
 
 from magicdrive_tpu_torch.config import PipelineConfig
+from magicdrive_tpu_torch.parallel.mesh import Mesh
 from magicdrive_tpu_torch.pipeline.pipeline import (MagicDriveModules,
                                                     MagicDrivePipeline)
 
@@ -26,16 +27,23 @@ class VideoPipeline:
     leading axis, (B*F, ...): input_ids (B*F, 77), camera_param
     (B*F, N, 3, 7), bev_map (B*F, H, W, C), bboxes (B*F, N, L, P, 3), and so
     on (:meth:`fold_frames`); uncond_ids stays (1, 77). The UNet must be
-    built with ``temporal_frames=n_frames``."""
+    built with ``temporal_frames=n_frames``.
+
+    With a ``mesh`` (``parallel.make_mesh`` over ``dp``, ``t`` and
+    ``view``) it samples this rank's block of a batch that
+    ``parallel.shard_batch(batch, mesh, n_cam, frames=n_frames)`` cut: its
+    clips over dp, its F/t frames of each over t (the temporal attention
+    exchanges the frames over the t group) and its cameras over view.
+    Pass the latents of that ``shard_batch``."""
 
     def __init__(self, modules: MagicDriveModules, cfg: PipelineConfig,
-                 n_frames: int):
+                 n_frames: int, mesh: Optional[Mesh] = None):
         if modules.unet.cfg.temporal_frames != n_frames:
             raise ValueError(f"the UNet attends over "
                              f"{modules.unet.cfg.temporal_frames} frames, "
                              f"not {n_frames}")
         self.n_frames = n_frames
-        self.pipe = MagicDrivePipeline(modules, cfg)
+        self.pipe = MagicDrivePipeline(modules, cfg, mesh=mesh)
 
     def prepare_latents(self, batch_size: int,
                         generator: Optional[torch.Generator]

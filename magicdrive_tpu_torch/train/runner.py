@@ -40,7 +40,8 @@ environment has joined the job's process group. The global batch is
 loads only its rows (ranks of one view group take the same rows, as JAX's
 dp-only batch sharding replicates over ``view``); each step draws the
 global batch's draws and keeps its rows, and the gradients and the loss
-are the dp group's mean (``train_step``), so every rank makes the same
+are the dp group's mean (``train_step`` on ``Mesh.dp_only``: the ranks
+along ``t`` and ``view`` step as replicas), so every rank makes the same
 update. Rank 0 alone writes the checkpoints, metrics, validation grids,
 profile and weights, with a barrier after each write; every rank reads a
 resume checkpoint. JAX's runner reads no ``shard_views``: it is logged as
@@ -417,7 +418,7 @@ class Runner:
                 self.seed * 1_000_003 + state.step)
             metrics = train_step(self.modules, state, batch, self.tcfg,
                                  generator=gen, schedule=self.schedule,
-                                 mesh=self.mesh)
+                                 mesh=self.mesh.dp_only())
             if window and state.step == window[1] and self._profiler:
                 self._stop_profile(window)
             if pending is not None:

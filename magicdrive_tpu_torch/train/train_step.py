@@ -9,13 +9,19 @@ makes them from a ``torch.Generator``, and a caller may pass its own (the
 tests feed the JAX package's draws, since ``jax.random`` and
 ``torch.Generator`` never agree).
 
-Data parallel (a ``parallel.Mesh`` with a process group): each rank steps
-on its rows of the global batch. It draws the global batch's draws and
-keeps its rows, so a dp run takes the draws of one process at the global
-batch; after the backward the trainable gradients and the loss are
-averaged over the ``dp`` group in a few flat fp32 buckets
-(``all_reduce_mean``), before the clip, the accumulation and the update,
-so every rank makes the same update.
+Across ranks (a ``parallel.Mesh`` with a process group): each rank steps
+on its block of the global batch, its ``frame_rows`` over (dp, t) and,
+under a ``view`` axis, its cameras. It draws the global batch's draws and
+keeps its block (``StepDraws.shard``), so a sharded run takes the draws of
+one process at the global batch. The forward runs under the mesh's
+``sharded_views`` and ``sharded_frames``: the cross-view attention gathers
+the other cameras and the temporal attention exchanges the frames, and
+their backward sends each gradient back to its rank. Each rank's loss is
+the mean over its block, one equal share of the global mean, so after the
+backward the trainable gradients and the loss are averaged over every rank
+of the mesh in a few flat fp32 buckets (``all_reduce_mean``), before the
+clip, the accumulation and the update, and every rank makes the same
+update.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ import numpy as np
 import torch
 
 from magicdrive_tpu_torch.diffusion import NoiseSchedule, ddpm
+from magicdrive_tpu_torch.parallel.mesh import (frame_rows, local_views,
+                                               sharded_frames, sharded_views,
+                                               take_rows)
 from .state import TrainConfig, TrainState
 
 _INT_KEYS = ("input_ids", "uncond_ids", "classes")
@@ -44,15 +53,24 @@ class StepDraws:
     # (B,), 1 -> the ControlNet's unconditional map
     map_drop_mask: Optional[torch.Tensor] = None
 
-    def rows(self, index: int, parts: int) -> "StepDraws":
-        """The draws of block ``index`` of ``parts`` equal blocks of the
-        samples (frames)."""
-        def take(t):
-            if t is None:
-                return None
-            b = len(t) // parts  # vae_noise: a row per view
-            return t[index * b:(index + 1) * b]
-        return StepDraws(*(take(getattr(self, f.name))
+    def shard(self, mesh, frames: Optional[int] = None) -> "StepDraws":
+        """This rank's draws on ``mesh``: its ``frame_rows`` of the samples
+        (``frames`` a clip under a ``t`` axis) and of the camera-major draws
+        (``noise``, ``drop_mask``, ``vae_noise``) its cameras."""
+        B = len(self.timesteps)
+        rows = frame_rows(mesh, B, frames)
+        cams = local_views(mesh, self.vae_noise.shape[0] // B)
+
+        def take(name, t):
+            if t is None or name in ("timesteps", "map_drop_mask"):
+                return None if t is None else take_rows(t, rows)
+            if name == "vae_noise":  # a row per view, views innermost
+                v = take_rows(t.reshape(B, -1, *t.shape[1:]), rows)
+                return v[:, cams].reshape(-1, *t.shape[1:])
+            t = take_rows(t, rows)
+            # noise (B, 1, ...) under train_with_same_noise: every view's
+            return t if t.shape[1] == 1 else t[:, cams]
+        return StepDraws(*(take(f.name, getattr(self, f.name))
                            for f in dataclasses.fields(self)))
 
 
@@ -187,22 +205,21 @@ def buckets(sizes: Sequence[int]) -> List[Tuple[int, int]]:
 
 def all_reduce_mean(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
                     mesh) -> torch.Tensor:
-    """Average ``grads`` (fp32, in place) and ``loss`` over the mesh's
-    ``dp`` group: one all-reduce a bucket of the flattened tensors, the
-    loss in the last bucket; -> the mean loss. Every rank gets the same
-    bits."""
+    """Average ``grads`` (fp32, in place) and ``loss`` over every rank of
+    the mesh (its ``all`` group): one all-reduce a bucket of the flattened
+    tensors, the loss in the last bucket; -> the mean loss. Every rank gets
+    the same bits."""
     import torch.distributed as dist
 
     from magicdrive_tpu_torch.parallel.multihost import COLLECTIVES
 
     tensors = list(grads.values()) + [loss.detach().float().reshape(1)]
-    dp = mesh.dp
     for start, stop in buckets([t.numel() for t in tensors]):
         part = tensors[start:stop]
         flat = torch.cat([t.reshape(-1) for t in part])
-        dist.all_reduce(flat, group=mesh.group("dp"))
+        dist.all_reduce(flat, group=mesh.group("all"))
         COLLECTIVES["all_reduce"] += 1
-        flat.div_(dp)
+        flat.div_(mesh.ranks)
         for t, v in zip(part, flat.split([t.numel() for t in part])):
             t.copy_(v.view_as(t))
     return tensors[-1].reshape(())
@@ -218,23 +235,33 @@ def train_step(modules, state: TrainState, batch: Mapping[str, Any],
     ``generator``. Updates ``state`` in place and returns its metrics as
     tensors (no host sync): the loss and the gradients' global norm.
 
-    With a ``mesh`` (``parallel.Mesh``) ``batch`` is this rank's rows of a
-    global batch of ``len(batch) * mesh.dp`` samples: the default draws
-    are the global batch's, cut to this rank's rows, and where a process
-    group is up the gradients and the loss are the ``dp`` group's mean."""
+    With a ``mesh`` (``parallel.Mesh``) ``batch`` is this rank's block of
+    a global batch (``parallel.shard_batch`` with ``n_cam`` and, for the
+    video model, ``frames``): its rows of ``len(batch) * mesh.dp * mesh.t``
+    samples (frames) and its cameras of ``N * mesh.view``. The default
+    draws are the global batch's, cut to this block; the forward runs under
+    the mesh, and where a process group is up the gradients and the loss
+    are the mean over the mesh. A ``t`` axis needs the video model and
+    must divide its frames; a mesh it cannot run raises."""
     schedule = schedule or NoiseSchedule.create()
     device = next(iter(state.masters.values())).device
     batch = batch_tensors(batch, device)
-    dp = mesh.dp if mesh is not None else 1
+    frames = modules.unet.cfg.temporal_frames
+    if mesh is not None and mesh.t > 1 and not (frames or 0) > 1:
+        raise ValueError(f"a t axis of {mesh.t} ranks on a model without "
+                         "frames (UNetConfig.temporal_frames)")
     if draws is None:
         B, N, H, W = batch["pixel_values"].shape[:4]
         f = 2 ** (len(modules.vae.cfg.block_out_channels) - 1)
-        draws = sample_draws(cfg, schedule, B * dp, N, (H // f, W // f),
-                             generator, device,
+        ranks = (mesh.dp * mesh.t, mesh.view) if mesh is not None else (1, 1)
+        draws = sample_draws(cfg, schedule, B * ranks[0], N * ranks[1],
+                             (H // f, W // f), generator, device,
                              modules.controlnet.cfg.use_uncond_map)
-        if dp > 1:
-            draws = draws.rows(mesh.index("dp"), dp)
-    loss, grads = loss_and_grads(modules, state, batch, draws, cfg, schedule)
-    if mesh is not None and mesh.group("dp") is not None:
+        if mesh is not None:
+            draws = draws.shard(mesh, frames)
+    with sharded_views(mesh), sharded_frames(mesh):
+        loss, grads = loss_and_grads(modules, state, batch, draws, cfg,
+                                     schedule)
+    if mesh is not None and mesh.group("all") is not None:
         loss = all_reduce_mean(grads, loss, mesh)
     return {"loss": loss, "grad_norm": state.apply_gradients(grads)}

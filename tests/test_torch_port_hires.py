@@ -293,6 +293,51 @@ def test_cross_view_loops_match_jax(mode, L, C, D, kernel, route):
     close(got, jm.apply(v, jnp.asarray(x), jnp.asarray(ctx)))
 
 
+@pytest.mark.parametrize("mode,L,C,D,kernel,route", [
+    ("kvstat", 1350, 640, 80, "kvstat_attention", "kvstat_loop"),
+    ("auto", 1400, 320, 40, "fused_qkv_out_attention", "out_loop"),
+])
+def test_cross_view_loops_grads_match_jax(mode, L, C, D, kernel, route):
+    """The backward of the per-neighbour loops (ROADMAP A11, the routes a
+    view-sharded step runs): at the shapes above, the gradients of the
+    block's x, its context and its trainable weights (``norm4``,
+    ``attn4``, ``connector``) against ``jax.vjp`` of the JAX block."""
+    from magicdrive_tpu_torch.convert import module_state_dict
+    from magicdrive_tpu_torch.train.state import is_trainable
+
+    rs = np.random.RandomState(38)
+    jm, v, tm = _block_pair(rs, C, 8, D)
+    x = rs.randn(6, L, C).astype(np.float32)
+    ctx = rs.randn(6, 7, 24).astype(np.float32)
+    dy = rs.randn(6, L, C).astype(np.float32)
+    want, vjp = jax.vjp(lambda v, x, c: jm.apply(v, x, c), v,
+                        jnp.asarray(x), jnp.asarray(ctx))
+    gv, gx, gc = vjp(jnp.asarray(dy))
+    del vjp
+    gw = module_state_dict(gv)
+    tx = torch.from_numpy(x).requires_grad_()
+    tc = torch.from_numpy(ctx).requires_grad_()
+    with dispatch.fused_mode(mode), \
+            chip_smoke.counted_calls(dispatch.LAUNCHES) as calls:
+        assert dispatch.pair_route(L, C, D, 4) == route
+        out = tm(tx, tc)
+        out.backward(torch.from_numpy(dy))
+    assert calls[kernel] >= 3 and not calls[kernel + "_pair"]
+    close(out, want)
+    close(tx.grad, gx)
+    close(tc.grad, gc)
+    trained = [k for k, _ in tm.named_parameters()
+               if is_trainable("unet", k)]
+    assert {k.split(".")[0] for k in trained} == {"norm4", "attn4",
+                                                  "connector"}
+    params = dict(tm.named_parameters())
+    for k in trained:
+        # a weight's gradient sums 6 L rows of O(1) terms, up to |g| ~ 200:
+        # atol 2e-4 of the tensor's largest where that exceeds 1 (fp32)
+        close(params[k].grad, gw[k],
+              atol=ATOL * max(1.0, float(np.abs(gw[k]).max())))
+
+
 def test_kvstat_loop_sums_in_bf16_as_jax(monkeypatch):
     """On bf16 inputs the per-neighbour K1 loop adds the two bf16 outputs in
     bf16, as JAX adds its two kernel outputs, where K2 sums in fp32 and

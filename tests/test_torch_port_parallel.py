@@ -53,7 +53,11 @@ MESHES = ((1, 2), (2, 1))
 LATENT = (14, 25)
 SAMPLE_B = 2
 OPTIONS = {"adamw": (), "8bit": ("+runner.use_8bit_adam=true",),
-           "accum2": ("runner.gradient_accumulation_steps=2",)}
+           "accum2": ("runner.gradient_accumulation_steps=2",),
+           # the collate's box draws (ROADMAP C4): each rank's boxes are
+           # the global batch's
+           "boxaug": ("runner.bbox_add_ratio=0.5",
+                      "runner.bbox_drop_ratio=0.5")}
 # dp=2 against one process (fp32 on the CPU): the relative L2 of the
 # update (weights minus those as built) and of Adam's first moment, and
 # the logged gradient norms' relative error. Read: updates 9.4e-4 (fp32
@@ -564,6 +568,39 @@ def test_shard_batch_rejects_uneven_blocks():
 
 
 # -- data-parallel training -----------------------------------------------
+
+
+def test_dp_loader_draws_the_global_batch_boxes():
+    """ROADMAP C4: at ``bbox_add_ratio`` and ``bbox_drop_ratio`` 0.5 each
+    dp rank's loader gives its rows of the batch one process collates at
+    the global batch, boxes, classes and masks included (the rank draws
+    the global batch's boxes from the global batch's generator and keeps
+    its rows), in a shuffled order over two epochs and a short tail; the
+    draws act (the masks differ from those drawn with the ratios at 0)."""
+    from magicdrive_tpu_torch.data import CollateConfig, make_dataset
+    from magicdrive_tpu_torch.data.loader import DataLoader
+
+    ds = make_dataset(7)
+    cfg = CollateConfig(bbox_max_len=24, bbox_drop_ratio=0.5,
+                        bbox_add_ratio=0.5, bbox_add_num=3)
+
+    def batches(c, b, shard=(0, 1)):
+        loader = DataLoader(ds, b, c, shuffle=True, seed=3, num_workers=2,
+                            shard=shard)
+        return [x for _ in range(2) for x in loader]
+    one = batches(cfg, 4)
+    ranks = [batches(cfg, 2, (i, 2)) for i in range(2)]
+    assert [len(r) for r in ranks] == [len(one), len(one)] == [4, 4]
+    for b, batch in enumerate(one):
+        for i, r in enumerate(ranks):
+            assert r[b].keys() == batch.keys()
+            for k, v in batch.items():
+                want = v if k == "uncond_ids" else v[2 * i:2 * i + 2]
+                assert np.array_equal(r[b][k], want), (b, i, k)
+    plain = batches(dataclasses.replace(cfg, bbox_drop_ratio=0.0,
+                                        bbox_add_ratio=0.0), 4)
+    assert any(not np.array_equal(p["masks"], x["masks"])
+               for p, x in zip(plain, one))
 
 
 @pytest.fixture(scope="module")

@@ -49,7 +49,7 @@ def _job_jaxstep(out: str) -> dict:
         timesteps=torch.tensor(d["timesteps"], dtype=torch.long),
         drop_mask=torch.tensor(d["drop_mask"]))
     m = train_step(modules, state, shard_batch(inp["batch"], mesh), cfg,
-                   draws=draws.rows(mesh.index("dp"), 2), mesh=mesh)
+                   draws=draws.shard(mesh), mesh=mesh)
     torch.save({"masters": state.masters, "mu": first_moments(state)},
                os.path.join(out, f"jaxstep_{mesh.index('dp')}.pt"))
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),

@@ -224,6 +224,25 @@ def test_tiny_train_step_grads_match_jax_auto(jax_step, port_step_auto):
     _check_grads(jax_step, port_step_auto)
 
 
+def test_tiny_train_step_loop_route_matches_jax(jax_step, monkeypatch):
+    """ROADMAP A11: the step with attn4 "add" forced onto the per-neighbour
+    K1 route (``kvstat_loop``) where the pair takes K2, as a view-sharded
+    step takes it: one K1 a neighbour list in the forward and K1's
+    backward, held to JAX's loss and gradients."""
+    import chip_smoke
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    real = dispatch.pair_route
+    monkeypatch.setattr(dispatch, "pair_route", lambda *a: {
+        "kvstat": "kvstat_loop"}.get(real(*a), real(*a)))
+    with chip_smoke.counted_calls(dispatch.LAUNCHES) as calls:
+        got = _port_step(jax_step, "kvstat")
+    assert calls["kvstat_attention_pair"] == 0
+    assert calls["kvstat_attention"] > 0
+    _check_loss(jax_step, got)
+    _check_grads(jax_step, got)
+
+
 def _check_update(jax_step, port_step):
     want = _as_port(jax_step["updated"])
     before = _as_port(_flat_trainable(jax_step["params"]))
