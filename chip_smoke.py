@@ -78,8 +78,8 @@ prints no result line. Each phase logs its wall seconds as it ends
      K8+pair: the heads' kernel and the out-projection, which is also
      printed alone), of their k/v projection, and of K3 and K4 (PROFILED
      names the kernels); then the hi-res presets (HIRES) at full width:
-     sd15mv_rawbox_272x736 (2 requests under "kvstat", 1 under "auto") and
-     sd15mv_rawbox_424x800 (2 under "kvstat", its level-0 cross-view pair
+     sd15mv_rawbox_272x736 (1 request under "kvstat", 1 under "auto") and
+     sd15mv_rawbox_424x800 (1 under "kvstat", its level-0 cross-view pair
      the per-neighbour K1 loop), on fixture batches at their image and map
      sizes, each run's launch counts equal to the derived ones, with the
      per-call check and a profiled guided step of each preset and mode;
@@ -102,7 +102,7 @@ prints no result line. Each phase logs its wall seconds as it ends
      the trained set moved and every frozen weight bitwise unchanged, and
      its per-call check); after them the 16-frame
      video, sd15mv_rawbox_video_16f at full width (run_video: B=1, 16
-     frames of 6 views, N_REQUESTS requests under "kvstat", the peak
+     frames of 6 views, one request under "kvstat", the peak
      memory, the per-call check at the UNet batch of 192, a profiled guided
      step with the temporal attention's SDPA time); K1-K4 are also checked
      and timed at the video's shapes in phase 3 (_video_cases), and every
@@ -183,6 +183,28 @@ prints no result line. Each phase logs its wall seconds as it ends
      keeps unchecked.
      The seconds of the build, each step, checkpoint write, validation and
      export, and the peak memory are printed with the card;
+  9b. fp32 and remat "attn" (run_fp32_and_remat): the fp32 instance of
+     every kernel (csrc/f32_*.cu) at every shape, depth and width of
+     phase 3 against its plain version in fp32 within KERNEL_TOL_F32 =
+     1e-4 * max|ref| (two calls bitwise where the bf16 ones are; no ptxas
+     spill in any fp32 entry, SPILL_GATED), the same gate held once to
+     F.linear with TF32 on (tf32_line: it must fail), the fp32 gradients of
+     K1-K4, K8 and the pair against the plain fp32 backward (GRAD_TOL_F32);
+     ``cli.train`` in fp32 (``runner.mixed_precision=no``, F32_CLI_ARGS:
+     B=3, 3 steps, its Validator on 2 samples at step 3; its checkpoint
+     and export, which the bf16 runs hold, left out) under "kvstat"
+     and under "auto" on a synthetic nuScenes tree, each gated on its
+     launches as derived at esize 4 (under "auto" attn4 at L=1400 takes the
+     per-neighbour K8 loop), its fp32 modules, losses, frozen weights and
+     PNGs, every kernel call of one step and of a guided step of its
+     Validator within KERNEL_TOL_F32, and that step's loss within
+     F32_LOSS_TOL of the plain versions'; then one bf16 B=1 training step
+     without remat and under each of REMAT_POLICIES (None, "dots",
+     "attn") on the same weights (run_remat_policies): the launches as
+     derived (under "attn" the UNet's attentions launch once), the
+     gradients within GRAD_TOL relative L2 of no remat's, the activation
+     peak under "attn" between None's and no remat's; each policy's peak,
+     s/step and K1/K2 launches printed;
  10. multi-GPU (run_multi_gpu), across processes on the one card, each
      child under a time limit (RANK_TIMEOUT) and any child's failure the
      phase's: ``python -m magicdrive_tpu_torch.cli.train`` as an NCCL job
@@ -212,8 +234,10 @@ prints no result line. Each phase logs its wall seconds as it ends
      their replicated states fit the card, the video steps on a (dp=1, t=2,
      view=2) mesh against the one-process steps kept.
 The line before the last is {"kernels": [...]}, one entry per kernel (K6's
-two launches as two entries, K8 and its pair as two) at the shape where its
-error was largest, with every shape under "shapes"; "launches" sums the
+two launches as two entries, K8 and its pair as two) and one per kernel's
+fp32 instance (``<name>[f32]``, its launches those of phase 9b's fp32
+runs) at the shape where its error was largest, with every shape under
+"shapes"; "launches" of a bf16 entry sums the
 path runs of phases 4-6, 9 and 10 (the forced routes, the generation
 paths, the options, given-view, generation CLI, val-set, map-drop and video
 paths, training, the training CLI's runs, its generation, the options,
@@ -246,6 +270,11 @@ import torch
 N_REQUESTS = 2
 N_TRAIN_STEPS = 3
 KERNEL_TOL = 1e-2   # max|kernel - ref| <= KERNEL_TOL * max|ref|
+# The fp32 instances' gate: fp32 arithmetic throughout, so the kernel and
+# its plain version differ by their order of summation alone. TF32 products
+# (about three decimal digits) read near 1e-3 * max|ref| and fail it
+# (tf32_line shows it on every run).
+KERNEL_TOL_F32 = 1e-4
 # Each gradient of K1-K4, K8 and the K8 pair through the kernels is within
 # GRAD_TOL * max|ref| of fp32, or no farther from fp32 than the plain bf16
 # backward on the same inputs (the kernels then add nothing to what bf16
@@ -253,6 +282,9 @@ KERNEL_TOL = 1e-2   # max|kernel - ref| <= KERNEL_TOL * max|ref|
 # L=1400 is itself 1.012e-2 * max|ref| from fp32, from the bf16 products
 # and casts the kernel route shares with it (PERF.md).
 GRAD_TOL = 1e-2
+# The fp32 route's gradients against the plain fp32 backward: as
+# KERNEL_TOL_F32, both sides fp32 throughout.
+GRAD_TOL_F32 = 1e-4
 # Relative L2 of a whole-network bf16 result through the kernels against the
 # plain versions: the guided eps, and the unconditional map's gradient of a
 # training step. Measured on an H100, that gradient through the plain bf16
@@ -317,9 +349,13 @@ def spills(compiler_log: str, source: str) -> dict:
     return out
 
 
-# the wgmma kernels' sources and their entry functions' count: K3's five
-# instances and K4 (geglu.cu), the out-projection of K8 and its pair
-SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1}
+# the sources whose every entry function must not spill, with the entry
+# functions' count: the wgmma kernels (K3's five instances and K4,
+# geglu.cu; the out-projection of K8 and its pair) and the fp32 instances
+# (the kv and out projections and K1/K2's heads at 8 depths, the GEGLU and
+# K3's five instances, and K5 and K6's two launches at 8 depths)
+SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1,
+               "f32_attention.cu": 18, "f32_geglu.cu": 6, "f32_flash.cu": 24}
 
 
 def build_kernels(spill_gate: bool = True) -> None:
@@ -390,6 +426,11 @@ KERNELS = {
     "fused_qkv_out_attention": (_OUT_CU, f"{_FU}:83"),
     "fused_qkv_out_attention_pair": (_OUT_CU, f"{_FU}:104"),
 }
+# the source of each kernel's fp32 instance (the same TPU kernel replaced)
+_F32_CU = "magicdrive_tpu_torch/kernels/csrc/f32_{}.cu"
+KERNELS_F32 = {n: _F32_CU.format(
+    "geglu" if n in ("fused_ff", "fused_geglu") else
+    "flash" if n.startswith("flash") else "attention") for n in KERNELS}
 # the kernel wrappers the model calls (``dispatch`` attributes), per fused
 # mode; K7 and the flash pair run only in backwards
 _ATTENTION_CALLS = {
@@ -397,12 +438,13 @@ _ATTENTION_CALLS = {
     "auto": ("fused_qkv_out_attention", "fused_qkv_out_attention_pair")}
 
 
-def training_calls(mode: str, preset=None):
+def training_calls(mode: str, preset=None, esize: int = 2):
     """The kernel wrappers a 224x400 training step calls under ``mode``;
     with ``preset``, those ``expected_launches`` derives for one of its
-    steps (K6's two launches go through ``flash_attention_bwd``)."""
+    steps at ``esize`` (K6's two launches go through
+    ``flash_attention_bwd``)."""
     if preset is not None:
-        n = expected_launches(preset, mode, steps=1)
+        n = expected_launches(preset, mode, steps=1, esize=esize)
         return tuple(k for k, v in n.items()
                      if v and not k.startswith("flash_attention_bwd_")) + (
             ("flash_attention_bwd",) if n["flash_attention_bwd_dq"] else ())
@@ -438,19 +480,32 @@ def ring_table() -> torch.Tensor:
     return view_table(NUSCENES_NEIGHBORS)
 
 
-def _rnd(gen: torch.Generator):
+def _rnd(gen: torch.Generator, dtype=torch.bfloat16):
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
-                ).to(torch.bfloat16)
+                ).to(dtype)
     return rnd
 
 
-def kernel_cases(gen: torch.Generator):
+def _tol(dtype) -> float:
+    """The kernel gate of an element type: KERNEL_TOL for bf16,
+    KERNEL_TOL_F32 for fp32."""
+    return KERNEL_TOL_F32 if dtype == torch.float32 else KERNEL_TOL
+
+
+def _key(name: str, dtype) -> str:
+    """A kernel's entry in the rows and the kernels line: its name, with
+    ``[f32]`` for the fp32 instance."""
+    return f"{name}[f32]" if dtype == torch.float32 else name
+
+
+def kernel_cases(gen: torch.Generator, dtype=torch.bfloat16):
     """(kernel, shape label, args) at every shape the 224x400 paths give
     each kernel: 12 views (generation) or 6 (K7, which runs only in the
     training backward), 8 heads; text context 1 + 77 + 160 tokens; K2 and
-    the K8 pair over the nuScenes ring's table and over TABLE_CASES."""
-    rnd = _rnd(gen)
+    the K8 pair over the nuScenes ring's table and over TABLE_CASES;
+    ``dtype`` the element type of every floating tensor."""
+    rnd = _rnd(gen, dtype)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
         x = rnd(12, L, C)
@@ -609,8 +664,10 @@ def _worst(got, ref):
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
-# operations and HBM3 bandwidth, at the full 700 W power limit
+# operations, fp32 operations outside the tensor cores (the fp32 instances'
+# FFMA) and HBM3 bandwidth, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 _FLASH_FLOPS_PER_LQ_LK_D = {"flash_attention_fwd": 4,  # q k^T, p v
                             "flash_attention_bwd_dq": 6,  # s, dp, dq
@@ -672,8 +729,11 @@ def _bytes(name, args, out) -> int:
 
 def bound(name, args, out):
     """(bound_ms, bound_by): the least time the card could take for the
-    same work, from this call's shapes."""
-    by_ops = _flops(name, args) / PEAK_BF16_FLOPS * 1e3
+    same work, from this call's shapes; operations at the bf16 tensor peak,
+    or at the fp32 rate for fp32 inputs."""
+    peak = PEAK_F32_FLOPS if args[0].dtype == torch.float32 else \
+        PEAK_BF16_FLOPS
+    by_ops = _flops(name, args) / peak * 1e3
     by_bytes = _bytes(name, args, out) / PEAK_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else \
         (by_bytes, "bytes")
@@ -701,15 +761,18 @@ def _gate(name, label, err, scale, tol, row=None, note=""):
                              f"{scale}")
 
 
-def _row(rows, name, label, args, out, err, kern, plain, library=None):
+def _row(rows, name, label, args, out, err, kern, plain, library=None,
+         iters: int = 10):
     """Time the kernel, its plain version and the library call, and file
-    the row under the kernel's name."""
+    the row under the kernel's entry (``_key``)."""
     bound_ms, bound_by = bound(name, args, out)
-    row = {"shape": label, "max_abs_err": err, "ms": cuda_ms(kern),
-           "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
+    row = {"shape": label, "max_abs_err": err, "ms": cuda_ms(kern, iters),
+           "plain_ms": cuda_ms(plain, min(iters, PLAIN_ITERS)),
+           "bound_ms": bound_ms,
            "bound_by": bound_by,
-           "library_ms": None if library is None else cuda_ms(library)}
-    rows.setdefault(name, []).append(row)
+           "library_ms": None if library is None else cuda_ms(library,
+                                                               iters)}
+    rows.setdefault(_key(name, args[0].dtype), []).append(row)
     return row
 
 
@@ -820,11 +883,12 @@ def _kv_project(args):
             (x_kv, wk, wv))
 
 
-def _kv_project_row(args):
+def _kv_project_row(args, iters: int = 10):
     """The time and bound of K1's kv projection at K1's shape."""
     run, kv_args = _kv_project(args)
     bound_ms, bound_by = bound("kv_project", kv_args, run())
-    return {"ms": cuda_ms(run), "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": cuda_ms(run, iters), "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def _out_project(name, args):
@@ -844,7 +908,7 @@ def _out_project(name, args):
     return lambda: dispatch._out_project(lib, o, wout), (o, wout)
 
 
-def _out_project_row(name, label, args):
+def _out_project_row(name, label, args, iters: int = 10):
     """The out-projection of K8 (or its pair) alone at its shape against its
     plain version in fp32, with its time, bound, plain time and the time of
     F.linear on the same inputs; gated as a kernel."""
@@ -856,49 +920,59 @@ def _out_project_row(name, label, args):
     err, scale = _worst(got, reference.out_projection(o.float(),
                                                       wout.float()))
     bound_ms, bound_by = bound("out_project", (o, wout), got)
-    row = {"max_abs_err": err, "ms": cuda_ms(run),
-           "plain_ms": cuda_ms(lambda: reference.out_projection(o, wout)),
+    row = {"max_abs_err": err, "ms": cuda_ms(run, iters),
+           "plain_ms": cuda_ms(lambda: reference.out_projection(o, wout),
+                               iters),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": cuda_ms(lambda: F.linear(o, wout))}
+           "library_ms": cuda_ms(lambda: F.linear(o, wout), iters)}
     if not torch.equal(got, run()):
         raise AssertionError(f"out_project {label}: two calls on the same "
                              "inputs differ")
-    _gate("out_project", label, err, scale, KERNEL_TOL,
+    _gate(_key("out_project", o.dtype), label, err, scale, _tol(o.dtype),
           note=f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
           f"bound {bound_ms:.4f} ms ({bound_by}) library "
           f"{row['library_ms']:.4f} ms; two calls bitwise equal")
     return row
 
 
-def check_kernels():
+# CUDA-event calls a timing of the fp32 instances averages (FFMA kernels,
+# tens of times slower than the bf16 ones), and of a plain version (which
+# repeats the kernel's arithmetic and is no yardstick of speed)
+F32_ITERS = 2
+PLAIN_ITERS = 3
+
+
+def check_kernels(dtype=torch.bfloat16):
     """Every kernel of the path at its path shapes against its plain version
     in fp32, each also timed beside its library composition
     (``composed_ms``), K1 with its kv projection timed alone, K8 and its
     pair with their out-projection checked and timed alone, and two calls
-    of each of REDESIGNED on the same inputs bitwise equal."""
+    of each of REDESIGNED on the same inputs bitwise equal; ``dtype``: the
+    instance (bf16, or fp32 within KERNEL_TOL_F32)."""
     from magicdrive_tpu_torch.kernels import build, dispatch, reference
 
-    log(f"tensor-map encoding on the host (K3 encodes three a call, K4 and "
-        f"the out-projection two): "
-        f"{build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
-
+    if dtype == torch.bfloat16:
+        log(f"tensor-map encoding on the host (K3 encodes three a call, K4 "
+            f"and the out-projection two): "
+            f"{build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
+    iters = F32_ITERS if dtype == torch.float32 else 10
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, label, args in kernel_cases(gen):
+    for name, label, args in kernel_cases(gen, dtype):
         kern, plain = getattr(dispatch, name), getattr(reference, name)
         got = kern(*args)
         err, scale = _worst(got, plain(*map(_f32, args)))
         row = _row(rows, name, label, args, got, err, lambda: kern(*args),
-                   lambda: plain(*args))
-        row["composed_ms"] = cuda_ms(lambda: COMPOSED[name](*args))
+                   lambda: plain(*args), iters=iters)
+        row["composed_ms"] = cuda_ms(lambda: COMPOSED[name](*args), iters)
         if name in REDESIGNED and not torch.equal(got, kern(*args)):
             raise AssertionError(f"{name} {label}: two calls on the same "
                                  "inputs differ")
         if name == "kvstat_attention":
-            row["kv_project"] = _kv_project_row(args)
+            row["kv_project"] = _kv_project_row(args, iters)
         if name in _OUT_KERNELS:
-            row["out_project"] = _out_project_row(name, label, args)
-        _gate(name, label, err, scale, KERNEL_TOL, row,
+            row["out_project"] = _out_project_row(name, label, args, iters)
+        _gate(_key(name, dtype), label, err, scale, _tol(dtype), row,
               "two calls bitwise equal" if name in REDESIGNED else "")
     return rows
 
@@ -916,16 +990,20 @@ FLASH_SHAPES = ((48, 1400, 1400, 40, 1400), (48, 350, 350, 80, 350),
 
 def _sdpa_calls(q, k, v, do):
     """The flash SDPA forward, and its backward as one autograd call, on
-    (BH, L, D) inputs viewed as BH batches of one head; q is pre-scaled."""
+    (BH, L, D) inputs viewed as BH batches of one head; q is pre-scaled.
+    fp32 inputs take the memory-efficient SDPA (flash takes 16-bit types
+    only)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    backend = SDPBackend.EFFICIENT_ATTENTION if q.dtype == torch.float32 \
+        else SDPBackend.FLASH_ATTENTION
     q4, k4, v4 = (t.unsqueeze(1).detach().requires_grad_() for t in (q, k, v))
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+    with sdpa_kernel(backend):
         o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
 
     def fwd():
-        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        with torch.no_grad(), sdpa_kernel(backend):
             F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
 
     def bwd():
@@ -934,16 +1012,18 @@ def _sdpa_calls(q, k, v, do):
     return fwd, bwd
 
 
-def check_flash_kernels():
+def check_flash_kernels(dtype=torch.bfloat16):
     """K5, the two launches of K6 and the whole K6 against their plain
     versions in fp32 on the same inputs at FLASH_SHAPES; K6 takes K5's o and
     lse, its second launch the first launch's delta. The library times are
-    the flash SDPA forward (K5) and backward (the whole K6) on the keys
-    below kv_len; no single call computes one launch of K6. Two whole K6
-    calls on the same inputs must be bitwise equal."""
+    the SDPA forward (K5) and backward (the whole K6) on the keys below
+    kv_len (``_sdpa_calls``); no single call computes one launch of K6. Two
+    whole K6 calls on the same inputs must be bitwise equal. ``dtype``: as
+    ``check_kernels``."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
-    rnd = _rnd(torch.Generator(device="cuda").manual_seed(1))
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(1), dtype)
+    iters = F32_ITERS if dtype == torch.float32 else 10
     rows = {}
     for BH, Lq, Lk, D, kv_len in FLASH_SHAPES:
         label = f"BH={BH} Lq={Lq} Lk={Lk} D={D}" + \
@@ -975,13 +1055,17 @@ def check_flash_kernels():
             plain = functools.partial(getattr(reference, name), *args)
             got = kern()
             err, scale = _worst(got, ref)
-            row = _row(rows, name, label, args, got, err, kern, plain, lib)
-            _gate(name, label, err, scale, KERNEL_TOL, row)
+            row = _row(rows, name, label, args, got, err, kern, plain, lib,
+                       iters)
+            _gate(_key(name, dtype), label, err, scale, _tol(dtype), row)
         again = dispatch.flash_attention_bwd(*bwd_args)
         same = all(torch.equal(a, b) for a, b in
                    zip(dispatch.flash_attention_bwd(*bwd_args), again))
-        log(f"  flash_attention_bwd {label}: two calls bitwise "
-            f"{'equal ok' if same else 'DIFFERENT FAIL'}")
+        fwd_same = all(torch.equal(a, b) for a, b in zip(
+            dispatch.flash_attention_fwd(*fwd_args), (o, lse)))
+        same = same and fwd_same
+        log(f"  {_key('flash_attention_bwd', dtype)} {label}: two calls "
+            f"bitwise (and K5's) {'equal ok' if same else 'DIFFERENT FAIL'}")
         if not same:
             raise AssertionError(f"K6 {label}: two calls on the same inputs "
                                  "differ")
@@ -995,12 +1079,14 @@ def check_flash_kernels():
 FLASH_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
 
 
-def check_flash_depths() -> None:
+def check_flash_depths(dtype=torch.bfloat16) -> None:
     """K5 and the whole K6 at every depth of FLASH_DEPTHS, at a small shape
-    with ragged q and key tails, against their plain versions in fp32."""
+    with ragged q and key tails, against their plain versions in fp32;
+    ``dtype``: as ``check_kernels``."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
-    rnd = _rnd(torch.Generator(device="cuda").manual_seed(3))
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(3), dtype)
+    tol, key = _tol(dtype), functools.partial(_key, dtype=dtype)
     BH, Lq, Lk, kv_len = 4, 200, 192, 150
     for D in FLASH_DEPTHS:
         label = f"BH={BH} Lq={Lq} Lk={Lk} D={D} kv_len={kv_len}"
@@ -1010,11 +1096,11 @@ def check_flash_depths() -> None:
         o, lse = dispatch.flash_attention_fwd(*fwd_args)
         err, scale = _worst((o, lse), reference.flash_attention_fwd(
             *map(_f32, fwd_args)))
-        _gate("flash_attention_fwd", label, err, scale, KERNEL_TOL)
+        _gate(key("flash_attention_fwd"), label, err, scale, tol)
         bwd_args = (q, k, v, o, lse, do, kv_len)
         err, scale = _worst(dispatch.flash_attention_bwd(*bwd_args),
                             reference.flash_attention_bwd(*map(_f32, bwd_args)))
-        _gate("flash_attention_bwd", label, err, scale, KERNEL_TOL)
+        _gate(key("flash_attention_bwd"), label, err, scale, tol)
 
 
 # one head depth for each instance of K1's and K2's launcher (the depth
@@ -1030,7 +1116,7 @@ RING_SHIFTS = ((5, 1), (1, 2))
 OUT_WIDTH = 72
 
 
-def check_attention_depths() -> None:
+def check_attention_depths(dtype=torch.bfloat16) -> None:
     """K1, K2, K7, K8 and the K8 pair at every depth of ATTENTION_DEPTHS, at
     a small shape with ragged q and key tails (200 and 150 rows against
     64-row tiles) and a C that is not a multiple of the projection's
@@ -1041,19 +1127,17 @@ def check_attention_depths() -> None:
     hidden states are drawn at 0.5 (logits of std 0.25): at 1.0 and D=8 the
     contract's own bf16 q and k casts put the plain bf16 version up to
     1.1e-2 * max|ref| from fp32 (CPU, PERF.md), so the gate would measure
-    that rounding rather than the kernel; at 0.5 it stays under 4.5e-3."""
+    that rounding rather than the kernel; at 0.5 it stays under 4.5e-3.
+    ``dtype``: as ``check_kernels`` (at fp32 the plain version is the
+    reference, and no distance is printed)."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
-    rnd = _rnd(torch.Generator(device="cuda").manual_seed(4))
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(4), dtype)
     rings = {s: reference.ring_table(s, 6).cuda() for s in RING_SHIFTS}
     B, Lq, Lk, C, Ck, H = 2, 200, 150, 72, 40, 2
 
     def gate(name, label, args):
-        ref = getattr(reference, name)(*map(_f32, args))
-        err, scale = _worst(getattr(dispatch, name)(*args), ref)
-        bf_err, _ = _worst(getattr(reference, name)(*args), ref)
-        _gate(name, label, err, scale, KERNEL_TOL,
-              note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
+        _gate_plain(name, label, args, dtype)
 
     for D in ATTENTION_DEPTHS:
         HD, scale = H * D, D ** -0.5
@@ -1094,13 +1178,27 @@ def ff_instance(C: int) -> int:
     return -(-tiles // n_ct)
 
 
-def check_ff_widths() -> None:
-    """K3 and K4 at every width of FF_WIDTHS, at FF_ROWS rows, with and
-    without the W1 bias, against their plain versions in fp32; the plain
-    bf16 version's own distance from fp32 is printed beside each."""
+def _gate_plain(name, label, args, dtype) -> None:
+    """The kernel ``name`` on ``args`` against its plain version in fp32,
+    gated at ``dtype``'s tolerance; at bf16 the plain bf16 version's own
+    distance from fp32 is printed beside it."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
-    rnd = _rnd(torch.Generator(device="cuda").manual_seed(5))
+    ref = getattr(reference, name)(*map(_f32, args))
+    err, scale = _worst(getattr(dispatch, name)(*args), ref)
+    note = ""
+    if dtype != torch.float32:
+        bf_err, _ = _worst(getattr(reference, name)(*args), ref)
+        note = f"plain bf16 {bf_err / scale:.3e} * max|ref|"
+    _gate(_key(name, dtype), label, err, scale, _tol(dtype), note=note)
+
+
+def check_ff_widths(dtype=torch.bfloat16) -> None:
+    """K3 and K4 at every width of FF_WIDTHS, at FF_ROWS rows, with and
+    without the W1 bias, against their plain versions in fp32; the plain
+    bf16 version's own distance from fp32 is printed beside each (``dtype``:
+    as ``check_attention_depths``)."""
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(5), dtype)
     for name, widths in FF_WIDTHS.items():
         for C in widths:
             x = rnd(FF_ROWS, C)
@@ -1108,21 +1206,16 @@ def check_ff_widths() -> None:
             w2 = (rnd(C, 4 * C, scale=(4 * C) ** -0.5),) \
                 if name == "fused_ff" else ()
             for b1 in (rnd(8 * C, scale=0.1), None):
-                args = (x, w1, b1, *w2)
-                ref = getattr(reference, name)(*map(_f32, args))
-                err, scale = _worst(getattr(dispatch, name)(*args), ref)
-                bf_err, _ = _worst(getattr(reference, name)(*args), ref)
                 inst = f" instance {ff_instance(C)}" if w2 else ""
-                _gate(name, f"M={FF_ROWS} C={C} bias={b1 is not None}{inst}",
-                      err, scale, KERNEL_TOL,
-                      note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
+                _gate_plain(name, f"M={FF_ROWS} C={C} bias={b1 is not None}"
+                            f"{inst}", (x, w1, b1, *w2), dtype)
 
 
-def autograd_cases(gen: torch.Generator):
+def autograd_cases(gen: torch.Generator, dtype=torch.bfloat16):
     """(kernel, shape label, differentiable inputs, other arguments) at the
     shapes the training path gives K1-K4, K8 and the K8 pair: 6 views of 8
     heads; K2 and the K8 pair also over TABLE_CASES."""
-    rnd = _rnd(gen)
+    rnd = _rnd(gen, dtype)
     cases = []
     for L, C in ((1400, 320), (350, 640)):
         x = rnd(6, L, C)
@@ -1165,11 +1258,13 @@ def autograd_cases(gen: torch.Generator):
     return cases
 
 
-def check_autograd():
+def check_autograd(dtype=torch.bfloat16):
     """The gradients of K1-K4, K8 and the K8 pair through the kernel route
     (every input and weight) against the plain backward in fp32 on the same
     inputs. The plain backward in bf16 is printed beside it: its own
-    distance from fp32 is what bf16 costs the gradient."""
+    distance from fp32 is what bf16 costs the gradient. With ``dtype``
+    fp32, the fp32 instances' route (K5-K7's fp32 kernels in the
+    backwards) within GRAD_TOL_F32."""
     from magicdrive_tpu_torch.kernels import autograd, reference
 
     def bwd(fn):
@@ -1200,8 +1295,9 @@ def check_autograd():
                         ("dx", "dw1", "db1")),
     }
     gen = torch.Generator(device="cuda").manual_seed(2)
+    f32 = dtype == torch.float32
     worst = {}
-    for name, label, inputs, extra in autograd_cases(gen):
+    for name, label, inputs, extra in autograd_cases(gen, dtype):
         fn, plain_bwd, grad_names = fns[name]
         leaves = [t.clone().requires_grad_() for t in inputs]
         y = fn(*leaves, *extra)
@@ -1209,18 +1305,63 @@ def check_autograd():
         y.backward(dy)
         ref = plain_bwd([t.float() for t in inputs], extra, dy.float(),
                         reference)
-        bf16 = plain_bwd(inputs, extra, dy, reference)
+        bf16 = ref if f32 else plain_bwd(inputs, extra, dy, reference)
         for g_name, leaf, r, b in zip(grad_names, leaves, ref, bf16):
             err, scale = _worst(leaf.grad, r)
             bf_err, _ = _worst(b, r)
-            _gate(f"{name} {g_name}", label, err, scale,
-                  max(GRAD_TOL, bf_err / scale),
-                  note=f"plain bf16 {bf_err / scale:.3e} * max|ref|")
+            _gate(f"{_key(name, dtype)} {g_name}", label, err, scale,
+                  GRAD_TOL_F32 if f32 else max(GRAD_TOL, bf_err / scale),
+                  note="" if f32 else
+                  f"plain bf16 {bf_err / scale:.3e} * max|ref|")
             w = worst.setdefault(name, [0.0, 0.0])
             w[0], w[1] = max(w[0], err / scale), max(w[1], bf_err / scale)
     log("autograd, worst gradient error / max|ref| (kernel route; plain "
         "bf16): " + ", ".join(f"{n} {k:.3e}; {b:.3e}"
                               for n, (k, b) in worst.items()))
+
+
+def tf32_line() -> None:
+    """The fp32 gate held to the TF32 library call once: F.linear at K1's
+    q projection (12 views, L=1400, C=320) with ``allow_tf32=True`` against
+    the same call in fp32. It must fail KERNEL_TOL_F32, or the gate could
+    not tell TF32 products from fp32 ones."""
+    import torch.nn.functional as F
+
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(6), torch.float32)
+    x, w = rnd(12 * 1400, 320), rnd(320, 320, scale=320 ** -0.5)
+    ref = F.linear(x, w)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = F.linear(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, scale = _worst(got, ref)
+    rejected = not err <= KERNEL_TOL_F32 * scale
+    log(f"  TF32 F.linear (allow_tf32=True) M=12*1400 K=320 N=320: "
+        f"{err / scale:.3e} * max|ref| from fp32, KERNEL_TOL_F32 "
+        f"{KERNEL_TOL_F32}: {'rejected ok' if rejected else 'PASSED FAIL'}")
+    if not rejected:
+        raise AssertionError("the fp32 gate passes a TF32 product")
+
+
+def check_fp32_kernels() -> dict:
+    """The fp32 instances of every kernel at the bf16 checks' shapes, depths
+    and widths within KERNEL_TOL_F32 (two calls bitwise where the bf16
+    ones are), the TF32 line, and the fp32 gradients; -> their rows, under
+    ``_key`` names."""
+    f32 = torch.float32
+    log("fp32 kernel checks (fp32 kernel vs fp32 plain version, TF32 off, "
+        f"limit {KERNEL_TOL_F32} * max|ref|):")
+    rows = check_kernels(f32)
+    rows.update(check_flash_kernels(f32))
+    check_flash_depths(f32)
+    check_attention_depths(f32)
+    check_ff_widths(f32)
+    tf32_line()
+    log(f"fp32 autograd checks (fp32 kernel route vs fp32 plain backward, "
+        f"limit {GRAD_TOL_F32} * max|ref|):")
+    check_autograd(f32)
+    return rows
 
 
 def init_weights(modules, seed: int) -> None:
@@ -1379,8 +1520,7 @@ def cross_view_calls(unet_cfg, L: int, C: int, D: int, esize: int,
 
 
 def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
-                      esize: int = 2, recompute: bool = False,
-                      view: int = 1):
+                      esize: int = 2, recompute=False, view: int = 1):
     """Kernel launches (``dispatch.LAUNCHES``' keys) of ``forwards`` guided
     ControlNet+UNet evaluations and ``steps`` train steps under the fused
     ``mode``, derived from the block structure and the routing rules: per
@@ -1398,13 +1538,17 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     transformer sits in a remat unit (the UNet's down, mid and up blocks,
     the ControlNet's down and mid blocks), whose forward runs again in the
     backward: each forward kernel call of a train step launches twice,
-    that attn1 included; the backward's K5, K6 and K7 do not change.
-    ``view`` > 1: the forwards of a rank of a view-sharded pipeline
-    (``cross_view_calls``)."""
+    that attn1 included; the backward's K5, K6 and K7 do not change. With
+    ``recompute="attn"`` (the UNet's remat_policy "attn") the UNet's units
+    keep every attention's output, so only the ControlNet's attentions and
+    every FF launch twice. ``view`` > 1: the forwards of a rank of a
+    view-sharded pipeline (``cross_view_calls``)."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     n = dict.fromkeys(dispatch.LAUNCHES, 0)
     calls = forwards + steps * (2 if recompute else 1)
+    # the UNet's attentions under "attn": kept, not run again
+    kept = forwards + steps
     ctx = 1 + 77 + preset.bbox_max_len
     ctx_dim = preset.unet.cross_attention_dim
     with dispatch.fused_mode(mode):
@@ -1423,7 +1567,8 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
                 if call is None:
                     continue
                 kernel, per_forward, branches = call
-                n[kernel] += per_forward * calls
+                n[kernel] += per_forward * (
+                    kept if unet and recompute == "attn" else calls)
                 if no_backward:
                     continue
                 if kernel != "flash_attention_fwd":
@@ -1438,11 +1583,12 @@ def expected_launches(preset, mode: str, forwards: int = 0, steps: int = 0,
     return n
 
 
-def path_calls(preset, mode: str):
+def path_calls(preset, mode: str, esize: int = 2):
     """The kernel wrappers one guided step of ``preset`` calls under the
-    fused ``mode`` (bf16), by ``expected_launches``."""
-    return tuple(k for k, v in expected_launches(preset, mode,
-                                                 forwards=1).items() if v)
+    fused ``mode`` (bf16; fp32 with ``esize`` 4), by
+    ``expected_launches``."""
+    return tuple(k for k, v in expected_launches(
+        preset, mode, forwards=1, esize=esize).items() if v)
 
 
 def _check_launches(what, want):
@@ -1527,10 +1673,11 @@ def _relative(got, want, ref) -> float:
                                   _outputs(ref)))
 
 
-def _call_checker(stats, bf16_floor: bool = False):
+def _call_checker(stats, bf16_floor: bool = False, tol: float = KERNEL_TOL):
     """``make`` for ``patched_kernels``: each call runs the kernel, then
     the plain version in fp32 on the same inputs, and raises if an output
-    is off by more than KERNEL_TOL * its max|ref|. With ``bf16_floor`` the
+    is off by more than ``tol`` * its max|ref| (KERNEL_TOL; KERNEL_TOL_F32
+    for the fp32 instances). With ``bf16_floor`` the
     plain version also runs on the kernel's own inputs, at the cast points
     it shares with the JAX kernels: the kernel must be within KERNEL_TOL of
     that, and within KERNEL_TOL of fp32 or no farther from fp32 than that
@@ -1548,7 +1695,7 @@ def _call_checker(stats, bf16_floor: bool = False):
         def check(name, args, out):
             ref = plain(*map(_f32, args))
             err, scale = _worst(out, ref)
-            rel, limit = _relative(out, ref, ref), KERNEL_TOL
+            rel, limit = _relative(out, ref, ref), tol
             s = stats.setdefault(name, [0, 0.0] + [0.0, 0.0] * bf16_floor)
             s[0], s[1] = s[0] + 1, max(s[1], rel)
             if bf16_floor:
@@ -1594,16 +1741,18 @@ def _step_inputs(pipe, batch):
 
 
 def check_path_calls(preset, pipe, batch, mode, bf16_floor: bool = False,
-                     what: str = "") -> None:
+                     what: str = "", tol: float = KERNEL_TOL,
+                     esize: int = 2) -> None:
     """Every kernel call of one guided step against its plain version in
-    fp32 on the inputs the path gave it (``bf16_floor``: see
-    ``_call_checker``); ``what`` names the path in the log."""
+    fp32 on the inputs the path gave it (``bf16_floor``, ``tol``: see
+    ``_call_checker``; ``esize`` 4 for an fp32 pipeline); ``what`` names
+    the path in the log."""
     x, t, cond = _step_inputs(pipe, batch)
     # kernel -> [calls, worst max|err| / max|ref|], with bf16_floor then the
     # worst against the plain bf16 version and the plain bf16's own
     stats = {}
-    names = path_calls(preset, mode)
-    with patched_kernels(_call_checker(stats, bf16_floor), names):
+    names = path_calls(preset, mode, esize)
+    with patched_kernels(_call_checker(stats, bf16_floor, tol), names):
         pipe.guided_eps(x, t, cond)
     _report_calls(f"one guided step of {what or preset.name} ({mode})",
                   stats, names)
@@ -1846,10 +1995,11 @@ HIRES = {"sd15mv_rawbox_272x736": ("kvstat", "auto"),
 
 
 def run_hires(by_path, timing) -> None:
-    """Each hi-res preset at full width: N_REQUESTS requests under "kvstat"
-    and one under each other mode of HIRES, every run's launch counts equal
-    to the derived ones; then, in each mode, the per-call check of one
-    guided step and one profiled guided step."""
+    """Each hi-res preset at full width: one request under each mode of
+    HIRES (two under "kvstat" until the fp32 phase came, cut to keep the
+    script near its time), every run's launch counts equal to the derived
+    ones; then, in each mode, the per-call check of one guided step and
+    one profiled guided step."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     for name, modes in HIRES.items():
@@ -1857,10 +2007,9 @@ def run_hires(by_path, timing) -> None:
         tag = name.rsplit("_", 1)[1]
         for mode in modes:
             with dispatch.fused_mode(mode):
-                runs = batches if mode == "kvstat" else batches[:1]
                 by_path[f"generation_{tag}_{mode}"], \
                     timing[f"s/request {tag} {mode}"] = run_slice(
-                        preset, pipe, runs, mode)
+                        preset, pipe, batches[:1], mode)
                 check_path_calls(preset, pipe, batches[0], mode)
                 profile_guided_step(preset, pipe, batches[0], mode)
         del pipe
@@ -2128,7 +2277,7 @@ def run_cross_view_forms(pipe, batches, by_path, timing, card: str) -> None:
                                  f"changed, e.g. {changed[:5]}")
         with dispatch.fused_mode("kvstat"):
             check_training_calls((modules, cfg, state, train_batch), "kvstat",
-                                 f"a {what}", preset=preset)
+                                 f"a {what}", preset=preset, smoke=False)
         timing[f"s cross-view {name}"] = [time.perf_counter() - t0]
         log(f"cross-view {name}: {timing[f's cross-view {name}'][0]:.1f} s "
             f"({card})")
@@ -2667,9 +2816,10 @@ def run_map_drop_step(by_path) -> None:
 
 
 def video_set_up():
-    """The full-width 16-frame video pipeline on seeded weights and
-    N_REQUESTS requests of one 16-frame clip each (B=1, the frames folded
-    into the batch)."""
+    """The full-width 16-frame video pipeline on seeded weights and one
+    request of one 16-frame clip (B=1, the frames folded into the batch;
+    N_REQUESTS until the fp32 phase came, cut to keep the script near its
+    time)."""
     from magicdrive_tpu_torch.config import sd15mv_rawbox_video_16f
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_dataset)
@@ -2686,14 +2836,13 @@ def video_set_up():
     clip = collate_fn(make_dataset(frames, image_hw=preset.image_size,
                                    map_hw=preset.map_hw),
                       CollateConfig(bbox_max_len=preset.bbox_max_len))
-    return preset, pipe, [clip] * N_REQUESTS
+    return preset, pipe, [clip]
 
 
 def run_video(by_path, timing) -> None:
-    """The 16-frame video at full width under "kvstat": N_REQUESTS requests
-    (the first cold) with their launch counts (the temporal blocks launch
-    none of K1-K8), the peak memory, the per-call check and a profiled
-    guided step."""
+    """The 16-frame video at full width under "kvstat": one request (cold)
+    with its launch counts (the temporal blocks launch none of K1-K8), the
+    peak memory, the per-call check and a profiled guided step."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     preset, pipe, batches = video_set_up()
@@ -2856,15 +3005,19 @@ def check_drop_all(setup) -> None:
 
 
 def check_training_calls(setup, mode, what: str = "one training step",
-                         bf16_floor: bool = False, preset=None) -> None:
+                         bf16_floor: bool = False, preset=None,
+                         tol: float = KERNEL_TOL, esize: int = 2,
+                         loss_tol=None, smoke: bool = True) -> None:
     """In one training step of ``setup`` (modules, TrainConfig, state,
     batch: the path's own), every kernel call (forward, recompute and
     backward) against its plain version in fp32 on the inputs the path
-    gave it (``bf16_floor``: see ``_call_checker``; ``preset``: the model's
-    preset where it is not the 224x400 one, for ``training_calls``); then
-    the gradients of the ControlNet, of the cross-view modules and of the
+    gave it (``bf16_floor``, ``tol``: see ``_call_checker``; ``preset``:
+    the model's preset where it is not the 224x400 one, and ``esize``, for
+    ``training_calls``); then, with ``smoke`` or ``loss_tol``, the
+    gradients of the ControlNet, of the cross-view modules and of the
     temporal ones, where the model trains them, through the kernels
-    against those through the plain versions, as a smoke test."""
+    against those through the plain versions, as a smoke test, and the
+    loss, gated within ``loss_tol`` relative where it is given."""
     from magicdrive_tpu_torch.diffusion import NoiseSchedule
     from magicdrive_tpu_torch.train.train_step import (batch_tensors,
                                                        loss_and_grads)
@@ -2873,12 +3026,14 @@ def check_training_calls(setup, mode, what: str = "one training step",
     draws = _fixed_draws(cfg, batch, 10)
     tensors = batch_tensors(batch, "cuda")
     schedule = NoiseSchedule.create()
-    names = training_calls(mode, preset)
+    names = training_calls(mode, preset, esize)
     stats = {}
-    with patched_kernels(_call_checker(stats, bf16_floor), names):
+    with patched_kernels(_call_checker(stats, bf16_floor, tol), names):
         loss_k, grads_k = loss_and_grads(modules, state, tensors, draws, cfg,
                                          schedule)
     _report_calls(f"{what} ({mode})", stats, names)
+    if not smoke and loss_tol is None:
+        return
     with patched_kernels(lambda name, kern, plain: outside_remat(plain),
                          names):
         loss_p, grads_p = loss_and_grads(modules, state, tensors, draws, cfg,
@@ -2894,9 +3049,16 @@ def check_training_calls(setup, mode, what: str = "one training step",
             gk = torch.cat([grads_k[k].flatten() for k in keys])
             gp = torch.cat([grads_p[k].flatten() for k in keys])
             rels[group] = f"{((gk - gp).norm() / gp.norm()).item():.3e}"
+    rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     log(f"{what} ({mode}), kernels vs plain versions: loss "
-        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; gradient relative L2 "
-        f"{rels} (a smoke test, not a gate)")
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f} (relative "
+        f"{rel_loss:.3e}" + ("" if loss_tol is None else
+                             f", limit {loss_tol}") +
+        f"); gradient relative L2 {rels} (a smoke test, not a gate)")
+    if loss_tol is not None and not rel_loss <= loss_tol:
+        raise AssertionError(f"{what} ({mode}): the loss through the kernels "
+                             f"is {rel_loss:.3e} relative from the plain "
+                             f"versions', past {loss_tol}")
 
 
 # ---------------------------------------------------------------------------
@@ -3106,7 +3268,8 @@ def run_cli_training(by_path, timing, card: str, tmp: str, root: str,
         check_training_calls(
             (run1.runner.modules, run1.runner.tcfg, run1.state, batches[0]),
             "kvstat", f"a training CLI step (B={len(batches[0]['input_ids'])}"
-            f", step 1's batch, step 4's weights)", bf16_floor=True)
+            f", step 1's batch, step 4's weights)", bf16_floor=True,
+            smoke=False)
         check_path_calls(preset, validator.pipe, validator.batch()[0],
                          "kvstat", bf16_floor=True,
                          what="the training CLI's Validator")
@@ -3337,13 +3500,7 @@ def run_train_options(by_path, timing, card: str) -> None:
     plain = {mode: grads_of(modules, False, mode)
              for mode in dispatch.FUSED_MODES}
     for policy, modes in (("dots", dispatch.FUSED_MODES), (None, ("kvstat",))):
-        p = dataclasses.replace(preset, unet=dataclasses.replace(
-            preset.unet, gradient_checkpointing=True, remat_policy=policy))
-        p = dataclasses.replace(p, controlnet=dataclasses.replace(
-            p.controlnet, unet=dataclasses.replace(
-                p.controlnet.unet, gradient_checkpointing=True,
-                remat_policy=policy)))
-        remat_modules = _new_modules(p)
+        remat_modules = _new_modules(_remat_preset(preset, policy))
         for mode in modes:
             loss0, g0, sec0, peak0 = plain[mode]
             loss, g, sec, peak = grads_of(remat_modules, True, mode)
@@ -3364,20 +3521,15 @@ def run_train_options(by_path, timing, card: str) -> None:
                     check_training_calls(
                         (remat_modules, base,
                          create_train_state(remat_modules, base), batch),
-                        mode, f'a remat "dots" step (B={OPTION_BATCH})')
+                        mode, f'a remat "dots" step (B={OPTION_BATCH})',
+                        smoke=False)
         del remat_modules
         torch.cuda.empty_cache()
     del modules, plain, tensors
     torch.cuda.empty_cache()
 
     # video training: one 16-frame clip, remat "dots"
-    vp = sd15mv_rawbox_video_16f()
-    vp = dataclasses.replace(vp, unet=dataclasses.replace(
-        vp.unet, gradient_checkpointing=True, remat_policy="dots"))
-    vp = dataclasses.replace(vp, controlnet=dataclasses.replace(
-        vp.controlnet, unet=dataclasses.replace(
-            vp.controlnet.unet, gradient_checkpointing=True,
-            remat_policy="dots")))
+    vp = _remat_preset(sd15mv_rawbox_video_16f(), "dots")
     vmodules = _new_modules(vp)
     clip = collate_fn(make_dataset(FRAMES, image_hw=vp.image_size,
                                    map_hw=vp.map_hw, with_images=True),
@@ -3403,7 +3555,8 @@ def run_train_options(by_path, timing, card: str) -> None:
     with dispatch.fused_mode("kvstat"):
         check_training_calls((vmodules, vcfg, state, clip), "kvstat",
                              f"a {FRAMES}-frame video training step "
-                             f'({FRAMES * 6} images, remat "dots")')
+                             f'({FRAMES * 6} images, remat "dots")',
+                             smoke=False)
     del vmodules, state
     torch.cuda.empty_cache()
 
@@ -3517,6 +3670,232 @@ def run_train_cli(by_path, timing, card: str) -> None:
         run_cli_training(by_path, timing, card, tmp, root, version)
         run_train_options(by_path, timing, card)
         run_cache(by_path, card, tmp, root, version)
+
+
+# ---------------------------------------------------------------------------
+# fp32 on the card and remat_policy "attn"
+# ---------------------------------------------------------------------------
+
+# the fp32 CLI runs: the recipe's batch in fp32, 3 steps, validation at
+# step 3 on 2 samples (the debug runner's 4 UniPC steps)
+F32_CLI_ARGS = ("exp=224x400", "runner=debug", "runner.train_batch_size=3",
+                "runner.mixed_precision=no", "runner.max_train_steps=3",
+                "runner.validation_steps=3", "runner.validation_index=[0,1]",
+                "runner.validation_before_run=false")
+F32_CLI_STEPS = 3
+# relative distance of an fp32 step's loss through the kernels from the
+# same step through the plain versions
+F32_LOSS_TOL = 1e-4
+REMAT_POLICIES = (None, "dots", "attn")
+
+
+def run_fp32_cli(by_path, timing, card: str, tmp: str, root: str,
+                 version: str, mode: str) -> None:
+    """``cli.train`` in fp32 (F32_CLI_ARGS) under the fused ``mode``, on
+    this script's seeded weights, its checkpoint and export left out: every
+    module in fp32, its launch counts
+    those derived at esize 4 for its steps and its Validator's forwards
+    (``by_path``: the fp32 paths' counts), the losses of steps 1-3 logged
+    and finite, the frozen weights as built, the two PNGs; then every
+    kernel call of a step on its first batch and of a guided step of its
+    Validator within KERNEL_TOL_F32 of the plain fp32 version, and that
+    step's loss within F32_LOSS_TOL of the plain versions'. Prints s/step
+    and the peak memory."""
+    from PIL import Image
+
+    from magicdrive_tpu_torch.cli.train import CONFIG_DIR
+    from magicdrive_tpu_torch.config import preset_from_config
+    from magicdrive_tpu_torch.config_loader import compose
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import runner as runner_mod
+
+    data = [f"dataset.dataset_root={root}", f"dataset.version={version}"]
+    cfg = compose(CONFIG_DIR, overrides=[*F32_CLI_ARGS, *data])
+    preset = preset_from_config(cfg)
+    rc = cfg["runner"]
+    val_forwards = rc["validation_times"] * \
+        rc["pipeline_param"]["num_inference_steps"]
+    frozen, batches = {}, []
+    real_step = runner_mod.train_step
+
+    def step(modules, state, batch, *args, **kwargs):
+        batches.append(batch)
+        return real_step(modules, state, batch, *args, **kwargs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    # the checkpoint and the export left out, as in run_nccl_cli: the bf16
+    # CLI runs hold them, and they cost 23 s of writes an fp32 run
+    saved = runner_mod.Runner.save, runner_mod.Runner.save_deployable
+    runner_mod.train_step = step
+    runner_mod.Runner.save = runner_mod.Runner.save_deployable = \
+        lambda self, state: None
+    try:
+        with dispatch.fused_mode(mode):
+            run, seconds = _train_cli(
+                [*F32_CLI_ARGS, *data, f"log_root_prefix={tmp}/f32_{mode}"],
+                frozen)
+    finally:
+        runner_mod.train_step = real_step
+        runner_mod.Runner.save, runner_mod.Runner.save_deployable = saved
+    what = f"fp32 training CLI ({mode})"
+    by_path[f"train_cli_f32_{mode}"] = _check_launches(
+        what, expected_launches(preset, mode, forwards=val_forwards,
+                                steps=F32_CLI_STEPS, esize=4))
+    peak = torch.cuda.max_memory_allocated()
+    modules = run.runner.modules
+    dtypes = {t.dtype for _, m in modules.items() for t in m.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{what}: the modules hold {dtypes}")
+    changed = [k for k, t in _frozen(modules).items()
+               if not torch.equal(t, frozen[k])]
+    with open(os.path.join(run.run_dir, "metrics.jsonl")) as f:
+        losses = {r["step"]: r["loss"] for r in map(json.loads, f)}
+    H, W = preset.image_size
+    pngs = sorted(os.listdir(os.path.join(run.run_dir, "val_images")))
+    shapes = [np.asarray(Image.open(os.path.join(
+        run.run_dir, "val_images", f))).shape for f in pngs]
+    timing[f"s/step fp32 CLI {mode} (B=3)"] = seconds["step"]
+    log(f"{what}: losses {losses}; PNGs {pngs} {shapes}; seconds: "
+        f"{json.dumps(seconds)}; peak memory {peak / 2**30:.2f} GiB ({card})")
+    if list(losses) != [1, 2, 3] or not all(np.isfinite(list(
+            losses.values()))):
+        raise AssertionError(f"{what}: losses {losses}")
+    if changed:
+        raise AssertionError(f"{what}: frozen weights changed: {changed[:5]}")
+    if pngs != ["step3_idx0_0.png", "step3_idx1_0.png"] or any(
+            sh != (2 * H, 6 * W, 3) for sh in shapes):
+        raise AssertionError(f"{what}: val_images {pngs} {shapes}")
+    with dispatch.fused_mode(mode):
+        check_training_calls(
+            (modules, run.runner.tcfg, run.state, batches[0]), mode,
+            f"an fp32 training CLI step (B={len(batches[0]['input_ids'])})",
+            tol=KERNEL_TOL_F32, esize=4, loss_tol=F32_LOSS_TOL)
+        validator = run.runner.validator
+        check_path_calls(preset, validator.pipe, validator.batch()[0], mode,
+                         what="the fp32 training CLI's Validator",
+                         tol=KERNEL_TOL_F32, esize=4)
+    shutil.rmtree(run.run_dir)
+    del run, modules, batches, validator
+    torch.cuda.empty_cache()
+
+
+def _remat_preset(preset, policy):
+    """``preset`` with gradient checkpointing in the UNet under ``policy``
+    and in the ControlNet (which recomputes everything)."""
+    import dataclasses
+
+    p = dataclasses.replace(preset, unet=dataclasses.replace(
+        preset.unet, gradient_checkpointing=True, remat_policy=policy))
+    return dataclasses.replace(p, controlnet=dataclasses.replace(
+        p.controlnet, unet=dataclasses.replace(
+            p.controlnet.unet, gradient_checkpointing=True,
+            remat_policy=policy)))
+
+
+def run_remat_policies(by_path, timing, card: str) -> None:
+    """One bf16 224x400 training step at B=1 (6 views) on fixed draws, twice
+    (the first cold), without gradient checkpointing and under each of
+    REMAT_POLICIES, on the same seeded weights, under "kvstat": the
+    launches those derived (under "attn" the UNet's attentions launch once,
+    the ControlNet's and the FFs twice), every trainable gradient within
+    GRAD_TOL relative L2 of the step's without remat, and the activations
+    the forward holds for the backward (the memory allocated when the
+    backward starts, less that before the step) under "attn" between
+    None's and no remat's. Prints each policy's held activations, the
+    step's peak (at B=1 the VAE encode's, whatever the policy), s/step and
+    K1/K2 launches."""
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_sample)
+    from magicdrive_tpu_torch.diffusion import NoiseSchedule
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import TrainConfig, create_train_state
+    from magicdrive_tpu_torch.train.train_step import (batch_tensors,
+                                                       loss_and_grads)
+
+    preset = sd15mv_rawbox_224x400()
+    batch = collate_fn([make_sample(0, with_images=True)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    base = TrainConfig(lr_warmup_steps=0)
+    tensors = batch_tensors(batch, "cuda")
+    draws = _fixed_draws(base, batch, 13)
+    schedule = NoiseSchedule.create()
+    got = {}
+    for policy in ("no remat",) + REMAT_POLICIES:
+        remat = policy != "no remat"
+        modules = _new_modules(_remat_preset(preset, policy) if remat
+                               else preset)
+        state = create_train_state(modules, base)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launches()
+        sec, held = [], []
+        real_grad = torch.autograd.grad
+
+        def grad(*args, **kwargs):  # the backward's start
+            held.append(torch.cuda.memory_allocated() - before)
+            return real_grad(*args, **kwargs)
+
+        torch.autograd.grad = grad
+        try:
+            with dispatch.fused_mode("kvstat"):
+                for _ in range(2):
+                    grads = None
+                    (loss, grads), s = _timed(lambda: loss_and_grads(
+                        modules, state, tensors, draws, base, schedule))
+                    sec.append(s)
+        finally:
+            torch.autograd.grad = real_grad
+        label = f"remat_{policy}".replace(" ", "_")
+        recompute = "attn" if policy == "attn" else remat
+        by_path[label] = _check_launches(label, expected_launches(
+            preset, "kvstat", steps=2, recompute=recompute))
+        peak = torch.cuda.max_memory_allocated() - before
+        flat = torch.cat([g.float().flatten() for g in grads.values()])
+        got[policy] = (float(loss), flat, sec, max(held), peak,
+                       by_path[label])
+        del modules, state, grads
+        torch.cuda.empty_cache()
+    g0 = got["no remat"][1]
+    for policy, (loss, g, sec, kept, peak, n) in got.items():
+        rel = ((g - g0).norm() / g0.norm()).item()
+        timing[f"s/step remat {policy} (B=1)"] = sec
+        log(f"remat {policy} (B=1, kvstat): loss {loss:.6f}; trainable "
+            f"gradient relative L2 {rel:.3e} from no remat (limit "
+            f"{GRAD_TOL}); activations held for the backward "
+            f"{kept / 2**30:.3f} GiB, the step's peak {peak / 2**30:.3f} "
+            f"GiB; seconds (cold, warm) {sec}; launches per step K1 "
+            f"{n['kvstat_attention'] // 2} K2 "
+            f"{n['kvstat_attention_pair'] // 2} K3 {n['fused_ff'] // 2} K4 "
+            f"{n['fused_geglu'] // 2} ({card})")
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"remat {policy}: the gradient moved {rel}")
+    kept = {p: v[3] for p, v in got.items()}
+    if not kept[None] < kept["attn"] < kept["no remat"]:
+        raise AssertionError(f"the activations held for the backward {kept}:"
+                             f" \"attn\" is not between None's and no "
+                             "remat's")
+    del got, tensors
+    torch.cuda.empty_cache()
+
+
+def run_fp32_and_remat(by_path, by_path_f32, timing, card: str) -> dict:
+    """The fp32 instances (``check_fp32_kernels``), the fp32 training CLI
+    under both fused modes on a synthetic nuScenes tree (``run_fp32_cli``)
+    and the remat policies (``run_remat_policies``); -> the fp32 rows."""
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    rows = check_fp32_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
+        for mode in dispatch.FUSED_MODES:
+            run_fp32_cli(by_path_f32, timing, card, tmp, root, version, mode)
+    run_remat_policies(by_path, timing, card)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3798,9 +4177,10 @@ def _rank_val_set_gen(out: str, run_dir: str, root: str,
 
 
 # frame- and view-sharded paths (2d-2f): UniPC steps of the frame-sharded
-# request (the recipe's 20 cut to what the image gate needs), and train
+# request (the recipe's 20 cut to what the image gate needs: 4 until the
+# fp32 phase came, 2 since, to keep the script near its time), and train
 # steps of each sharded step (the first at lr 0 under the one-step warm-up)
-SHARDED_SAMPLER_STEPS = 4
+SHARDED_SAMPLER_STEPS = 2
 SHARDED_STEPS = 2
 
 
@@ -4804,6 +5184,11 @@ def main() -> None:
         log("the training CLI, its resume and export, the training options, "
             "video training and the cache:")
         run_train_cli(by_path, timing, card)
+    by_path_f32 = {}  # the fp32 paths' launch counts
+    with phase("fp32 and remat attn"):
+        log("the fp32 instances, fp32 training through the CLI in both "
+            "fused modes, and the remat policies:")
+        rows.update(run_fp32_and_remat(by_path, by_path_f32, timing, card))
     with phase("multi-GPU"):
         log("across processes: NCCL through the training CLI; two gloo "
             "ranks on the card: dp=2 training, a view-sharded request, "
@@ -4815,16 +5200,21 @@ def main() -> None:
     with phase("kernels line"):
         log(f"path times (the first of each includes one-time setup): "
             f"{timing}")
-        log("whole K6 (its two launches, counted under their own names): " +
-            json.dumps(rows["flash_attention_bwd"]))
+        for key in ("flash_attention_bwd", "flash_attention_bwd[f32]"):
+            log(f"whole K6 {key} (its two launches, counted under their own "
+                f"names): " + json.dumps(rows[key]))
         kernels = []
         for n, (src, rep) in KERNELS.items():
-            worst = max(rows[n], key=lambda r: r["max_abs_err"])
-            launches = {path: counts[n] for path, counts in by_path.items()}
-            kernels.append({
-                "name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": sum(launches.values()), **worst,
-                "launches_by_path": launches, "shapes": rows[n]})
+            for key, source, paths in ((n, src, by_path),
+                                       (_key(n, torch.float32),
+                                        KERNELS_F32[n], by_path_f32)):
+                worst = max(rows[key], key=lambda r: r["max_abs_err"])
+                launches = {path: counts[n] for path, counts in paths.items()}
+                kernels.append({
+                    "name": key, "route": "cuda", "source": source,
+                    "replaces": rep, "launches": sum(launches.values()),
+                    **worst, "launches_by_path": launches,
+                    "shapes": rows[key]})
         missing = [k["name"] for k in kernels if k["launches"] <= 0]
         if missing:
             raise AssertionError(f"kernels launched on no path: {missing}")

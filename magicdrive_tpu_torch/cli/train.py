@@ -15,9 +15,12 @@ checkpoints, validation images, the profile window and, at the end,
 ``weights/``, which ``cli.generate`` and ``cli.val_set_gen`` read. With
 ``validation_only=true`` it resumes as a run would and only validates.
 
-The model trains on the card in ``runner.mixed_precision`` (bf16 in every
-runner config); ``main(argv, device="cpu")`` runs on the CPU, with
-``runner.mixed_precision=no`` for fp32.
+The model trains in ``runner.mixed_precision``: bf16 in every runner
+config, fp32 with ``runner.mixed_precision=no`` (the kernels' fp32
+instances on the card). ``main(argv, device="cpu")`` runs on the CPU.
+``model.unet.gradient_checkpointing=true`` with
+``+model.unet.remat_policy=`` dots, attn or null picks the UNet's remat
+policy (``models/unet.py``).
 
 Several processes, one card each (NCCL), data parallel:
 

@@ -42,7 +42,8 @@ class UNetConfig:
     # training: the UNet's down, up and mid blocks (the ControlNet's down
     # and mid blocks) recompute their forward in the backward; the UNet's
     # blocks keep the outputs of matrix products and convolutions under
-    # remat_policy "dots" (models/unet.py)
+    # remat_policy "dots", those of the attentions under "attn"
+    # (models/unet.py)
     gradient_checkpointing: bool = False
     remat_policy: Optional[str] = None
 

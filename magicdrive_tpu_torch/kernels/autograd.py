@@ -1,7 +1,10 @@
 """Gradients of the hand-written kernels (counterpart of the custom VJPs of
 ``kernels/fused_attention.py`` and ``kernels/geglu.py``).
 
-One ``torch.autograd.Function`` per JAX custom VJP:
+One gradient per JAX custom VJP; the attention entries (K1, K2, K8, the K8
+pair, K5) are ``torch.library`` custom ops (``mdk::*``) with their
+gradients registered, so that a selective-checkpoint policy can keep their
+outputs (``ATTENTION_OPS``), and K3/K4 are ``torch.autograd.Function``s:
   * K1 (``_fused_kvstat_core``): the backward recomputes q, k and v with
     matrix products, runs the flash forward with logsumexp (K5) on
     ``bf16(f32(q) * scale)``, k and v, then the flash backward (K6), and
@@ -212,80 +215,117 @@ def fused_ff_bwd(x: torch.Tensor, w1: torch.Tensor,
     return dx, dw1, db1, dw2
 
 
-class KvstatAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x_q, x_kv, wq, wk, wv, heads, scale):
-        ctx.save_for_backward(x_q, x_kv, wq, wk, wv)
-        ctx.heads, ctx.scale = heads, scale
-        return dispatch.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return (*kvstat_attention_bwd(*ctx.saved_tensors, ctx.heads,
-                                      ctx.scale, dy,
-                                      ctx.needs_input_grad[:5]),
-                None, None)
+# The attention entries are ``torch.library`` custom ops with their
+# gradients registered, so that a selective-checkpoint policy sees each
+# attention's core as one op (``models/unet.py``'s "attn" keeps exactly
+# these outputs); an ``autograd.Function``'s ctypes launches are invisible
+# to it. Each op runs the ``dispatch`` wrapper looked up when it runs.
+_T = torch.Tensor
 
 
-class KvstatAttentionPair(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wq, wk, wv, heads, scale, table):
-        ctx.save_for_backward(x, wq, wk, wv, table)
-        ctx.heads, ctx.scale = heads, scale
-        return dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale,
-                                              table)
-
-    @staticmethod
-    def backward(ctx, dy):
-        *ins, table = ctx.saved_tensors
-        return (*kvstat_attention_pair_bwd(*ins, ctx.heads, ctx.scale, table,
-                                           dy, ctx.needs_input_grad[:4]),
-                None, None, None)
+@torch.library.custom_op("mdk::kvstat_attention", mutates_args=())
+def _kvstat_attention_op(x_q: _T, x_kv: _T, wq: _T, wk: _T, wv: _T,
+                         heads: int, scale: float) -> _T:
+    return dispatch.kvstat_attention(x_q, x_kv, wq, wk, wv, heads, scale)
 
 
-class FusedQkvOutAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x_q, x_kv, wq, wk, wv, wout, heads, scale):
-        ctx.save_for_backward(x_q, x_kv, wq, wk, wv, wout)
-        ctx.heads, ctx.scale = heads, scale
-        return dispatch.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
-                                                heads, scale)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return (*fused_qkv_out_attention_bwd(*ctx.saved_tensors, ctx.heads,
-                                             ctx.scale, dy,
-                                             ctx.needs_input_grad[:6]),
-                None, None)
+def _save(ctx, inputs, output) -> None:
+    """setup_context of the attention ops: the tensors, then the head
+    count and the scale, which come after them in every signature but the
+    pairs', whose table comes last and is saved with the tensors."""
+    tensors = [t for t in inputs if isinstance(t, torch.Tensor)]
+    ctx.save_for_backward(*tensors)
+    ctx.heads, ctx.scale = [a for a in inputs
+                            if not isinstance(a, torch.Tensor)]
 
 
-class FusedQkvOutAttentionPair(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wq, wk, wv, wout, heads, scale, table):
-        ctx.save_for_backward(x, wq, wk, wv, wout, table)
-        ctx.heads, ctx.scale = heads, scale
-        return dispatch.fused_qkv_out_attention_pair(x, wq, wk, wv, wout,
-                                                     heads, scale, table)
-
-    @staticmethod
-    def backward(ctx, dy):
-        *ins, table = ctx.saved_tensors
-        return (*fused_qkv_out_attention_pair_bwd(
-            *ins, ctx.heads, ctx.scale, table, dy,
-            ctx.needs_input_grad[:5]), None, None, None)
+def _kvstat_attention_bwd(ctx, dy):
+    return (*kvstat_attention_bwd(*ctx.saved_tensors, ctx.heads, ctx.scale,
+                                  dy, ctx.needs_input_grad[:5]),
+            None, None)
 
 
-class FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = dispatch.flash_attention_fwd(q, k, v)
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
+_kvstat_attention_op.register_autograd(_kvstat_attention_bwd,
+                                       setup_context=_save)
 
-    @staticmethod
-    def backward(ctx, do):
-        return dispatch.flash_attention_bwd(*ctx.saved_tensors,
-                                            do.contiguous())
+
+@torch.library.custom_op("mdk::kvstat_attention_pair", mutates_args=())
+def _kvstat_attention_pair_op(x: _T, wq: _T, wk: _T, wv: _T, heads: int,
+                              scale: float, table: _T) -> _T:
+    return dispatch.kvstat_attention_pair(x, wq, wk, wv, heads, scale, table)
+
+
+def _kvstat_attention_pair_bwd(ctx, dy):
+    *ins, table = ctx.saved_tensors
+    return (*kvstat_attention_pair_bwd(*ins, ctx.heads, ctx.scale, table, dy,
+                                       ctx.needs_input_grad[:4]),
+            None, None, None)
+
+
+_kvstat_attention_pair_op.register_autograd(_kvstat_attention_pair_bwd,
+                                            setup_context=_save)
+
+
+@torch.library.custom_op("mdk::fused_qkv_out_attention", mutates_args=())
+def _fused_qkv_out_attention_op(x_q: _T, x_kv: _T, wq: _T, wk: _T, wv: _T,
+                                wout: _T, heads: int, scale: float) -> _T:
+    return dispatch.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
+                                            heads, scale)
+
+
+def _fused_qkv_out_attention_bwd(ctx, dy):
+    return (*fused_qkv_out_attention_bwd(*ctx.saved_tensors, ctx.heads,
+                                         ctx.scale, dy,
+                                         ctx.needs_input_grad[:6]),
+            None, None)
+
+
+_fused_qkv_out_attention_op.register_autograd(_fused_qkv_out_attention_bwd,
+                                              setup_context=_save)
+
+
+@torch.library.custom_op("mdk::fused_qkv_out_attention_pair",
+                         mutates_args=())
+def _fused_qkv_out_attention_pair_op(x: _T, wq: _T, wk: _T, wv: _T,
+                                     wout: _T, heads: int, scale: float,
+                                     table: _T) -> _T:
+    return dispatch.fused_qkv_out_attention_pair(x, wq, wk, wv, wout, heads,
+                                                 scale, table)
+
+
+def _fused_qkv_out_attention_pair_bwd(ctx, dy):
+    *ins, table = ctx.saved_tensors
+    return (*fused_qkv_out_attention_pair_bwd(
+        *ins, ctx.heads, ctx.scale, table, dy, ctx.needs_input_grad[:5]),
+        None, None, None)
+
+
+_fused_qkv_out_attention_pair_op.register_autograd(
+    _fused_qkv_out_attention_pair_bwd, setup_context=_save)
+
+
+@torch.library.custom_op("mdk::flash_attention", mutates_args=())
+def _flash_attention_op(q: _T, k: _T, v: _T) -> Tuple[_T, _T]:
+    return dispatch.flash_attention_fwd(q, k, v)
+
+
+def _save_flash(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs, *output)
+
+
+def _flash_attention_bwd(ctx, do, dlse):
+    return dispatch.flash_attention_bwd(*ctx.saved_tensors, do.contiguous())
+
+
+_flash_attention_op.register_autograd(_flash_attention_bwd,
+                                      setup_context=_save_flash)
+
+# the attention cores, as a selective-checkpoint policy sees them
+ATTENTION_OPS = tuple(op.default for op in (
+    torch.ops.mdk.kvstat_attention, torch.ops.mdk.kvstat_attention_pair,
+    torch.ops.mdk.fused_qkv_out_attention,
+    torch.ops.mdk.fused_qkv_out_attention_pair,
+    torch.ops.mdk.flash_attention))
 
 
 class FusedGeglu(torch.autograd.Function):
@@ -315,14 +355,14 @@ def kvstat_attention(x_q: torch.Tensor, x_kv: torch.Tensor, wq: torch.Tensor,
                      wk: torch.Tensor, wv: torch.Tensor, heads: int,
                      scale: float) -> torch.Tensor:
     """K1 with its gradient (``dispatch.kvstat_attention``)."""
-    return KvstatAttention.apply(x_q, x_kv, wq, wk, wv, heads, scale)
+    return _kvstat_attention_op(x_q, x_kv, wq, wk, wv, heads, scale)
 
 
 def kvstat_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                           wk: torch.Tensor, wv: torch.Tensor, heads: int,
                           scale: float, table: torch.Tensor) -> torch.Tensor:
     """K2 with its gradient (``dispatch.kvstat_attention_pair``)."""
-    return KvstatAttentionPair.apply(x, wq, wk, wv, heads, scale, table)
+    return _kvstat_attention_pair_op(x, wq, wk, wv, heads, scale, table)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -333,8 +373,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the scale in, so autograd carries the scale into dq; K5 runs the
     heads, K6 their backward."""
     qs = (q.float() * scale).to(q.dtype)
-    o = FlashAttention.apply(_to_bh(qs, heads), _to_bh(k, heads),
-                             _to_bh(v, heads))
+    o, _ = _flash_attention_op(_to_bh(qs, heads), _to_bh(k, heads),
+                               _to_bh(v, heads))
     return _from_bh(o, heads)
 
 
@@ -355,8 +395,8 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                             wv: torch.Tensor, wout: torch.Tensor, heads: int,
                             scale: float) -> torch.Tensor:
     """K8 with its gradient (``dispatch.fused_qkv_out_attention``)."""
-    return FusedQkvOutAttention.apply(x_q, x_kv, wq, wk, wv, wout, heads,
-                                      scale)
+    return _fused_qkv_out_attention_op(x_q, x_kv, wq, wk, wv, wout, heads,
+                                       scale)
 
 
 def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
@@ -365,5 +405,5 @@ def fused_qkv_out_attention_pair(x: torch.Tensor, wq: torch.Tensor,
                                  table: torch.Tensor) -> torch.Tensor:
     """The K8 pair with its gradient
     (``dispatch.fused_qkv_out_attention_pair``)."""
-    return FusedQkvOutAttentionPair.apply(x, wq, wk, wv, wout, heads, scale,
-                                          table)
+    return _fused_qkv_out_attention_pair_op(x, wq, wk, wv, wout, heads,
+                                            scale, table)

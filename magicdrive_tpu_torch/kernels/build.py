@@ -44,6 +44,13 @@ _SIGNATURES = {
     "mdk_tensor_map_encode_us": (_F, [_I]),
     "mdk_error_string": (ctypes.c_char_p, [_I]),
 }
+# the fp32 instance of each kernel entry (csrc/f32_*.cu): the same
+# arguments, pointers to fp32 tensors
+KERNEL_ENTRIES = ("mdk_kv_project", "mdk_kvstat_attention",
+                  "mdk_kvstat_attention_pair", "mdk_geglu", "mdk_ff",
+                  "mdk_flash_fwd", "mdk_flash_bwd_dq", "mdk_flash_bwd_dkv",
+                  "mdk_out_project")
+_SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in KERNEL_ENTRIES})
 
 
 def sources():

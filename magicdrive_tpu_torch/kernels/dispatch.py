@@ -4,13 +4,17 @@ Each wrapper takes the tensors the model holds (weights in ``nn.Linear``
 layout) and dispatches on the device of its input alone: on ``cpu`` it runs
 the plain PyTorch version (``reference.py``); on ``cuda`` it launches the
 hand-written kernel, or raises for what the kernel does not take. There is
-no fallback from one to the other.
+no fallback from one to the other. Every kernel has a bf16 and an fp32
+instance (``csrc/f32_*.cu``, the C entries named with ``_f32``): a call
+whose floating tensors are all bf16 launches the first, one whose floating
+tensors are all fp32 the second, and any other call raises.
 
 ``LAUNCHES`` counts, per kernel, the launches made through its wrapper
-(``chip_smoke.py`` reads it to show the main path ran every kernel); K6's
-wrapper launches two kernels and counts each. The attention wrappers count
-one per call: K1, K2 and K7 are the kv projection and the heads' kernel, K8
-and its pair add the out-projection.
+at either element size (``chip_smoke.py`` reads it to show the main path
+ran every kernel); K6's wrapper launches two kernels and counts each. The
+attention wrappers count one per call: K1, K2 and K7 are the kv
+projection and the heads' kernel, K8 and its pair add the
+out-projection.
 
 The routing rules restate the JAX package's decisions as pure functions of
 ints, so both packages send each shape to the same kernel:
@@ -225,20 +229,28 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _check(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    dev = tensors[0].device
+# the element types the kernels take, and the suffix of each one's C entry
+_ENTRY_SUFFIX = {torch.bfloat16: "", torch.float32: "_f32"}
+
+
+def _check(name: str, *tensors: Optional[torch.Tensor]) -> str:
+    """Raise unless the floating tensors are contiguous, on the current
+    card, and all bf16 or all fp32; -> the C entry suffix of their type."""
+    dev, dt = tensors[0].device, tensors[0].dtype
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensors on {dev}, the kernels launch on "
                          f"cuda:{torch.cuda.current_device()}")
     for t in tensors:
         if t is None:
             continue
-        if t.device != dev or t.dtype != torch.bfloat16 or \
+        if t.device != dev or t.dtype != dt or dt not in _ENTRY_SUFFIX or \
                 not t.is_contiguous():
             raise ValueError(
-                f"{name}: the kernel takes contiguous bf16 tensors on one "
-                f"device, got {t.dtype} {tuple(t.shape)} on {t.device} "
-                f"(contiguous={t.is_contiguous()})")
+                f"{name}: the kernel takes contiguous tensors on one device, "
+                f"all bf16 or all fp32; got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()}) beside "
+                f"{dt} on {dev}")
+    return _ENTRY_SUFFIX[dt]
 
 
 def _run(fn, *args) -> None:
@@ -263,19 +275,21 @@ def _project_kv(lib, x_kv, wk, wv, heads):
     D = wk.shape[0] // heads
     k = torch.empty(B, heads, Lk, D, dtype=x_kv.dtype, device=x_kv.device)
     v = torch.empty_like(k)
-    _run(lib.mdk_kv_project, _ptr(x_kv), _ptr(wk), _ptr(wv), _ptr(k),
+    entry = "mdk_kv_project" + _ENTRY_SUFFIX[x_kv.dtype]
+    _run(getattr(lib, entry), _ptr(x_kv), _ptr(wk), _ptr(wv), _ptr(k),
          _ptr(v), B, Lk, Ck, heads, D, _stream())
     return k, v
 
 
 def _out_project(lib, o, wout):
-    """The out-projection launch of K8 and its pair: bf16(o) Wout^T with
-    fp32 accumulation over H*D, cast once, no bias. o (B, Lq, H*D), wout
-    (C_out, H*D) -> (B, Lq, C_out)."""
+    """The out-projection launch of K8 and its pair: o Wout^T in o's type
+    (bf16: fp32 accumulation over H*D, cast once), no bias. o (B, Lq, H*D),
+    wout (C_out, H*D) -> (B, Lq, C_out)."""
     B, Lq, HD = o.shape
     C_out = wout.shape[0]
     y = torch.empty(B, Lq, C_out, dtype=o.dtype, device=o.device)
-    _run(lib.mdk_out_project, _ptr(o), _ptr(wout), _ptr(y), B * Lq, HD,
+    entry = "mdk_out_project" + _ENTRY_SUFFIX[o.dtype]
+    _run(getattr(lib, entry), _ptr(o), _ptr(wout), _ptr(y), B * Lq, HD,
          C_out, _stream())
     return y
 
@@ -311,7 +325,7 @@ def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, table=None):
     out-projection. The pair entries have checked ``table``."""
     from . import build
 
-    _check(name, x_q, x_kv, wq, wk, wv, wout)
+    sfx = _check(name, x_q, x_kv, wq, wk, wv, wout)
     B, Lq, C = x_q.shape
     D = wq.shape[0] // heads
     if x_kv.shape[0] != B or wq.shape != (heads * D, C) or \
@@ -324,11 +338,11 @@ def _attention(name, x_q, x_kv, wq, wk, wv, wout, heads, scale, table=None):
     o = torch.empty(B, Lq, heads * D, dtype=x_q.dtype, device=x_q.device)
     ptrs = (_ptr(x_q), _ptr(wq), _ptr(k), _ptr(v), _ptr(o))
     if table is None:
-        _run(lib.mdk_kvstat_attention, *ptrs, B, Lq, C, x_kv.shape[1], heads,
-             D, float(scale), _stream())
+        _run(getattr(lib, "mdk_kvstat_attention" + sfx), *ptrs, B, Lq, C,
+             x_kv.shape[1], heads, D, float(scale), _stream())
     else:
-        _run(lib.mdk_kvstat_attention_pair, *ptrs, B, Lq, C, heads, D,
-             float(scale), _ptr(table), table.shape[1], _stream())
+        _run(getattr(lib, "mdk_kvstat_attention_pair" + sfx), *ptrs, B, Lq, C,
+             heads, D, float(scale), _ptr(table), table.shape[1], _stream())
     if wout is not None:
         o = _out_project(lib, o, wout)
     LAUNCHES[name] += 1
@@ -379,9 +393,10 @@ def fused_qkv_out_attention(x_q: torch.Tensor, x_kv: torch.Tensor,
                             wq: torch.Tensor, wk: torch.Tensor,
                             wv: torch.Tensor, wout: torch.Tensor, heads: int,
                             scale: float) -> torch.Tensor:
-    """K8: K1's attention out-projected without the out bias: bf16(o)
-    Wout^T with wout (C_out, H*D), fp32 accumulation over every head, one
-    cast -> (B, Lq, C_out). C_out and H*D are multiples of 8."""
+    """K8: K1's attention out-projected without the out bias: o Wout^T
+    with wout (C_out, H*D), o in the input's type, fp32 accumulation over
+    every head, one cast -> (B, Lq, C_out). C_out and H*D are multiples of
+    8."""
     if _on_cpu(x_q):
         return reference.fused_qkv_out_attention(x_q, x_kv, wq, wk, wv, wout,
                                                  heads, scale)
@@ -412,15 +427,15 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor,
         return reference.fused_geglu(x, w1, b1)
     from . import build
 
-    _check("fused_geglu", x, w1, b1)
+    sfx = _check("fused_geglu", x, w1, b1)
     K = x.shape[-1]
     N = w1.shape[0] // 2
     if w1.shape != (2 * N, K) or (b1 is not None and b1.shape != (2 * N,)):
         raise ValueError("fused_geglu: shapes do not agree")
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
-    _run(build.load().mdk_geglu, _ptr(x), _ptr(w1), _ptr(b1), _ptr(out),
-         M, K, N, _stream())
+    _run(getattr(build.load(), "mdk_geglu" + sfx), _ptr(x), _ptr(w1), _ptr(b1),
+         _ptr(out), M, K, N, _stream())
     LAUNCHES["fused_geglu"] += 1
     return out
 
@@ -428,12 +443,13 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor,
 def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
              w2: torch.Tensor) -> torch.Tensor:
     """K3: the whole FeedForward but its stage-2 bias,
-    bf16(geglu(x)) W2^T with w2 (C, N). x (..., K) -> (..., C)."""
+    geglu(x) W2^T with geglu(x) in x's type, w2 (C, N). x (..., K) ->
+    (..., C)."""
     if _on_cpu(x):
         return reference.fused_ff(x, w1, b1, w2)
     from . import build
 
-    _check("fused_ff", x, w1, b1, w2)
+    sfx = _check("fused_ff", x, w1, b1, w2)
     K = x.shape[-1]
     N = w1.shape[0] // 2
     C = w2.shape[0]
@@ -442,8 +458,8 @@ def fused_ff(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
         raise ValueError("fused_ff: shapes do not agree")
     M = x.numel() // K
     out = torch.empty(*x.shape[:-1], C, dtype=x.dtype, device=x.device)
-    _run(build.load().mdk_ff, _ptr(x), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(out),
-         M, K, N, C, _stream())
+    _run(getattr(build.load(), "mdk_ff" + sfx), _ptr(x), _ptr(w1), _ptr(b1),
+         _ptr(w2), _ptr(out), M, K, N, C, _stream())
     LAUNCHES["fused_ff"] += 1
     return out
 
@@ -455,7 +471,8 @@ def _flash_shapes(name, q, k, kv_len):
     if k.shape != (BH, Lk, D) or not 0 < kv_len <= Lk:
         raise ValueError(f"{name}: shapes do not agree")
     if D > 128 or D % 8:
-        # the kernels copy rows as whole 16-byte vectors
+        # the kernels copy rows as whole 16-byte vectors (32 bytes and more
+        # in fp32)
         raise ValueError(f"{name}: the kernel takes a head depth that is a "
                          f"multiple of 8 up to 128, got {D}")
     return BH, Lq, Lk, D, kv_len
@@ -479,15 +496,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference.flash_attention_fwd(q, k, v, kv_len)
     from . import build
 
-    _check("flash_attention_fwd", q, k, v)
+    sfx = _check("flash_attention_fwd", q, k, v)
     BH, Lq, Lk, D, kv_len = _flash_shapes("flash_attention_fwd", q, k,
                                           kv_len)
     if v.shape != k.shape:
         raise ValueError("flash_attention_fwd: shapes do not agree")
     o = torch.empty_like(q)
     lse = torch.empty(BH, Lq, dtype=torch.float32, device=q.device)
-    _run(build.load().mdk_flash_fwd, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
-         _ptr(lse), BH, Lq, Lk, D, kv_len, _stream())
+    _run(getattr(build.load(), "mdk_flash_fwd" + sfx), _ptr(q), _ptr(k),
+         _ptr(v), _ptr(o), _ptr(lse), BH, Lq, Lk, D, kv_len, _stream())
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
 
@@ -504,16 +521,16 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     from . import build
 
     name = "flash_attention_bwd_dq"
-    _check(name, q, k, v, o, do)
+    sfx = _check(name, q, k, v, o, do)
     BH, Lq, Lk, D, kv_len = _flash_shapes(name, q, k, kv_len)
     if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"{name}: shapes do not agree")
     _fp32_rows(name, lse, BH, Lq, q.device)
     dq = torch.empty_like(q)
     delta = torch.empty(BH, Lq, dtype=torch.float32, device=q.device)
-    _run(build.load().mdk_flash_bwd_dq, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
-         _ptr(lse), _ptr(do), _ptr(dq), _ptr(delta), BH, Lq, Lk, D, kv_len,
-         _stream())
+    _run(getattr(build.load(), "mdk_flash_bwd_dq" + sfx), _ptr(q), _ptr(k),
+         _ptr(v), _ptr(o), _ptr(lse), _ptr(do), _ptr(dq), _ptr(delta), BH, Lq,
+         Lk, D, kv_len, _stream())
     LAUNCHES[name] += 1
     return dq, delta
 
@@ -531,16 +548,16 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     from . import build
 
     name = "flash_attention_bwd_dkv"
-    _check(name, q, k, v, do)
+    sfx = _check(name, q, k, v, do)
     BH, Lq, Lk, D, kv_len = _flash_shapes(name, q, k, kv_len)
     if v.shape != k.shape or do.shape != q.shape:
         raise ValueError(f"{name}: shapes do not agree")
     _fp32_rows(name, lse, BH, Lq, q.device)
     _fp32_rows(name, delta, BH, Lq, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _run(build.load().mdk_flash_bwd_dkv, _ptr(q), _ptr(k), _ptr(v),
-         _ptr(lse), _ptr(delta), _ptr(do), _ptr(dk), _ptr(dv), BH, Lq, Lk, D,
-         kv_len, _stream())
+    _run(getattr(build.load(), "mdk_flash_bwd_dkv" + sfx), _ptr(q), _ptr(k),
+         _ptr(v), _ptr(lse), _ptr(delta), _ptr(do), _ptr(dk), _ptr(dv), BH, Lq,
+         Lk, D, kv_len, _stream())
     LAUNCHES[name] += 1
     return dk, dv
 

@@ -13,6 +13,10 @@ K8 casts each head's normalised o (the pair: the fp32 sum of its two) to the
 input dtype and out-projects it with fp32 accumulation, cast once, without
 the bias. Weights are in ``nn.Linear`` layout (out, in).
 
+Every cast point casts to the input's dtype, so at fp32 each is the
+identity: that is the contract of the kernels' fp32 instances
+(``csrc/f32_*.cu``), as of the JAX kernels at the element size 4.
+
 On the CPU the port runs through these functions; the tests hold them
 against the JAX Pallas kernels in interpret mode, and ``chip_smoke.py``
 holds the CUDA kernels against them on the card.

@@ -10,9 +10,12 @@ With ``gradient_checkpointing`` the down, up and mid blocks are the JAX
 package's remat units (``nn.remat``): each recomputes its forward in the
 backward when gradients are being taken. Under ``remat_policy`` "dots"
 (``jax.checkpoint_policies.dots_saveable``) the outputs of matrix products,
-convolutions and SDPA calls are kept and the rest recomputed; under None
-everything is. The hand-written kernels' autograd Functions are opaque to
-the policy, so they run again in the recompute.
+convolutions and SDPA calls are kept and the rest recomputed; under "attn"
+(``save_only_these_names("attn_out")``) only the output of every
+attention's core is kept: the kernels' attention ops
+(``kernels.autograd.ATTENTION_OPS``) and the SDPA calls, so the recompute
+runs no attention again; under None everything is recomputed. The
+kernels' ops and the feed-forward kernels are recomputed under "dots".
 """
 from __future__ import annotations
 
@@ -30,21 +33,28 @@ from magicdrive_tpu_torch.core.embeddings import get_timestep_embedding
 from magicdrive_tpu_torch.core.resnet import (Downsample2D, GroupNorm,
                                               ResnetBlock2D, Upsample2D)
 from magicdrive_tpu_torch.core.transformer import Transformer2DModel
+from magicdrive_tpu_torch.kernels.autograd import ATTENTION_OPS
 from magicdrive_tpu_torch.parallel.mesh import (frame_mesh, sharded_frames,
                                                sharded_views, view_mesh)
 
 
 _aten = torch.ops.aten
+# the SDPA calls, which stand for the JAX package's plain attention
+_SDPA = frozenset((
+    _aten._scaled_dot_product_flash_attention.default,
+    _aten._scaled_dot_product_efficient_attention.default,
+    _aten._scaled_dot_product_cudnn_attention.default,
+    _aten._scaled_dot_product_flash_attention_for_cpu.default))
 # the ops whose outputs "dots" keeps: JAX's dot_general and
 # conv_general_dilated, and the SDPA calls that stand for its plain
 # attention's dots
 _DOTS = frozenset((
     _aten.mm.default, _aten.addmm.default, _aten.bmm.default,
-    _aten.baddbmm.default, _aten.convolution.default,
-    _aten._scaled_dot_product_flash_attention.default,
-    _aten._scaled_dot_product_efficient_attention.default,
-    _aten._scaled_dot_product_cudnn_attention.default,
-    _aten._scaled_dot_product_flash_attention_for_cpu.default))
+    _aten.baddbmm.default, _aten.convolution.default)) | _SDPA
+# the ops whose outputs "attn" keeps, where JAX tags each attention's
+# output ``attn_out`` (core/attention.py, core/transformer.py): the core of
+# every attention, a kernel's op or an SDPA call
+_ATTN = frozenset(ATTENTION_OPS) | _SDPA
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -52,18 +62,22 @@ def _dots_policy(ctx, op, *args, **kwargs):
         CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _attn_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _ATTN else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_context(policy: Optional[str]):
     """``checkpoint``'s ``context_fn`` for a remat policy: None recomputes
-    everything; "attn" (JAX's named attention outputs) is not ported."""
+    everything, "dots" keeps the products' outputs, "attn" the attention
+    cores' outputs."""
     if policy is None:
         return None
-    if policy == "dots":
-        return functools.partial(create_selective_checkpoint_contexts,
-                                 _dots_policy)
-    if policy == "attn":
-        raise NotImplementedError(
-            'remat_policy="attn" (keep only the attention outputs) is not '
-            'ported: use "dots" or null (ROADMAP Known hazards)')
+    if policy in ("dots", "attn"):
+        # looked up here, so that a caller that swaps a policy function
+        # reaches the units built after it
+        fn = _dots_policy if policy == "dots" else _attn_policy
+        return functools.partial(create_selective_checkpoint_contexts, fn)
     raise ValueError(f"remat_policy {policy!r}: dots, attn or null")
 
 

@@ -1,0 +1,354 @@
+"""The fp32 instances of the port's kernels (``kernels/csrc/f32_*.cu``), on
+the CPU: their C entries against the ctypes signatures, the dtype rules of
+the wrappers (every floating tensor bf16 or every one fp32, each wrapper's
+fp32 call to its ``_f32`` entry), the plain versions at fp32 against the
+JAX Pallas kernels at fp32 in interpret mode (the JAX package runs its
+Pallas kernels at the element size of an fp32 run; every bf16 cast point
+is then the identity) at the head depths 40, 80 and 128, atol 2e-4 / rtol
+2e-3, and the launches an fp32 train step of the 224x400 routing makes
+against ``chip_smoke.expected_launches`` at esize 4. The kernels
+themselves run on the card only (``chip_smoke.py``).
+"""
+import dataclasses
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magicdrive_tpu_torch.kernels import build, dispatch, reference
+
+from test_torch_port_kernels import (_ff_weights, _flash_inputs, _t, _unpad,
+                                     _weights, gathered, jfa, jfl, jgg,
+                                     table_of)
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 2e-4, 2e-3
+DEPTHS = (40, 80, 128)
+
+
+def _c_entries():
+    """{name: parameter count} of every function defined in an
+    ``extern "C"`` block of kernels/csrc."""
+    out = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"',
+                                text, re.S):
+            for m in re.finditer(r"^[\w\s\*]*?\b(mdk_\w+)\(([^)]*)\)\s*\{",
+                                 block, re.M):
+                params = [p for p in m.group(2).split(",") if p.strip()]
+                out[m.group(1)] = len(params)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_signature_has_its_c_definition(name):
+    """Each ctypes signature, bf16 and ``_f32``, names an ``extern "C"``
+    function of kernels/csrc with as many parameters: ctypes would pass a
+    wrong count without a word."""
+    entries = _c_entries()
+    assert name in entries, f"{name} has no extern \"C\" definition"
+    assert entries[name] == len(build._SIGNATURES[name][1])
+
+
+def test_every_kernel_entry_has_an_fp32_instance():
+    entries = _c_entries()
+    for name in build.KERNEL_ENTRIES:
+        assert name in entries and name + "_f32" in entries
+    assert {p.name for p in build.CSRC.glob("f32_*")} == {
+        "f32_tile.cuh", "f32_attention.cu", "f32_geglu.cu", "f32_flash.cu"}
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' dtype rules, with the library and the card stood in for
+# ---------------------------------------------------------------------------
+
+class _Lib:
+    """A kernel library that records the C entries called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mdk_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        entry.__name__ = name
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Meta tensors stand for the card's: the wrappers take the launch
+    branch, check their inputs and call the recording library."""
+    lib = _Lib()
+    monkeypatch.setattr(dispatch, "_on_cpu", lambda x: False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(dispatch, "_stream", lambda: 0)
+    monkeypatch.setattr(dispatch, "_ptr", lambda t: None)
+    monkeypatch.setattr(dispatch, "check_table", lambda *a: None)
+    monkeypatch.setattr(build, "load", lambda: lib)
+    return lib
+
+
+def _calls(dt):
+    """Each wrapper's call on meta tensors of ``dt`` -> (wrapper, call)."""
+    z = lambda *s, d=dt: torch.zeros(*s, dtype=d, device="meta")
+    x, w = z(6, 40, 16), z(16, 16)
+    table = torch.zeros(2, 6, dtype=torch.int32, device="meta")
+    q, lse = z(4, 24, 16), z(4, 24, d=torch.float32)
+    return {
+        "kvstat_attention": lambda: dispatch.kvstat_attention(
+            x, x, w, w, w, 2, 0.3),
+        "kvstat_attention_pair": lambda: dispatch.kvstat_attention_pair(
+            x, w, w, w, 2, 0.3, table),
+        "fused_qkv_attention": lambda: dispatch.fused_qkv_attention(
+            x, x, w, w, w, 2, 0.3),
+        "fused_qkv_out_attention": lambda: dispatch.fused_qkv_out_attention(
+            x, x, w, w, w, w, 2, 0.3),
+        "fused_qkv_out_attention_pair":
+            lambda: dispatch.fused_qkv_out_attention_pair(
+                x, w, w, w, w, 2, 0.3, table),
+        "fused_geglu": lambda: dispatch.fused_geglu(x, z(32, 16), z(32)),
+        "fused_ff": lambda: dispatch.fused_ff(x, z(32, 16), z(32),
+                                              z(16, 16)),
+        "flash_attention_fwd": lambda: dispatch.flash_attention_fwd(q, q, q),
+        "flash_attention_bwd": lambda: dispatch.flash_attention_bwd(
+            q, q, q, q, lse, q),
+    }
+
+
+# the C entries each wrapper launches, in order
+_ENTRIES = {
+    "kvstat_attention": ["mdk_kv_project", "mdk_kvstat_attention"],
+    "kvstat_attention_pair": ["mdk_kv_project", "mdk_kvstat_attention_pair"],
+    "fused_qkv_attention": ["mdk_kv_project", "mdk_kvstat_attention"],
+    "fused_qkv_out_attention": ["mdk_kv_project", "mdk_kvstat_attention",
+                                "mdk_out_project"],
+    "fused_qkv_out_attention_pair": ["mdk_kv_project",
+                                     "mdk_kvstat_attention_pair",
+                                     "mdk_out_project"],
+    "fused_geglu": ["mdk_geglu"],
+    "fused_ff": ["mdk_ff"],
+    "flash_attention_fwd": ["mdk_flash_fwd"],
+    "flash_attention_bwd": ["mdk_flash_bwd_dq", "mdk_flash_bwd_dkv"],
+}
+
+
+@pytest.mark.parametrize("dt,suffix", [(torch.bfloat16, ""),
+                                       (torch.float32, "_f32")])
+def test_wrappers_launch_the_entry_of_their_dtype(fake_card, dt, suffix):
+    """A call whose floating tensors are all bf16 launches the bf16
+    entries, one whose tensors are all fp32 the ``_f32`` ones, and each
+    counts its launch under the kernel's one name."""
+    dispatch.reset_launches()
+    for name, call in _calls(dt).items():
+        fake_card.calls.clear()
+        call()
+        assert fake_card.calls == [e + suffix for e in _ENTRIES[name]], name
+    counted = {k: v for k, v in dispatch.LAUNCHES.items() if v}
+    dispatch.reset_launches()
+    assert counted == {**dict.fromkeys(
+        ("kvstat_attention", "kvstat_attention_pair", "fused_qkv_attention",
+         "fused_qkv_out_attention", "fused_qkv_out_attention_pair",
+         "fused_geglu", "fused_ff", "flash_attention_fwd",
+         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), 1)}
+
+
+def test_mixed_or_other_dtypes_raise(fake_card):
+    """bf16 beside fp32, or any other float type, raises before a launch:
+    there is no kernel for it and no fallback."""
+    z = lambda *s, d: torch.zeros(*s, dtype=d, device="meta")
+    x32, w16 = z(6, 40, 16, d=torch.float32), z(16, 16, d=torch.bfloat16)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        dispatch.kvstat_attention(x32, x32, w16, w16, w16, 2, 0.3)
+    x16 = z(6, 40, 16, d=torch.float16)
+    w = z(16, 16, d=torch.float16)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        dispatch.kvstat_attention(x16, x16, w, w, w, 2, 0.3)
+    q = z(4, 24, 16, d=torch.float32)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        dispatch.flash_attention_fwd(q, q, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        dispatch.fused_geglu(x32, z(32, 16, d=torch.float32),
+                             z(32, d=torch.bfloat16))
+    assert fake_card.calls == []
+    assert dispatch._check("f", x32, None, x32) == "_f32"
+
+
+# ---------------------------------------------------------------------------
+# the plain versions at fp32 against the Pallas kernels at fp32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", DEPTHS)
+def test_k1_plain_matches_pallas_fp32(D):
+    rs = np.random.RandomState(20 + D)
+    B, Lq, Lk, C, Ck, H = 2, 40, 24, 48, 32, 2
+    xq = rs.randn(B, Lq, C).astype(np.float32)
+    xkv = rs.randn(B, Lk, Ck).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, c, H, D)
+                                    for c in (C, Ck, Ck))
+    want = jfa.fused_kvstat_attention(jnp.asarray(xq), jnp.asarray(xkv), jq,
+                                      jk, jv, heads=H, scale=D ** -0.5,
+                                      interpret=True)
+    assert want.dtype == jnp.float32
+    got = reference.kvstat_attention(_t(xq), _t(xkv), tq, tk, tv, H,
+                                     D ** -0.5)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _unpad(want, B, Lq, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("D", DEPTHS)
+def test_k2_plain_matches_pallas_fp32(D):
+    """The pair over a neighbour table that is not a permutation, against
+    the Pallas pair on the views the same lists gather."""
+    rs = np.random.RandomState(30 + D)
+    n, L, C, H = 6, 24, 32, 2
+    x = rs.randn(n, L, C).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_weights(rs, C, H, D) for _ in range(3))
+    xj = jnp.asarray(x)
+    name = "not_a_permutation"
+    want = jfa.fused_kvstat_attention_pair(
+        xj, gathered(xj, name, 0), gathered(xj, name, 1), jq, jk, jv,
+        heads=H, scale=D ** -0.5, interpret=True, shifts=None)
+    got = reference.kvstat_attention_pair(_t(x), tq, tk, tv, H, D ** -0.5,
+                                          table_of(name))
+    np.testing.assert_allclose(got.numpy(), _unpad(want, n, L, H, D),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("C", DEPTHS)
+def test_k3_k4_plain_match_pallas_fp32(C):
+    """K3 (in C, inner 4C, out C) and K4 at the widths 40, 80 and 128,
+    with the W1 bias."""
+    rs = np.random.RandomState(40 + C)
+    x = rs.randn(2, 19, C).astype(np.float32)
+    (k1, b1, k2), (w1, tb1, w2) = _ff_weights(rs, C, 4 * C, C)
+    want = jgg.fused_ff(jnp.asarray(x), k1, b1, k2, interpret=True)
+    np.testing.assert_allclose(
+        reference.fused_ff(_t(x), w1, tb1, w2).numpy(), np.asarray(want),
+        atol=ATOL, rtol=RTOL)
+    want = jgg.fused_geglu(jnp.asarray(x), k1, b1, interpret=True)
+    np.testing.assert_allclose(
+        reference.fused_geglu(_t(x), w1, tb1).numpy(), np.asarray(want),
+        atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("D", DEPTHS)
+def test_k5_k6_plain_match_pallas_fp32(D, monkeypatch):
+    """K5 (o and lse) and K6 (dq, dk, dv) with keys masked past kv_len,
+    several q and k blocks in the Pallas kernels."""
+    monkeypatch.setattr(jfl, "_auto_blocks_bwd", lambda *a: (16, 32))
+    rs = np.random.RandomState(50 + D)
+    BH, Lq, Lk, kv_len = 2, 40, 72, 61
+    q, k, v = _flash_inputs(rs, BH, Lq, Lk, D)
+    do = rs.randn(BH, Lq, D).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o, lse = jfl._flash_fwd(jq, jk, jv, 1.0, kv_len, 16, 32, True,
+                            with_lse=True)
+    got_o, got_lse = reference.flash_attention_fwd(_t(q), _t(k), _t(v),
+                                                   kv_len)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(o), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[..., 0],
+                               atol=ATOL, rtol=RTOL)
+    want = jfl._flash_bwd(jq, jk, jv, o, lse, jnp.asarray(do), 1.0, kv_len,
+                          16, 32, True)
+    got = reference.flash_attention_bwd(
+        _t(q), _t(k), _t(v), _t(np.asarray(o)), _t(np.asarray(lse)[..., 0]),
+        _t(do), kv_len)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=RTOL, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the launches of an fp32 step of the 224x400 routing
+# ---------------------------------------------------------------------------
+
+# tiny widths standing for the 224x400 preset's, one per level and one for
+# the text context, so that the routing rules see the full-width shapes
+_WIDTHS = {8: 320, 24: 640, 40: 1280, 16: 768}
+
+
+def _full_width(monkeypatch):
+    """``dispatch``'s routing rules, which the modules look up when they
+    run, answering for the 224x400 widths of the tiny widths (_WIDTHS;
+    the head depth scales with the width, 8 heads a level there)."""
+    rules = {n: getattr(dispatch, n) for n in (
+        "attention_route", "pair_route", "ff_full_fusion_fits")}
+    # full widths pass unchanged: the rules call each other
+    c = lambda w: _WIDTHS.get(w, w)
+    d = lambda dh: _WIDTHS[dh * 2] // 8 if dh * 2 in _WIDTHS else dh
+    monkeypatch.setattr(dispatch, "attention_route",
+                        lambda Lq, Lk, C, D, e: rules["attention_route"](
+                            Lq, Lk, c(C), d(D), e))
+    monkeypatch.setattr(dispatch, "pair_route",
+                        lambda L, C, D, e, k=2: rules["pair_route"](
+                            L, c(C), d(D), e, k))
+    monkeypatch.setattr(dispatch, "ff_full_fusion_fits",
+                        lambda K, N, C, e=2: rules["ff_full_fusion_fits"](
+                            c(K), 4 * c(K), c(C), e))
+
+
+@pytest.mark.parametrize("mode", ["kvstat", "auto"])
+def test_fp32_step_launches_match_derived_224x400(mode, monkeypatch):
+    """A counted fp32 train step of a model with the 224x400 block
+    structure, context and routing (tiny widths answered for by the full
+    widths' rules) launches what ``expected_launches`` derives for the
+    224x400 preset at esize 4: under "auto" attn4 at L=1400 takes the
+    per-neighbour K8 loop (two K8 calls a forward) and the pair only at
+    L=350; K3 takes level 0's FF alone."""
+    import chip_smoke
+    from magicdrive_tpu_torch.config import (sd15mv_rawbox_224x400,
+                                             tiny_debug)
+    from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
+                                           make_sample)
+    from magicdrive_tpu_torch.pipeline.pipeline import MagicDriveModules
+    from magicdrive_tpu_torch.train import (TrainConfig, create_train_state,
+                                            train_step)
+
+    full = sd15mv_rawbox_224x400()
+    want = chip_smoke.expected_launches(full, mode, steps=1, esize=4)
+    with dispatch.fused_mode(mode):
+        assert dispatch.pair_route(1400, 320, 40, 4) == (
+            "out_loop" if mode == "auto" else "kvstat")
+        assert dispatch.pair_route(1400, 320, 40, 2) in ("kvstat", "out")
+    base = tiny_debug()
+    unet = dataclasses.replace(base.unet, block_out_channels=(8, 24, 40, 40))
+    preset = dataclasses.replace(
+        base, unet=unet, bbox_max_len=full.bbox_max_len,
+        controlnet=dataclasses.replace(base.controlnet, unet=dataclasses.
+                                       replace(unet,
+                                               neighboring_view_pair=None)))
+    _full_width(monkeypatch)
+    torch.manual_seed(0)
+    modules = MagicDriveModules.create(preset, device="cpu")
+    cfg = TrainConfig(lr_warmup_steps=1)
+    state = create_train_state(modules, cfg, device="cpu",
+                               dtype=torch.float32)
+    batch = collate_fn([make_sample(0, with_images=True)],
+                       CollateConfig(bbox_max_len=preset.bbox_max_len))
+    names = set(chip_smoke.training_calls("kvstat")) | \
+        set(chip_smoke.training_calls("auto"))
+    with chip_smoke.counted_calls(names) as calls, dispatch.fused_mode(mode):
+        train_step(modules, state, batch, cfg,
+                   generator=torch.Generator().manual_seed(0))
+    bwd = calls.pop("flash_attention_bwd")
+    got = {**dict.fromkeys(dispatch.LAUNCHES, 0), **calls,
+           "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
+    assert got == want
+    assert want["fused_ff"] == 7 and want["fused_geglu"] == 16
+    if mode == "auto":
+        # attn1 and attn2 of every level-0/1 transformer and attn4's two
+        # per-neighbour calls at level 0 (5 UNet transformers), the pair at
+        # level 1 (5)
+        assert want["fused_qkv_out_attention"] == 31
+        assert want["fused_qkv_out_attention_pair"] == 5

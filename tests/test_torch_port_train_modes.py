@@ -17,7 +17,9 @@ checkpointing and with it under both policies; with checkpointing, the
 port's gradients equal its own without at atol 1e-6. The weight matrices
 are seeded at half the fan-in scale, as in that file. With checkpointing
 every forward kernel call of the step runs twice (the recompute), the
-count ``chip_smoke.expected_launches`` derives.
+count ``chip_smoke.expected_launches`` derives; under "attn" the UNet's
+attentions run once (``test_torch_port_remat_attn.py`` holds "attn"
+against JAX).
 """
 import dataclasses
 
@@ -220,16 +222,11 @@ def test_same_t_false_raises():
                    generator=torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("mode", ["kvstat", "auto"])
-@pytest.mark.parametrize("remat", [False, True])
-def test_step_calls_with_recompute_match_derived(remat, mode):
-    """The kernel calls of one tiny_debug train step, with and without
-    gradient checkpointing, in both fused modes, against
-    ``chip_smoke.expected_launches``: the recompute runs every forward call
-    (K1/K2, or K8 and its pair, and K3/K4) once more, the backward's (K5,
-    K6, K7) do not change."""
+def _counted_step(preset, mode):
+    """The kernel calls of one ``tiny_debug``-sized train step of
+    ``preset`` under the fused ``mode``, under ``dispatch.LAUNCHES``'
+    names (K6's wrapper call counted as its two launches)."""
     import chip_smoke
-    from magicdrive_tpu_torch.config import tiny_debug
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_sample)
     from magicdrive_tpu_torch.kernels import dispatch
@@ -237,7 +234,6 @@ def test_step_calls_with_recompute_match_derived(remat, mode):
     from magicdrive_tpu_torch.train import (TrainConfig, create_train_state,
                                             train_step)
 
-    preset = _remat(tiny_debug(), "dots") if remat else tiny_debug()
     torch.manual_seed(0)
     modules = MagicDriveModules.create(preset, device="cpu")
     cfg = TrainConfig(lr_warmup_steps=1)
@@ -251,14 +247,33 @@ def test_step_calls_with_recompute_match_derived(remat, mode):
         train_step(modules, state, batch, cfg,
                    generator=torch.Generator().manual_seed(0))
     bwd = calls.pop("flash_attention_bwd")
-    got = {**dict.fromkeys(dispatch.LAUNCHES, 0), **calls,
-           "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
+    return {**dict.fromkeys(dispatch.LAUNCHES, 0), **calls,
+            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
+
+
+@pytest.mark.parametrize("mode", ["kvstat", "auto"])
+@pytest.mark.parametrize("remat", [False, True, "attn"])
+def test_step_calls_with_recompute_match_derived(remat, mode):
+    """The kernel calls of one tiny_debug train step, with and without
+    gradient checkpointing, in both fused modes, against
+    ``chip_smoke.expected_launches``: under "dots" (True) the recompute
+    runs every forward call (K1/K2, or K8 and its pair, and K3/K4) once
+    more, the backward's (K5, K6, K7) do not change; under "attn" the
+    UNet's units keep their attentions' outputs, so only the ControlNet's
+    attentions and every FF run again."""
+    import chip_smoke
+    from magicdrive_tpu_torch.config import tiny_debug
+
+    policy = {True: "dots", "attn": "attn"}.get(remat)
+    preset = _remat(tiny_debug(), policy) if remat else tiny_debug()
+    got = _counted_step(preset, mode)
     want = chip_smoke.expected_launches(preset, mode, steps=1, esize=4,
                                         recompute=remat)
     assert got == want
     fwd = "kvstat_attention" if mode == "kvstat" else \
         "fused_qkv_out_attention"
-    assert want[fwd] == (42 if remat else 21)
+    n_fwd = {False: 21, True: 42, "attn": 27}[remat]
+    assert want[fwd] == n_fwd
     assert want["flash_attention_fwd"] == 40
 
 
@@ -325,18 +340,17 @@ def test_call_checker_under_remat_keeps_what_the_step_keeps(monkeypatch):
     assert all(torch.equal(grads[k], g) for k, g in grads0.items())
 
 
-def test_remat_policy_attn_raises():
-    """JAX's "attn" policy (keep only the named attention outputs) is not
-    ported, and an unknown policy is refused."""
+def test_unknown_remat_policy_raises():
+    """A remat policy other than "dots", "attn" and None is refused, as
+    JAX's UNet refuses it; without checkpointing no policy is read."""
     from magicdrive_tpu_torch.config import tiny_debug
     from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 
-    with pytest.raises(NotImplementedError, match="attn"):
-        UNet2DConditionModel(_remat(tiny_debug(), "attn").unet)
     with pytest.raises(ValueError, match="remat_policy"):
         UNet2DConditionModel(_remat(tiny_debug(), "all").unet)
+    UNet2DConditionModel(_remat(tiny_debug(), "attn").unet)
     UNet2DConditionModel(dataclasses.replace(tiny_debug().unet,
-                                             remat_policy="attn"))
+                                             remat_policy="all"))
 
 
 def test_sample_draws_follow_the_modes():
