@@ -101,7 +101,10 @@ prints no result line. Each phase logs its wall seconds as it ends
      profiled guided step, one training step with its launches, loss,
      the trained set moved and every frozen weight bitwise unchanged, and
      its per-call check); after them the 16-frame
-     video, sd15mv_rawbox_video_16f at full width (run_video: B=1, 16
+     video, sd15mv_rawbox_video_16f at full width (run_video: first the
+     temporal attention at a B=4 request's 67,200 level-0 sequences,
+     ``_temporal`` against the same attention in runs of at most 65,535,
+     check_temporal_sequences; then B=1, 16
      frames of 6 views, one request under "kvstat", the peak
      memory, the per-call check at the UNet batch of 192, a profiled guided
      step with the temporal attention's SDPA time); K1-K4 are also checked
@@ -187,7 +190,10 @@ prints no result line. Each phase logs its wall seconds as it ends
      every kernel (csrc/f32_*.cu) at every shape, depth and width of
      phase 3 against its plain version in fp32 within KERNEL_TOL_F32 =
      1e-4 * max|ref| (two calls bitwise where the bf16 ones are; no ptxas
-     spill in any fp32 entry, SPILL_GATED), the same gate held once to
+     spill in any fp32 entry, SPILL_GATED; K3 and K4 also at the B=3
+     training step's shapes, timed over FF_F32_ITERS calls beside their
+     composition, and both K4 tiles gated, check_geglu_tiles), the same
+     gate held once to
      F.linear with TF32 on (tf32_line: it must fail), the fp32 gradients of
      K1-K4, K8 and the pair against the plain fp32 backward (GRAD_TOL_F32);
      ``cli.train`` in fp32 (``runner.mixed_precision=no``, F32_CLI_ARGS:
@@ -352,10 +358,10 @@ def spills(compiler_log: str, source: str) -> dict:
 # the sources whose every entry function must not spill, with the entry
 # functions' count: the wgmma kernels (K3's five instances and K4,
 # geglu.cu; the out-projection of K8 and its pair) and the fp32 instances
-# (the kv and out projections and K1/K2's heads at 8 depths, the GEGLU and
-# K3's five instances, and K5 and K6's two launches at 8 depths)
+# (the kv and out projections and K1/K2's heads at 8 depths, K4's two tiles
+# and K3's five instances, and K5 and K6's two launches at 8 depths)
 SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1,
-               "f32_attention.cu": 18, "f32_geglu.cu": 6, "f32_flash.cu": 24}
+               "f32_attention.cu": 18, "f32_geglu.cu": 7, "f32_flash.cu": 24}
 
 
 def build_kernels(spill_gate: bool = True) -> None:
@@ -749,7 +755,9 @@ def _gate(name, label, err, scale, tol, row=None, note=""):
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})" +
                 ("" if lib is None else f" library {lib:.4f} ms") +
                 ("" if "composed_ms" not in row else
-                 f" composed {row['composed_ms']:.4f} ms") +
+                 f" composed {row['composed_ms']:.4f} ms (kernel "
+                 f"{row['ms'] / row['composed_ms']:.3f}x, "
+                 f"{row['bound_ms'] / row['ms']:.1%} of bound)") +
                 ("" if kvp is None else
                  f" ({sub} {kvp['ms']:.4f} ms, bound "
                  f"{kvp['bound_ms']:.4f} ms {kvp['bound_by']})") +
@@ -937,28 +945,41 @@ def _out_project_row(name, label, args, iters: int = 10):
 
 # CUDA-event calls a timing of the fp32 instances averages (FFMA kernels,
 # tens of times slower than the bf16 ones), and of a plain version (which
-# repeats the kernel's arithmetic and is no yardstick of speed)
+# repeats the kernel's arithmetic and is no yardstick of speed); K3's and
+# K4's fp32 instances, redesigned, and their compositions take
+# FF_F32_ITERS, so that their gaps to the composition can be trusted
 F32_ITERS = 2
 PLAIN_ITERS = 3
+FF_F32_ITERS = 20
+_FF = ("fused_ff", "fused_geglu")
 
 
-def check_kernels(dtype=torch.bfloat16):
-    """Every kernel of the path at its path shapes against its plain version
-    in fp32, each also timed beside its library composition
-    (``composed_ms``), K1 with its kv projection timed alone, K8 and its
-    pair with their out-projection checked and timed alone, and two calls
-    of each of REDESIGNED on the same inputs bitwise equal; ``dtype``: the
-    instance (bf16, or fp32 within KERNEL_TOL_F32)."""
+def _iters(name: str, dtype) -> int:
+    """The CUDA-event calls that time ``name``'s instance of ``dtype``."""
+    if dtype != torch.float32:
+        return 10
+    return FF_F32_ITERS if name in _FF else F32_ITERS
+
+
+def check_kernels(dtype=torch.bfloat16, cases=None):
+    """Every kernel of the path at its path shapes (or at ``cases``) against
+    its plain version in fp32, each also timed beside its library
+    composition (``composed_ms``), K1 with its kv projection timed alone, K8
+    and its pair with their out-projection checked and timed alone, and two
+    calls of each of REDESIGNED on the same inputs bitwise equal; ``dtype``:
+    the instance (bf16, or fp32 within KERNEL_TOL_F32)."""
     from magicdrive_tpu_torch.kernels import build, dispatch, reference
 
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and cases is None:
         log(f"tensor-map encoding on the host (K3 encodes three a call, K4 "
             f"and the out-projection two): "
             f"{build.load().mdk_tensor_map_encode_us(1000):.3f} us each")
-    iters = F32_ITERS if dtype == torch.float32 else 10
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    if cases is None:
+        cases = kernel_cases(torch.Generator(device="cuda").manual_seed(0),
+                             dtype)
     rows = {}
-    for name, label, args in kernel_cases(gen, dtype):
+    for name, label, args in cases:
+        iters = _iters(name, dtype)
         kern, plain = getattr(dispatch, name), getattr(reference, name)
         got = kern(*args)
         err, scale = _worst(got, plain(*map(_f32, args)))
@@ -1167,6 +1188,10 @@ def check_attention_depths(dtype=torch.bfloat16) -> None:
 FF_WIDTHS = {"fused_ff": (8, 16, 64, 128, 192, 256, 320, 576),
              "fused_geglu": (200, 640, 1280)}
 FF_ROWS = 200  # ragged against the kernels' 128-row blocks
+# (M, C) of K4's fp32 instance at a grid its entry takes the 112 x 64 tile
+# for (``mdk_geglu_f32_tile``; FF_WIDTHS' take the 128 x 32 one): rows
+# ragged (330 = 2 x 112 + 106), inner columns ragged (4 C = 67.5 x 64)
+FF_TALL = (330, 1080)
 
 
 def ff_instance(C: int) -> int:
@@ -1209,6 +1234,52 @@ def check_ff_widths(dtype=torch.bfloat16) -> None:
                 inst = f" instance {ff_instance(C)}" if w2 else ""
                 _gate_plain(name, f"M={FF_ROWS} C={C} bias={b1 is not None}"
                             f"{inst}", (x, w1, b1, *w2), dtype)
+    if dtype == torch.float32:
+        check_geglu_tiles(rnd, dtype)
+
+
+def check_geglu_tiles(rnd, dtype) -> None:
+    """K4's fp32 entry picks one of two tiles by its grid: FF_WIDTHS' shapes
+    must take the 128 x 32 tile (0) and FF_TALL the 112 x 64 one (1), which
+    is then gated as they are, with and without the W1 bias."""
+    from magicdrive_tpu_torch.kernels import build
+
+    lib = build.load()
+    M, C = FF_TALL
+    want = {(FF_ROWS, w): 0 for w in FF_WIDTHS["fused_geglu"]}
+    want[FF_TALL] = 1
+    tiles = {mc: lib.mdk_geglu_f32_tile(mc[0], 4 * mc[1]) for mc in want}
+    log(f"  fp32 K4 tile by (M, C) (0: 128 x 32, 1: 112 x 64): {tiles}")
+    if tiles != want:
+        raise AssertionError(f"fp32 K4 tiles {tiles}, expected {want}")
+    x, w1 = rnd(M, C), rnd(8 * C, C, scale=C ** -0.5)
+    for b1 in (rnd(8 * C, scale=0.1), None):
+        _gate_plain("fused_geglu", f"M={M} C={C} bias={b1 is not None} "
+                    f"tile 112x64", (x, w1, b1), dtype)
+
+
+# K3 and K4 on the 224x400 paths: (kernel, L, C), M = views * L, at 12
+# views (a B=1 request with CFG, as ``kernel_cases``) and at TRAIN_VIEWS
+# (the recipe's B=3 training step: 3 samples of 6 cameras)
+FF_SHAPES = (("fused_ff", 1400, 320), ("fused_geglu", 350, 640),
+             ("fused_geglu", 91, 1280), ("fused_geglu", 28, 1280))
+TRAIN_VIEWS = 18
+
+
+def ff_cases(gen: torch.Generator, views: int, dtype=torch.float32) -> list:
+    """(kernel, shape label, args) of K3 and K4 at FF_SHAPES over
+    ``views`` sequences; K3 takes (in C, inner 4C, out C), K4 (in C, inner
+    4C), both with the W1 bias."""
+    rnd = _rnd(gen, dtype)
+    cases = []
+    for name, L, C in FF_SHAPES:
+        args = (rnd(views * L, C), rnd(8 * C, C, scale=C ** -0.5),
+                rnd(8 * C, scale=0.1))
+        if name == "fused_ff":
+            args += (rnd(C, 4 * C, scale=(4 * C) ** -0.5),)
+        cases.append((name, f"{'ff' if name == 'fused_ff' else 'geglu'} "
+                      f"M={views}*{L} C={C}", args))
+    return cases
 
 
 def autograd_cases(gen: torch.Generator, dtype=torch.bfloat16):
@@ -1347,12 +1418,17 @@ def tf32_line() -> None:
 def check_fp32_kernels() -> dict:
     """The fp32 instances of every kernel at the bf16 checks' shapes, depths
     and widths within KERNEL_TOL_F32 (two calls bitwise where the bf16
-    ones are), the TF32 line, and the fp32 gradients; -> their rows, under
-    ``_key`` names."""
+    ones are), K3 and K4 also at the B=3 training step's shapes
+    (``ff_cases`` over TRAIN_VIEWS), the TF32 line, and the fp32 gradients;
+    -> their rows, under ``_key`` names."""
     f32 = torch.float32
     log("fp32 kernel checks (fp32 kernel vs fp32 plain version, TF32 off, "
         f"limit {KERNEL_TOL_F32} * max|ref|):")
     rows = check_kernels(f32)
+    train = ff_cases(torch.Generator(device="cuda").manual_seed(18),
+                     TRAIN_VIEWS)
+    for key, more in check_kernels(f32, train).items():
+        rows[key] += more
     rows.update(check_flash_kernels(f32))
     check_flash_depths(f32)
     check_attention_depths(f32)
@@ -2839,13 +2915,71 @@ def video_set_up():
     return preset, pipe, [clip]
 
 
+# A B=4 request of the 16-frame video at level 0: CFG's 2 x 4 clips, 6
+# views and 1400 tokens, so the temporal attention takes 67,200 sequences of
+# 16 frames, past the 65,535 blocks a CUDA grid's y and z axes take
+TEMPORAL_B4 = {"clips": 2 * 4, "tokens": 1400}
+CUDA_GRID_YZ = 65535
+
+
+def check_temporal_sequences(unet) -> None:
+    """The temporal attention of a level-0 block of ``unet`` (bf16, 8 heads
+    of 40) at TEMPORAL_B4's 67,200 sequences: ``attn_temp`` over all of
+    them in one call, and the block's ``_temporal``, each held against the
+    same ``attn_temp`` over runs of at most CUDA_GRID_YZ sequences, regrouped
+    here; both results are logged. Raises if ``_temporal`` raises or is
+    farther than KERNEL_TOL * max|ref| from the runs (equal inputs over
+    another row count may take another library GEMM, so not bitwise)."""
+    from magicdrive_tpu_torch.core.transformer import BasicTransformerBlock
+
+    block = next(m for m in unet.modules()
+                 if isinstance(m, BasicTransformerBlock) and
+                 m.frames is not None and m.norm_temp.weight.numel() == 320)
+    (f, n), b, L = block.frames, TEMPORAL_B4["clips"], TEMPORAL_B4["tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    h = torch.randn(b * f * n, L, 320, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    seq = h.reshape(b, f, n, L, 320).permute(0, 2, 3, 1, 4).reshape(
+        b * n * L, f, 320)
+    log(f"temporal attention at B=4 level 0: {seq.shape[0]} sequences of "
+        f"{f} frames, 8 heads of 40, bf16")
+    with torch.no_grad():
+        runs = torch.cat([block.attn_temp(s)
+                          for s in seq.split(CUDA_GRID_YZ)])
+        ref = runs.reshape(b, n, L, f, 320).permute(0, 3, 1, 2, 4).reshape(
+            b * f * n, L, 320)
+        scale = ref.float().abs().max().item()
+        try:
+            one = block.attn_temp(seq)
+            torch.cuda.synchronize()
+            log(f"  attn_temp in one call: max|one call - runs| "
+                f"{(one - runs).float().abs().max().item():.3e} (max|ref| "
+                f"{scale:.3e}), bitwise {torch.equal(one, runs)}")
+            del one
+        except RuntimeError as e:
+            log(f"  attn_temp in one call raised: "
+                f"{' '.join(str(e).split())[:300]}")
+        got = block._temporal(h)
+        err = (got - ref).float().abs().max().item()
+        log(f"  _temporal: max|_temporal - runs| {err:.3e}, bitwise "
+            f"{torch.equal(got, ref)}, limit {KERNEL_TOL} * max|ref|")
+    if not err <= KERNEL_TOL * scale:
+        raise AssertionError(f"_temporal at {seq.shape[0]} sequences: max "
+                             f"abs err {err} > {KERNEL_TOL} * {scale}")
+    del h, seq, runs, ref, got
+    torch.cuda.empty_cache()
+
+
 def run_video(by_path, timing) -> None:
-    """The 16-frame video at full width under "kvstat": one request (cold)
-    with its launch counts (the temporal blocks launch none of K1-K8), the
-    peak memory, the per-call check and a profiled guided step."""
+    """The 16-frame video at full width under "kvstat": the temporal
+    attention at the B=4 request's sequence count
+    (``check_temporal_sequences``), then one request (cold) with its launch
+    counts (the temporal blocks launch none of K1-K8), the peak memory, the
+    per-call check and a profiled guided step."""
     from magicdrive_tpu_torch.kernels import dispatch
 
     preset, pipe, batches = video_set_up()
+    check_temporal_sequences(pipe.pipe.m.unet)
     torch.cuda.reset_peak_memory_stats()
     with dispatch.fused_mode("kvstat"):
         by_path["video_16f_kvstat"], timing["s/request video 16f"] = \
@@ -4969,15 +5103,32 @@ def run_multi_gpu(by_path, timing, card: str,
             by_path[f"view2_train_rank{r}"] = x["image_view"]["launches"]
 
 
+def _linears(x, w1, b1, w2=None):
+    """The F.linear calls of K4's (``w2`` None) or K3's composition alone,
+    on inputs of their shapes: x W1^T + b1, then g W2^T."""
+    import torch.nn.functional as F
+
+    g = torch.empty(x.shape[0], w1.shape[0] // 2, dtype=x.dtype,
+                    device=x.device).normal_() if w2 is not None else None
+
+    def run():
+        F.linear(x, w1, b1)
+        if w2 is not None:
+            F.linear(g, w2)
+    return run
+
+
 def time_kernels(requests: int = 2) -> dict:
     """The CUDA-event ms of the REDESIGNED kernels (K1-K4, K7, K8 and the
     K8 pair) at their path shapes (as in ``check_kernels``, K1 with its kv
     projection alone, K8 and its pair with their out-projection alone where
-    the tree has one) and the host-clock seconds of ``requests`` warm
-    requests in each fused mode after one warm-up request, through the port
-    this interpreter imports; printed as one JSON line. ``compare_trees``
-    runs it in another checkout (one whose pair entries take the ring's
-    shifts times the pairs on the ring alone)."""
+    the tree has one), of K3's and K4's fp32 instances, their composition
+    and its F.linear calls alone (``_linears``) at ``ff_cases``' shapes,
+    and the host-clock seconds of ``requests`` warm requests in each fused
+    mode after one warm-up request (none when 0), through the port this
+    interpreter imports; printed as one JSON line. ``compare_trees`` runs
+    it in another checkout (one whose pair entries take the ring's shifts
+    times the pairs on the ring alone)."""
     import inspect
 
     from magicdrive_tpu_torch.kernels import dispatch
@@ -5002,9 +5153,22 @@ def time_kernels(requests: int = 2) -> dict:
             rows[-1]["kv_project_ms"] = cuda_ms(_kv_project(args)[0])
         if name in _OUT_KERNELS and hasattr(dispatch, "_out_project"):
             rows[-1]["out_project_ms"] = cuda_ms(_out_project(name, args)[0])
-    _, pipe, batches = set_up()
+    # the fp32 instances of K3 and K4 (redesigned for their own) beside
+    # their composition and the composition's library products alone, at
+    # the generation and training shapes
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for views in (12, TRAIN_VIEWS):
+        for name, label, args in ff_cases(gen, views):
+            kern = getattr(dispatch, name)
+            rows.append({
+                "name": _key(name, torch.float32), "shape": label,
+                "ms": cuda_ms(lambda: kern(*args), FF_F32_ITERS),
+                "composed_ms": cuda_ms(lambda: COMPOSED[name](*args),
+                                       FF_F32_ITERS),
+                "linear_ms": cuda_ms(_linears(*args), FF_F32_ITERS)})
     seconds = {}
-    for mode in dispatch.FUSED_MODES:
+    _, pipe, batches = set_up() if requests else (None, None, None)
+    for mode in dispatch.FUSED_MODES if requests else ():
         with dispatch.fused_mode(mode):
             gen = torch.Generator(device="cuda").manual_seed(42)
             runs = []
@@ -5020,11 +5184,12 @@ def time_kernels(requests: int = 2) -> dict:
 
 
 def compare_trees(other: str, requests: int = 2) -> None:
-    """The REDESIGNED kernels' times and warm request times in both fused
-    modes of another checkout (say a ``git archive`` of the parent unpacked
-    into runs/parent) and of this one, in turns: other, this, this, other.
-    Each turn is a process of its own that imports that tree's port and
-    builds its kernels there; the timing code is this file's
+    """The REDESIGNED kernels' times, K3's and K4's fp32 instances beside
+    their composition, and warm request times in both fused modes (none
+    with ``requests`` 0) of another checkout (say a ``git archive`` of the
+    parent unpacked into runs/parent) and of this one, in turns: other,
+    this, this, other. Each turn is a process of its own that imports that
+    tree's port and builds its kernels there; the timing code is this file's
     (``time_kernels``). Prints each turn's line, then each row's mean over
     the two turns of each tree, rows matched by kernel and shape (a time
     only one tree has is printed alone)."""

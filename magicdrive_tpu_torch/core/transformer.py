@@ -86,6 +86,12 @@ def _zero_linear(dim: int) -> nn.Linear:
     return lin
 
 
+# The most sequences the temporal attention hands one SDPA call: PyTorch's
+# flash and memory-efficient kernels put the batch on a CUDA grid axis of
+# at most 65,535 blocks, and an H100 refused a B=4 video request's 67,200
+# level-0 sequences in one call ("invalid configuration argument").
+TEMPORAL_MAX_SEQUENCES = 65535
+
 ATTN_TYPES = ("add", "concat", "self")
 ZERO_MODULE_TYPES = ("zero_linear", "gated", "none")
 
@@ -198,7 +204,8 @@ class BasicTransformerBlock(nn.Module):
         rank's F/t frames, and under a view-sharded one its n/view cameras:
         the (b n l) rows are exchanged over the t group so that each rank
         attends over every frame of its run of the rows, then sent back
-        (``exchange_frames``)."""
+        (``exchange_frames``). The sequences go to SDPA in runs of at most
+        TEMPORAL_MAX_SEQUENCES (``_attend_frames``)."""
         f, n = self.frames
         fm, vm = frame_mesh(), view_mesh()
         for axis, mesh, count in (("t", fm, f), ("view", vm, n)):
@@ -216,12 +223,20 @@ class BasicTransformerBlock(nn.Module):
         h = h.reshape(b, f, n, L, C).permute(0, 2, 3, 1, 4).reshape(
             b * n * L, f, C)
         if fm is None:
-            o = self.attn_temp(h)
+            o = self._attend_frames(h)
         else:
-            o = return_frames(self.attn_temp(exchange_frames(h, fm)), fm,
-                              b * n * L)
+            o = return_frames(self._attend_frames(exchange_frames(h, fm)),
+                              fm, b * n * L)
         return o.reshape(b, n, L, f, C).permute(0, 3, 1, 2, 4).reshape(
             bfn, L, C)
+
+    def _attend_frames(self, h: torch.Tensor) -> torch.Tensor:
+        """``attn_temp`` over the (sequences, F, C) rows h, in runs of at
+        most TEMPORAL_MAX_SEQUENCES sequences, each its own SDPA call."""
+        if h.shape[0] <= TEMPORAL_MAX_SEQUENCES:
+            return self.attn_temp(h)
+        return torch.cat([self.attn_temp(run)
+                          for run in h.split(TEMPORAL_MAX_SEQUENCES)])
 
     def _cross_view(self, h: torch.Tensor) -> torch.Tensor:
         """The cross-view attention of h (B*n, L, C), before the

@@ -51,6 +51,8 @@ KERNEL_ENTRIES = ("mdk_kv_project", "mdk_kvstat_attention",
                   "mdk_flash_fwd", "mdk_flash_bwd_dq", "mdk_flash_bwd_dkv",
                   "mdk_out_project")
 _SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in KERNEL_ENTRIES})
+# the tile the fp32 K4 takes for (M, N) on the current card (0 or 1)
+_SIGNATURES["mdk_geglu_f32_tile"] = (_I, [_I, _I])
 
 
 def sources():

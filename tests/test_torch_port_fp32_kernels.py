@@ -62,6 +62,40 @@ def test_every_kernel_entry_has_an_fp32_instance():
         "f32_tile.cuh", "f32_attention.cu", "f32_geglu.cu", "f32_flash.cu"}
 
 
+def test_fp32_ff_launcher_has_the_bf16_instances():
+    """The fp32 K3 launcher (csrc/f32_geglu.cu) compiles one instance for
+    each count of 64-column output tiles a block, 1 to 5, as the bf16 one,
+    and spreads the tiles by the same rule (``chip_smoke.ff_instance``), so
+    ``check_ff_widths`` reaches each fp32 instance too."""
+    import chip_smoke
+
+    src = (build.CSRC / "f32_geglu.cu").read_text()
+    compiled = {int(n) for n in re.findall(r"MDK_FF_F32_CASE\((\d+)\)",
+                                           src)}
+    assert compiled == set(range(1, 6))
+    assert int(re.search(r"FF_MAX_NC = (\d+);", src).group(1)) == 5
+    widths = chip_smoke.FF_WIDTHS["fused_ff"]
+    assert {chip_smoke.ff_instance(C) for C in widths} == compiled
+
+
+def test_ff_training_shapes_are_the_fp32_steps():
+    """``chip_smoke.FF_SHAPES``, where K3's and K4's fp32 instances are
+    also gated and timed over TRAIN_VIEWS (and beside their parent by
+    ``compare_trees``), are the (kernel, L, C) of every transformer of the
+    224x400 model at the element size 4 (K3 where ``ff_full_fusion_fits``
+    holds); TRAIN_VIEWS is the fp32 CLI's B=3 of 6 views."""
+    import chip_smoke
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+
+    full = sd15mv_rawbox_224x400()
+    got = {("fused_ff" if dispatch.ff_full_fusion_fits(C, 4 * C, C, 4)
+            else "fused_geglu", L, C)
+           for _, _, L, C, _ in chip_smoke._transformers(full)}
+    assert got == set(chip_smoke.FF_SHAPES)
+    assert "runner.train_batch_size=3" in chip_smoke.F32_CLI_ARGS
+    assert chip_smoke.TRAIN_VIEWS == 3 * len(full.unet.neighboring_view_pair)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' dtype rules, with the library and the card stood in for
 # ---------------------------------------------------------------------------

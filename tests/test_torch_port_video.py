@@ -89,6 +89,79 @@ def test_temporal_mixes_frames_not_samples():
     assert torch.equal(y2[2:], y[2:])
 
 
+def _attend_frames_with(fault):
+    """``BasicTransformerBlock._attend_frames`` with a planted fault in how
+    its runs are put back: the last run's attention "dropped" (zeros in its
+    rows) or the runs "shifted" (concatenated one run late)."""
+    from magicdrive_tpu_torch.core import transformer
+
+    def attend(self, h):
+        runs = [self.attn_temp(r)
+                for r in h.split(transformer.TEMPORAL_MAX_SEQUENCES)]
+        if fault == "dropped":
+            runs[-1] = torch.zeros_like(runs[-1])
+        elif fault == "shifted":
+            runs = runs[1:] + runs[:1]
+        return torch.cat(runs)
+    return attend
+
+
+@pytest.mark.parametrize("fault", [None, "dropped", "shifted"])
+def test_temporal_runs_below_the_grid_limit(monkeypatch, fault):
+    """The temporal attention hands SDPA at most TEMPORAL_MAX_SEQUENCES
+    sequences a call (a CUDA grid axis takes 65,535 blocks; the B=4 video
+    has 67,200 at level 0). With the limit cut to 7, the (b n l) = 2 * 3 *
+    10 = 60 sequences go in 9 runs, the last one short: ``_temporal`` in
+    runs equals it in one call, and both match JAX's ``_temporal``
+    (norm_temp, the regrouped attention and connector_temp). A run dropped
+    or shifted when the runs are put back fails both comparisons."""
+    import flax.linen as nn
+
+    from magicdrive_tpu.core.transformer import BasicTransformerBlock as J
+    from magicdrive_tpu_torch.core import transformer
+
+    class JaxTemporal(J):
+        """JAX's block with ``_temporal`` as its call (it defines its
+        submodules inline, so it runs only inside a compact method)."""
+
+        @nn.compact
+        def __call__(self, x):
+            return self._temporal(x)
+
+    rs = np.random.RandomState(64)
+    x = rs.randn(2 * N_FRAMES * N_CAM, 10, 16).astype(np.float32)
+    ctx = rs.randn(2 * N_FRAMES * N_CAM, 7, 16).astype(np.float32)
+    kw = dict(cross_attention_dim=16, neighboring_view_pair=_RING3,
+              temporal_frames=N_FRAMES)
+    v = init_random(J(16, 2, 8, **kw), 65, jnp.asarray(x), jnp.asarray(ctx))
+    want = JaxTemporal(16, 2, 8, **kw).apply(v, jnp.asarray(x))
+    tm = load(_port_block(N_FRAMES), v)
+
+    def temporal():
+        with torch.no_grad():
+            xt = torch.from_numpy(x)
+            return tm.connector_temp(tm._temporal(tm.norm_temp(xt)))
+
+    assert 2 * N_CAM * 10 > 8 * 7
+    whole = temporal()
+    monkeypatch.setattr(transformer, "TEMPORAL_MAX_SEQUENCES", 7)
+    if fault is not None:
+        monkeypatch.setattr(transformer.BasicTransformerBlock,
+                            "_attend_frames", _attend_frames_with(fault))
+    in_runs = temporal()
+
+    def check():
+        torch.testing.assert_close(in_runs, whole, rtol=0, atol=1e-6)
+        close(in_runs, want)
+        close(whole, want)
+
+    if fault is None:
+        check()
+    else:
+        with pytest.raises(AssertionError):
+            check()
+
+
 @pytest.fixture(scope="module")
 def video():
     """(JAX preset, its modules, randomized variables, the port's video
