@@ -192,8 +192,10 @@ prints no result line. Each phase logs its wall seconds as it ends
      1e-4 * max|ref| (two calls bitwise where the bf16 ones are; no ptxas
      spill in any fp32 entry, SPILL_GATED; K3 and K4 also at the B=3
      training step's shapes, timed over FF_F32_ITERS calls beside their
-     composition, and both K4 tiles gated, check_geglu_tiles), the same
-     gate held once to
+     composition, and both K4 tiles gated, check_geglu_tiles; the
+     attention kernels' and projections' tiles against their mirrors,
+     each path shape's tile and waves printed, both projection tiles
+     gated, check_f32_tiles), the same gate held once to
      F.linear with TF32 on (tf32_line: it must fail), the fp32 gradients of
      K1-K4, K8 and the pair against the plain fp32 backward (GRAD_TOL_F32);
      ``cli.train`` in fp32 (``runner.mixed_precision=no``, F32_CLI_ARGS:
@@ -255,8 +257,10 @@ own before it. The last line is {"ok": true, "device": {...}}.
 
 ``compare_trees(other)`` (not run by ``main``) times the REDESIGNED kernels
 (K1-K4, K7, K8 and the pair; K8's out-projection alone where the tree has
-it) and warm requests in both fused modes of another checkout and of this
-one in turns, for a kernel change measured against its parent on one card.
+it), the fp32 instances of K3/K4 and of the attention kernels beside their
+composition or SDPA, and warm requests in both fused modes of another
+checkout and of this one in turns, for a kernel change measured against
+its parent on one card.
 """
 from __future__ import annotations
 
@@ -358,10 +362,11 @@ def spills(compiler_log: str, source: str) -> dict:
 # the sources whose every entry function must not spill, with the entry
 # functions' count: the wgmma kernels (K3's five instances and K4,
 # geglu.cu; the out-projection of K8 and its pair) and the fp32 instances
-# (the kv and out projections and K1/K2's heads at 8 depths, K4's two tiles
-# and K3's five instances, and K5 and K6's two launches at 8 depths)
+# (the kv and out projections on two tiles each and K1/K2's heads at the 9
+# depth instances of F32_DEPTH_INSTANCES, K4's two tiles and K3's five
+# instances, and K5 and K6's two launches at the 9 depths)
 SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1,
-               "f32_attention.cu": 18, "f32_geglu.cu": 7, "f32_flash.cu": 24}
+               "f32_attention.cu": 22, "f32_geglu.cu": 7, "f32_flash.cu": 27}
 
 
 def build_kernels(spill_gate: bool = True) -> None:
@@ -946,9 +951,10 @@ def _out_project_row(name, label, args, iters: int = 10):
 # CUDA-event calls a timing of the fp32 instances averages (FFMA kernels,
 # tens of times slower than the bf16 ones), and of a plain version (which
 # repeats the kernel's arithmetic and is no yardstick of speed); K3's and
-# K4's fp32 instances, redesigned, and their compositions take
-# FF_F32_ITERS, so that their gaps to the composition can be trusted
-F32_ITERS = 2
+# K4's fp32 instances and their compositions take FF_F32_ITERS, and so do
+# the fp32 rows ``time_kernels`` times against another tree, so that a 5 %
+# gap can be trusted
+F32_ITERS = 10
 PLAIN_ITERS = 3
 FF_F32_ITERS = 20
 _FF = ("fused_ff", "fused_geglu")
@@ -1094,10 +1100,18 @@ def check_flash_kernels(dtype=torch.bfloat16):
 
 
 # one head depth for each instance of the flash kernels (the depth padded to
-# a multiple of 16: 16, 32, ..., 128), four of them padded; the path takes
-# 40 and 80 only, and DP 96-128 run the dk/dv kernel's second branch (K and
-# V fragments reloaded from shared memory)
-FLASH_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
+# a multiple of 16: 16, 32, ..., 128; the fp32 ones to F32_DEPTH_INSTANCES,
+# 40 among them), some of them padded; the path takes 40 and 80 only, and
+# DP 96-128 run the bf16 dk/dv kernel's second branch (K and V fragments
+# reloaded from shared memory), DP 80-128 the fp32 one's 4-key register
+# blocks
+FLASH_DEPTHS = (8, 32, 40, 48, 64, 80, 88, 104, 128)
+
+
+# (BH, Lq, Lk, kv_len) of check_flash_depths: q and key tails ragged
+# against every block and streamed tile (``f32_attention_tile``; 200 = 128
+# + 72 = 2 x 96 + 8 = 4 x 48 + 8, 150 keys below kv_len)
+FLASH_DEPTH_SHAPE = (4, 200, 200, 150)
 
 
 def check_flash_depths(dtype=torch.bfloat16) -> None:
@@ -1108,7 +1122,7 @@ def check_flash_depths(dtype=torch.bfloat16) -> None:
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(3), dtype)
     tol, key = _tol(dtype), functools.partial(_key, dtype=dtype)
-    BH, Lq, Lk, kv_len = 4, 200, 192, 150
+    BH, Lq, Lk, kv_len = FLASH_DEPTH_SHAPE
     for D in FLASH_DEPTHS:
         label = f"BH={BH} Lq={Lq} Lk={Lk} D={D} kv_len={kv_len}"
         q = rnd(BH, Lq, D, scale=D ** -0.5)
@@ -1125,9 +1139,10 @@ def check_flash_depths(dtype=torch.bfloat16) -> None:
 
 
 # one head depth for each instance of K1's and K2's launcher (the depth
-# padded to a multiple of 16: 16, 32, ..., 128), four of them padded; the
-# path takes 40 and 80 only. K7, K8 and the K8 pair run the same launcher.
-ATTENTION_DEPTHS = (8, 32, 40, 64, 80, 88, 104, 128)
+# padded to a multiple of 16: 16, 32, ..., 128; the fp32 ones to
+# F32_DEPTH_INSTANCES), some of them padded; the path takes 40 and 80 only.
+# K7, K8 and the K8 pair run the same launcher.
+ATTENTION_DEPTHS = (8, 32, 40, 48, 64, 80, 88, 104, 128)
 # the rings of the depth checks: the nuScenes shifts (5, 1) and (1, 2), which
 # is not symmetric
 RING_SHIFTS = ((5, 1), (1, 2))
@@ -1140,7 +1155,8 @@ OUT_WIDTH = 72
 def check_attention_depths(dtype=torch.bfloat16) -> None:
     """K1, K2, K7, K8 and the K8 pair at every depth of ATTENTION_DEPTHS, at
     a small shape with ragged q and key tails (200 and 150 rows against
-    64-row tiles) and a C that is not a multiple of the projection's
+    the bf16 64-row tiles and the fp32 ones, ``f32_attention_tile``) and
+    a C that is not a multiple of the projection's
     32-column chunk, K2 and the K8 pair over both rings' tables, K8 and
     its pair out-projected to OUT_WIDTH columns, against their plain
     versions in fp32; the plain bf16 version's own distance from fp32 is
@@ -1256,6 +1272,172 @@ def check_geglu_tiles(rnd, dtype) -> None:
     for b1 in (rnd(8 * C, scale=0.1), None):
         _gate_plain("fused_geglu", f"M={M} C={C} bias={b1 is not None} "
                     f"tile 112x64", (x, w1, b1), dtype)
+
+
+# The head depths the fp32 attention kernels are compiled for
+# (csrc/f32_tile.cuh MDK_F32_DEPTHS); a depth runs on the smallest that
+# holds it
+F32_DEPTH_INSTANCES = (16, 32, 40, 48, 64, 80, 96, 112, 128)
+# the fp32 attention kernels by their tile: K1/K2's heads and K5 (the
+# attention core), K6's dq and dk/dv
+F32_ATTENTION_KERNELS = ("heads", "fwd", "dq", "dkv")
+
+
+def f32_depth_instance(D: int) -> int:
+    return next(d for d in F32_DEPTH_INSTANCES if d >= D)
+
+
+def f32_attention_tile(kernel: str, D: int) -> tuple:
+    """(rows a block owns, rows of a streamed tile) of the fp32 attention
+    kernel ``kernel`` at head depth D, as csrc/f32_tile.cuh AttnGeom sets
+    them (4 warps, each owning 4 rows a thread's register block): up to the
+    instance 48, 8 rows a thread and 32-row tiles; deeper, 6 rows a thread
+    (3 keys in the dk/dv kernel) and 16-row tiles."""
+    if f32_depth_instance(D) <= 48:
+        return 128, 32
+    return (48 if kernel == "dkv" else 96), 16
+
+
+# The dual-product tiles of the fp32 kv and out projections
+# (csrc/f32_tile.cuh DualWide, DualTall; the fp32 K4's two tiles): (rows,
+# value columns, blocks an SM, FFMA rate in percent of DualWide's)
+DUAL_TILES = ((128, 32, 3, 100), (112, 64, 2, 95))
+H100_SMS = 132
+
+
+def dual_tile(M: int, N: int, sms: int = H100_SMS) -> int:
+    """The tile (0 DualWide, 1 DualTall) of a dual product over M rows and
+    N value columns: the one whose grid costs less in whole waves of the
+    blocks ``sms`` SMs hold (csrc/f32_tile.cuh ``dual_tile``, reported by
+    ``mdk_project_f32_tile``; DualWide at a tie)."""
+    def cost(bm, bn, blocks_sm, eff):
+        waves = -(-(-(-M // bm) * -(-N // bn)) // (sms * blocks_sm))
+        return waves * blocks_sm * bm * bn * 100.0 / eff
+    wide, tall = (cost(*t) for t in DUAL_TILES)
+    return 1 if tall < wide else 0
+
+
+# The fp32 kv projection (B, Lk, Ck, H, D) and out-projection (M, K, N) of
+# ``check_projection_tiles``: one grid of each dual tile, rows ragged
+# against both (200 = 128 + 72 = 112 + 88; 330 = 2 x 128 + 74 = 3 x 112 -
+# 6), value columns past a tile's edge
+KV_PROJECTION_TILES = ((2, 100, 40, 2, 40), (2, 165, 40, 45, 96))
+OUT_PROJECTION_TILES = ((200, 80, 72), (330, 80, 8640))
+
+
+def _path_attentions(views: int = 12):
+    """(what, Lq, Lk, C, Ck, D) of the attentions of the 224x400 path that
+    reach the fp32 attention kernels (head depth at most 128): attn1 and
+    attn2 of each level, once."""
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
+
+    preset = sd15mv_rawbox_224x400()
+    ctx = 1 + 77 + preset.bbox_max_len
+    seen = {}
+    for _, _, L, C, D in _transformers(preset):
+        if D <= 128:
+            seen[("attn1", L, L, C, C, D)] = None
+            seen[("attn2", L, ctx, C, 768, D)] = None
+    return list(seen)
+
+
+def check_projection_tiles(rnd) -> None:
+    """The fp32 kv projection and out-projection alone on each of their
+    two tiles (KV_PROJECTION_TILES, OUT_PROJECTION_TILES; the tile from
+    ``mdk_project_f32_tile``, which must be ``dual_tile``'s) against their
+    products in fp32, two calls bitwise equal."""
+    from magicdrive_tpu_torch.kernels import build, dispatch, reference
+
+    lib = build.load()
+    f32 = torch.float32
+    for tile, (B, Lk, Ck, H, D) in enumerate(KV_PROJECTION_TILES):
+        M, N = B * Lk, H * D
+        got_tile = lib.mdk_project_f32_tile(M, N)
+        if got_tile != tile or dual_tile(M, N) != tile:
+            raise AssertionError(f"kv projection M={M} N={N}: tile "
+                                 f"{got_tile}, mirror {dual_tile(M, N)}, "
+                                 f"expected {tile}")
+        x = rnd(B, Lk, Ck)
+        wk, wv = (rnd(N, Ck, scale=Ck ** -0.5) for _ in range(2))
+        got = dispatch._project_kv(lib, x, wk, wv, H)
+        ref = tuple(_heads(x @ w.T, H) for w in (wk, wv))
+        err, scale = _worst(got, ref)
+        label = f"B={B} Lk={Lk} Ck={Ck} H={H} D={D} tile {tile}"
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, dispatch._project_kv(lib, x, wk, wv, H))):
+            raise AssertionError(f"kv projection {label}: two calls on the "
+                                 "same inputs differ")
+        _gate(_key("kv_project", f32), label, err, scale, KERNEL_TOL_F32,
+              note="two calls bitwise equal")
+    for tile, (M, K, N) in enumerate(OUT_PROJECTION_TILES):
+        got_tile = lib.mdk_project_f32_tile(M, N // 2)
+        if got_tile != tile or dual_tile(M, N // 2) != tile:
+            raise AssertionError(f"out-projection M={M} N={N}: tile "
+                                 f"{got_tile}, expected {tile}")
+        o, wout = rnd(1, M, K), rnd(N, K, scale=K ** -0.5)
+        got = dispatch._out_project(lib, o, wout)
+        err, scale = _worst(got, reference.out_projection(o, wout))
+        label = f"M={M} K={K} N={N} tile {tile}"
+        if not torch.equal(got, dispatch._out_project(lib, o, wout)):
+            raise AssertionError(f"out-projection {label}: two calls on "
+                                 "the same inputs differ")
+        _gate(_key("out_project", f32), label, err, scale, KERNEL_TOL_F32,
+              note="two calls bitwise equal")
+
+
+def check_f32_tiles(rnd) -> None:
+    """The fp32 attention kernels' tiles from the library (``mdk_kvstat_
+    f32_tile``, ``mdk_flash_f32_tile``) against ``f32_attention_tile`` at
+    every depth of the depth checks, with the blocks an SM the card holds;
+    the tile, grid and waves each attention of the 224x400 path and each
+    FLASH_SHAPES row takes, and the tiles of the path's kv and out
+    projections against ``dual_tile``; then ``check_projection_tiles``."""
+    from magicdrive_tpu_torch.kernels import build
+
+    lib = build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entries = {"heads": lambda D, w: lib.mdk_kvstat_f32_tile(1, D, w),
+               "heads pair": lambda D, w: lib.mdk_kvstat_f32_tile(2, D, w),
+               "fwd": lambda D, w: lib.mdk_flash_f32_tile(0, D, w),
+               "dq": lambda D, w: lib.mdk_flash_f32_tile(1, D, w),
+               "dkv": lambda D, w: lib.mdk_flash_f32_tile(2, D, w)}
+    blocks_sm = {}
+    for D in sorted(set(ATTENTION_DEPTHS) | set(FLASH_DEPTHS)):
+        line = []
+        for name, entry in entries.items():
+            got = (entry(D, 0), entry(D, 1))
+            want = f32_attention_tile(name.split()[0], D)
+            blocks_sm[name, D] = entry(D, 2)
+            if got != want or blocks_sm[name, D] < 1:
+                raise AssertionError(f"fp32 {name} tile at D={D}: {got}, "
+                                     f"{blocks_sm[name, D]} blocks an SM; "
+                                     f"expected {want}")
+            line.append(f"{name} {got[0]}x{got[1]} ({blocks_sm[name, D]}/SM)")
+        log(f"  fp32 attention tiles D={D} (rows a block x rows a streamed "
+            f"tile, blocks an SM): " + ", ".join(line))
+
+    def waves(name, D, blocks):
+        slots = sms * blocks_sm[name, D]
+        return f"{blocks} blocks, {blocks / slots:.2f} waves of {slots}"
+
+    for what, Lq, Lk, C, Ck, D in _path_attentions():
+        rows, keys = f32_attention_tile("heads", D)
+        grid = -(-Lq // rows) * 12 * (C // D)
+        kv = (12 * Lk, C)
+        tiles = {"kv projection": (lib.mdk_project_f32_tile(*kv),
+                                   dual_tile(*kv, sms)),
+                 "out-projection": (lib.mdk_project_f32_tile(12 * Lq, C // 2),
+                                    dual_tile(12 * Lq, C // 2, sms))}
+        if any(a != b for a, b in tiles.values()):
+            raise AssertionError(f"{what} L={Lq}: dual tiles {tiles}")
+        log(f"  fp32 {what} 12 views Lq={Lq} Lk={Lk} C={C} D={D}: heads "
+            f"{rows} q rows x {keys} keys, {waves('heads', D, grid)}; " +
+            ", ".join(f"{k} tile {a}" for k, (a, _) in tiles.items()))
+    for BH, Lq, Lk, D, kv_len in FLASH_SHAPES:
+        log(f"  fp32 flash BH={BH} Lq={Lq} Lk={Lk} D={D}: " + "; ".join(
+            f"{op} {waves(op, D, BH * -(-L // f32_attention_tile(op, D)[0]))}"
+            for op, L in (("fwd", Lq), ("dq", Lq), ("dkv", Lk))))
+    check_projection_tiles(rnd)
 
 
 # K3 and K4 on the 224x400 paths: (kernel, L, C), M = views * L, at 12
@@ -1419,8 +1601,9 @@ def check_fp32_kernels() -> dict:
     """The fp32 instances of every kernel at the bf16 checks' shapes, depths
     and widths within KERNEL_TOL_F32 (two calls bitwise where the bf16
     ones are), K3 and K4 also at the B=3 training step's shapes
-    (``ff_cases`` over TRAIN_VIEWS), the TF32 line, and the fp32 gradients;
-    -> their rows, under ``_key`` names."""
+    (``ff_cases`` over TRAIN_VIEWS), the attention kernels' and the
+    projections' tiles (``check_f32_tiles``), the TF32 line, and the fp32
+    gradients; -> their rows, under ``_key`` names."""
     f32 = torch.float32
     log("fp32 kernel checks (fp32 kernel vs fp32 plain version, TF32 off, "
         f"limit {KERNEL_TOL_F32} * max|ref|):")
@@ -1433,6 +1616,7 @@ def check_fp32_kernels() -> dict:
     check_flash_depths(f32)
     check_attention_depths(f32)
     check_ff_widths(f32)
+    check_f32_tiles(_rnd(torch.Generator(device="cuda").manual_seed(19), f32))
     tf32_line()
     log(f"fp32 autograd checks (fp32 kernel route vs fp32 plain backward, "
         f"limit {GRAD_TOL_F32} * max|ref|):")
@@ -5118,14 +5302,79 @@ def _linears(x, w1, b1, w2=None):
     return run
 
 
+def _f32_attention_times(ring) -> list:
+    """``time_kernels``' rows of the fp32 attention instances over
+    FF_F32_ITERS calls each: K1, K2, K7, K8 and the K8 pair at
+    ``kernel_cases``' shapes beside their composition (K1 with its kv
+    projection alone, K8 and the pair with their out-projection alone), K5
+    and the whole K6 at FLASH_SHAPES beside the SDPA forward and backward
+    (and K6's two launches alone). ``ring``: the pairs' only table in a
+    tree from before the neighbour table (pairs over another are left
+    out)."""
+    import inspect
+
+    from magicdrive_tpu_torch.kernels import dispatch
+
+    f32, it = torch.float32, FF_F32_ITERS
+    shifts = "shifts" in inspect.signature(
+        dispatch.kvstat_attention_pair).parameters
+    rows = []
+    for name, label, args in kernel_cases(
+            torch.Generator(device="cuda").manual_seed(0), f32):
+        if name not in REDESIGNED or name in _FF:
+            continue
+        if shifts and name.endswith("_pair"):
+            if not torch.equal(args[-1], ring):
+                continue
+            args = (*args[:-1], (5, 1, 6))
+        kern = getattr(dispatch, name)
+        row = {"name": _key(name, f32), "shape": label,
+               "ms": cuda_ms(lambda: kern(*args), it),
+               "composed_ms": cuda_ms(lambda: COMPOSED[name](*args), it)}
+        if name == "kvstat_attention":
+            row["kv_project_ms"] = cuda_ms(_kv_project(args)[0], it)
+        if name in _OUT_KERNELS and hasattr(dispatch, "_out_project"):
+            row["out_project_ms"] = cuda_ms(_out_project(name, args)[0], it)
+        rows.append(row)
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(1), f32)
+    for BH, Lq, Lk, D, kv_len in FLASH_SHAPES:
+        label = f"BH={BH} Lq={Lq} Lk={Lk} D={D}" + \
+            (f" kv_len={kv_len}" if kv_len < Lk else "")
+        q = rnd(BH, Lq, D, scale=D ** -0.5)
+        k, v, do = rnd(BH, Lk, D), rnd(BH, Lk, D), rnd(BH, Lq, D)
+        o, lse = dispatch.flash_attention_fwd(q, k, v, kv_len)
+        _, delta = dispatch.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                   kv_len)
+        lib_fwd, lib_bwd = _sdpa_calls(q, k[:, :kv_len].contiguous(),
+                                       v[:, :kv_len].contiguous(), do)
+        calls = (
+            ("flash_attention_fwd", lambda: dispatch.flash_attention_fwd(
+                q, k, v, kv_len), lib_fwd),
+            ("flash_attention_bwd_dq", lambda: dispatch.flash_attention_bwd_dq(
+                q, k, v, o, lse, do, kv_len), None),
+            ("flash_attention_bwd_dkv",
+             lambda: dispatch.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                      kv_len), None),
+            ("flash_attention_bwd", lambda: dispatch.flash_attention_bwd(
+                q, k, v, o, lse, do, kv_len), lib_bwd))
+        for name, kern, lib in calls:
+            row = {"name": _key(name, f32), "shape": label,
+                   "ms": cuda_ms(kern, it)}
+            if lib is not None:
+                row["library_ms"] = cuda_ms(lib, it)
+            rows.append(row)
+    return rows
+
+
 def time_kernels(requests: int = 2) -> dict:
     """The CUDA-event ms of the REDESIGNED kernels (K1-K4, K7, K8 and the
     K8 pair) at their path shapes (as in ``check_kernels``, K1 with its kv
     projection alone, K8 and its pair with their out-projection alone where
     the tree has one), of K3's and K4's fp32 instances, their composition
     and its F.linear calls alone (``_linears``) at ``ff_cases``' shapes,
-    and the host-clock seconds of ``requests`` warm requests in each fused
-    mode after one warm-up request (none when 0), through the port this
+    of the fp32 attention instances (``_f32_attention_times``), and the
+    host-clock seconds of ``requests`` warm requests in each fused mode
+    after one warm-up request (none when 0), through the port this
     interpreter imports; printed as one JSON line. ``compare_trees`` runs
     it in another checkout (one whose pair entries take the ring's shifts
     times the pairs on the ring alone)."""
@@ -5166,6 +5415,7 @@ def time_kernels(requests: int = 2) -> dict:
                 "composed_ms": cuda_ms(lambda: COMPOSED[name](*args),
                                        FF_F32_ITERS),
                 "linear_ms": cuda_ms(_linears(*args), FF_F32_ITERS)})
+    rows += _f32_attention_times(ring)
     seconds = {}
     _, pipe, batches = set_up() if requests else (None, None, None)
     for mode in dispatch.FUSED_MODES if requests else ():
@@ -5184,8 +5434,9 @@ def time_kernels(requests: int = 2) -> dict:
 
 
 def compare_trees(other: str, requests: int = 2) -> None:
-    """The REDESIGNED kernels' times, K3's and K4's fp32 instances beside
-    their composition, and warm request times in both fused modes (none
+    """The REDESIGNED kernels' times, the fp32 instances of K3, K4 and the
+    attention kernels beside their composition or SDPA call
+    (``time_kernels``), and warm request times in both fused modes (none
     with ``requests`` 0) of another checkout (say a ``git archive`` of the
     parent unpacked into runs/parent) and of this one, in turns: other,
     this, this, other. Each turn is a process of its own that imports that

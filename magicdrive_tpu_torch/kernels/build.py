@@ -51,8 +51,13 @@ KERNEL_ENTRIES = ("mdk_kv_project", "mdk_kvstat_attention",
                   "mdk_flash_fwd", "mdk_flash_bwd_dq", "mdk_flash_bwd_dkv",
                   "mdk_out_project")
 _SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in KERNEL_ENTRIES})
-# the tile the fp32 K4 takes for (M, N) on the current card (0 or 1)
+# the tile the fp32 K4, or the fp32 kv and out projections, take for (M, N)
+# on the current card (0 or 1); the fp32 attention kernels' tiles (rows a
+# block, rows a streamed tile, blocks an SM) by kernel and depth
 _SIGNATURES["mdk_geglu_f32_tile"] = (_I, [_I, _I])
+_SIGNATURES["mdk_project_f32_tile"] = (_I, [_I, _I])
+_SIGNATURES["mdk_kvstat_f32_tile"] = (_I, [_I, _I, _I])
+_SIGNATURES["mdk_flash_f32_tile"] = (_I, [_I, _I, _I])
 
 
 def sources():

@@ -12,206 +12,227 @@
 // Wout without the bias. The wrappers launch these entries for fp32 tensors
 // as they launch the bf16 ones (kvstat_attention.cu,
 // kvstat_pair_attention.cu, fused_out_attention.cu) for bf16:
-//  1. kv_project_f32_kernel: k and v of every head into (B, H, Lk, D), the
-//     kv-stationary workspace;
-//  2. heads_f32_kernel<DP, NSRC>: per (q tile of 64 rows, head, batch), q
-//     projected into shared memory, then f32::attend over each of NSRC
-//     sources (the pair's neighbour i of view v is view table[i][v] of the
-//     same sample), the pair's normalised outputs summed in fp32;
-//  3. out_project_f32_kernel: o Wout^T for K8 and its pair.
+//  1. kv_project_f32_kernel<G>: k and v of every head into (B, H, Lk, D),
+//     the kv-stationary workspace: f32_tile.cuh's dual product (K4's ring
+//     and tiles), Wk's rows as the value columns and Wv's as the gate;
+//  2. heads_f32_kernel<DP, NSRC>: per (q tile of AttendGeom<DP>::BR rows,
+//     head, batch), q projected into shared memory, then f32::attend over
+//     each of NSRC sources (the pair's neighbour i of view v is view
+//     table[i][v] of the same sample), the pair's normalised outputs summed
+//     in fp32;
+//  3. out_project_f32_kernel<G>: o Wout^T for K8 and its pair, the dual
+//     product over the two halves of Wout's rows.
 //
 // Bound. At the 28x50 level (12 views, L=1400, C=320, 8 heads of 40) K1
 // needs 40.4 GFLOP against 43 MB of fp32 inputs and output: 0.60 ms at the
-// 67 TFLOP/s fp32 rate against 0.013 ms of bytes, so operations bind.
+// 67 TFLOP/s fp32 rate against 0.013 ms of bytes, so operations bind. At
+// L=350, C=640 (8 heads of 80) the kv projection is half of K1's work.
 //
-// Design: f32_tile.cuh's FFMA tiles (256 threads, 64-row tiles, 4 x TN
-// register blocks). The logits, p and the statistics never reach device
-// memory; p^T goes once through shared memory as the A operand of p v. The
-// q tile stays in shared memory for every key tile of both sources.
+// Design: f32_tile.cuh's FFMA tiles ([row][k] operands read as float4, a
+// cp.async ring, 8 x 8 register blocks). The projections run K4's dual
+// product and take the tile of the two (DualWide, DualTall) whose grid
+// fills whole waves best (dual_tile, reported by mdk_project_f32_tile).
+// The heads kernel projects its q tile over QK-deep chunks of C through
+// its own ring, then attends: the logits, p and the statistics never reach
+// device memory, p goes once through its warp's shared tile as the A
+// operand of p v, and the q tile stays in shared memory for every key tile
+// of both sources.
 #include "f32_tile.cuh"
 
 namespace mdk {
 namespace f32 {
 
-// acc (64 x 64 of the block) += A[m0.., :K] B_z[n0.., :K]^T over KC-deep
-// chunks, for NB matrices B_z that share the A chunk (rows of B_z valid
-// below n_rows); A (M, K) and B_z row-major, K a multiple of 4. The next
-// chunk is fetched into registers while the current one is multiplied.
-template <int NB>
-__device__ __forceinline__ void gemm_nt(float (&acc)[NB][TM][4],
-                                        float* smem, const float* A, int M,
-                                        const float* const (&B)[NB],
-                                        int n_rows, int K, int m0, int n0) {
-  float* as = smem;                // [KC][LDT]
-  float* bs = smem + KC * LDT;     // NB x [KC][LDT]
-  float4 ra = fetch_chunk(A, M, K, m0, 0), rb[NB];
-#pragma unroll
-  for (int z = 0; z < NB; ++z) rb[z] = fetch_chunk(B[z], n_rows, K, n0, 0);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();  // every thread is done with the previous chunk
-    put_chunk(as, LDT, 0, ra);
-#pragma unroll
-    for (int z = 0; z < NB; ++z) put_chunk(bs + z * KC * LDT, LDT, 0, rb[z]);
-    __syncthreads();
-    if (k0 + KC < K) {
-      ra = fetch_chunk(A, M, K, m0, k0 + KC);
-#pragma unroll
-      for (int z = 0; z < NB; ++z)
-        rb[z] = fetch_chunk(B[z], n_rows, K, n0, k0 + KC);
-    }
-#pragma unroll
-    for (int z = 0; z < NB; ++z)
-      fma_tile<4, KC>(acc[z], as, LDT, bs + z * KC * LDT, LDT);
-  }
+// The rows of the dual-product tile G at (m0, n0) of the grid: the thread's
+// first row and value column in the block.
+template <class G>
+__device__ __forceinline__ int dual_row() {
+  return warp() / G::WN * 4 * G::TI + lane_ty();
+}
+template <class G>
+__device__ __forceinline__ int dual_col() {
+  return warp() % G::WN * 8 * G::TV + lane_tx();
 }
 
-constexpr int GEMM_FLOATS = 3 * KC * LDT;  // A and at most two B chunks
-
-// k_z[b, h, l, d] = sum_c x[b*Lk + l, c] W_z[h*D + d, c] for z = k, v
-// (blockIdx.z): a GEMM with M = B*Lk, N = H*D, K = Ck on 64 x 64 tiles.
-__global__ void __launch_bounds__(THREADS)
-kv_project_f32_kernel(const float* __restrict__ x, const float* __restrict__ wk,
+// k_z[b, h, l, d] = sum_c x[b*Lk + l, c] W_z[h*D + d, c] for z = k (the
+// value columns of the dual product) and v (its gate columns): a GEMM with
+// M = B*Lk, N = H*D, K = Ck; grid (column blocks of G::BN, row blocks of
+// G::BM).
+template <class G>
+__global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
+kv_project_f32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ wk,
                       const float* __restrict__ wv, float* __restrict__ kout,
                       float* __restrict__ vout, int M, int Lk, int Ck, int H,
                       int D) {
-  __shared__ __align__(16) float smem[GEMM_FLOATS];
-  const int N = H * D, m0 = blockIdx.x * BM, n0 = blockIdx.y * BM;
-  const float* const w[1] = {blockIdx.z == 0 ? wk : wv};
-  float* out = blockIdx.z == 0 ? kout : vout;
-  float acc[1][TM][4];
-  zero(acc[0]);
-  gemm_nt<1>(acc, smem, x, M, w, N, Ck, m0, n0);
+  extern __shared__ __align__(16) float ring[];
+  const int N = H * D, n0 = blockIdx.x * G::BN, m0 = blockIdx.y * G::BM;
+  const int arow = dual_row<G>(), bcol = dual_col<G>();
+  float h[G::TI][2 * G::TV];
+  dual_product<G, true>(h, ring, stage1_src(x, wk, wv, Ck, m0, n0), x, M,
+                        Ck, N, arow, bcol);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty() * TM + i;
-    if (m >= M) continue;
-    const int bb = m / Lk, l = m - bb * Lk;
+  for (int j = 0; j < G::TV; ++j) {
+    const int n = n0 + bcol + 8 * j;
+    if (n >= N) continue;
+    const int hh = n / D, d = n - hh * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx() + 16 * j;
-      if (n >= N) continue;
-      const int h = n / D, d = n - h * D;
-      out[(((long)bb * H + h) * Lk + l) * D + d] = acc[0][i][j];
+    for (int i = 0; i < G::TI; ++i) {
+      const int m = m0 + arow + 4 * i;
+      if (m >= M) continue;
+      const int bb = m / Lk, l = m - bb * Lk;
+      const long at = (((long)bb * H + hh) * Lk + l) * D + d;
+      kout[at] = h[i][j];
+      vout[at] = h[i][j + G::TV];
     }
   }
 }
 
-// out (M, N) = o (M, K) Wout (N, K)^T: K8's out-projection, no bias.
-__global__ void __launch_bounds__(THREADS)
+// out (M, N) = o (M, K) Wout (N, K)^T: K8's out-projection, no bias; the
+// dual product's value columns are out's first N/2 columns (Wout's first
+// N/2 rows), its gate columns the last N/2.
+template <class G>
+__global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 out_project_f32_kernel(const float* __restrict__ o,
                        const float* __restrict__ wout,
                        float* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) float smem[GEMM_FLOATS];
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BM;
-  const float* const w[1] = {wout};
-  float acc[1][TM][4];
-  zero(acc[0]);
-  gemm_nt<1>(acc, smem, o, M, w, N, K, m0, n0);
+  extern __shared__ __align__(16) float ring[];
+  const int N2 = N / 2, n0 = blockIdx.x * G::BN, m0 = blockIdx.y * G::BM;
+  const int arow = dual_row<G>(), bcol = dual_col<G>();
+  float h[G::TI][2 * G::TV];
+  dual_product<G, false>(h, ring, stage1_src(o, wout, wout, K, m0, n0), o,
+                         M, K, N2, arow, bcol);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty() * TM + i;
-    if (m >= M) continue;
+  for (int j = 0; j < G::TV; ++j) {
+    const int n = n0 + bcol + 8 * j;
+    if (n >= N2) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx() + 16 * j;
-      if (n < N) out[(long)m * N + n] = acc[0][i][j];
+    for (int i = 0; i < G::TI; ++i) {
+      const int m = m0 + arow + 4 * i;
+      if (m >= M) continue;
+      out[(long)m * N + n] = h[i][j];
+      out[(long)m * N + N2 + n] = h[i][j + G::TV];
     }
   }
 }
 
-// K1 (NSRC == 1) and K2 (NSRC == 2): grid (q tiles of 64 rows, H, B). The
-// block projects q = (x_q tile . Wq_h^T) * scale over KC-deep chunks of C
-// into q^T (the chunks staged over the k^T and v tiles, which the key loop
-// then overwrites), attends over each source's k/v rows of the (B, H, Lk,
-// D) workspace and writes (B, Lq, H*D) at the head's columns.
+// Start copying the QK-deep chunk at column k0 of rows [r0, r0 + ROWS) of
+// src (n_rows x K, row-major, K a multiple of 4) into a [row][k] tile of
+// pitch QK + 4; zeros outside the tensor.
+template <int NT, int ROWS, int QK>
+__device__ __forceinline__ void cp_chunk(float* dst, const float* src,
+                                         int r0, int n_rows, int K, int k0) {
+  constexpr int V4 = QK / 4;
+  for (int i = threadIdx.x; i < ROWS * V4; i += NT) {
+    const int r = i / V4, c = (i - r * V4) * 4;
+    const bool ok = r0 + r < n_rows && k0 + c < K;
+    cp16(dst + r * (QK + 4) + c,
+         ok ? src + (long)(r0 + r) * K + k0 + c : src, ok);
+  }
+}
+
+// K1 (NSRC == 1) and K2 (NSRC == 2): grid (q tiles of BR rows, H, B). The
+// block projects q = (x_q tile . Wq_h^T) * scale over QK-deep chunks of C
+// (a ring of two stages of BR x rows and DP Wq rows in the keys' region)
+// into the q tile, attends over each source's k/v rows of the (B, H, Lk, D)
+// workspace and writes (B, Lq, H*D) at the head's columns; the pair adds
+// its second source's normalised output to the first's in fp32 there.
 template <int DP, int NSRC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(AttendGeom<DP>::NT, attend_min_blocks(DP))
 heads_f32_kernel(const float* __restrict__ xq, const float* __restrict__ wq,
                  const float* __restrict__ kws,
                  const float* __restrict__ vws, float* __restrict__ out,
                  int Lq, int C, int Lk, int H, int D, float scale,
                  const int* __restrict__ table, int n_views) {
   extern __shared__ __align__(16) float smem[];
+  using G = AttendGeom<DP>;
   using S = AttendSmem<DP>;
-  constexpr int TN = DP / 16;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const float* x = xq + (long)b * Lq * C;
-  const float* w = wq + (long)h * D * C;  // the head's D rows
+  constexpr int BR = G::BR, TI = G::TI, TD = G::TD, QK = S::QK, QP = QK + 4;
+  // the pair needs the registers of loading ahead for its second source
+  constexpr int KU = NSRC == 1 ? attend_ku<DP>() : 1;
+  constexpr int STAGE = (BR + DP) * QP;
+  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int arow = warp() * 4 * TI + lane_ty(), tx = lane_tx();
+  float o[TI][TD];  // the q projection, then each source's output
 
-  // ---- q^T = ((x_q . Wq_h^T) * scale)^T, pad columns zero ----
+  // ---- the q tile: ((x_q . Wq_h^T) * scale), pad columns zero ----
   {
-    float* xs = smem + S::KT;      // [KC][LDT]
-    float* ws = xs + KC * LDT;     // [KC][DP]
-    float q[TM][TN];
-    zero(q);
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      const float4 ra = fetch_chunk(x, Lq, C, q0, k0);
-      float4 rb[DP / BM + 1];
-#pragma unroll
-      for (int r = 0; r * BM < DP; ++r)
-        rb[r] = fetch_chunk(w, D, C, r * BM, k0);
-      __syncthreads();
-      put_chunk(xs, LDT, 0, ra);
-#pragma unroll
-      for (int r = 0; r * BM < DP; ++r)
-        if (r * BM + (threadIdx.x >> 2) < DP) put_chunk(ws, DP, r * BM, rb[r]);
-      __syncthreads();
-      fma_tile<TN, KC>(q, xs, LDT, ws, DP);
+    const float* x = xq + (long)b * Lq * C;
+    const float* w = wq + (long)h * D * C;  // the head's D rows
+    float* ring = smem + S::RING;
+    const int T = (C + QK - 1) / QK;
+    auto load = [&](int t) {
+      float* st = ring + (t & 1) * STAGE;
+      cp_chunk<G::NT, BR, QK>(st, x, q0, Lq, C, t * QK);
+      cp_chunk<G::NT, DP, QK>(st + BR * QP, w, 0, D, C, t * QK);
+    };
+    zero(o);
+    load(0);
+    cp_commit();
+    for (int t = 0; t < T; ++t) {
+      cp_wait<0>();
+      __syncthreads();  // chunk t is in; every thread is done with t - 1
+      if (t + 1 < T) load(t + 1);
+      cp_commit();
+      const float* st = ring + (t & 1) * STAGE;
+      fma_rows<TI, TD, TD, 0, QP, QP, QK, KU>(o, st + arow * QP,
+                                                st + (BR + tx) * QP);
     }
+    float* q = smem + S::Q + arow * G::LR + tx;
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TI; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) q[i][j] *= scale;
-    put_t(smem + S::QT, q);
+      for (int j = 0; j < TD; ++j) q[4 * i * G::LR + 8 * j] = o[i][j] * scale;
+    __syncthreads();  // the keys' ring takes the projection's place
   }
 
-  // ---- each source, normalised; the pair's two summed in fp32 ----
-  float res[TM][TN];
-  zero(res);
-#pragma unroll
+  // ---- each source, normalised; the pair's second added in fp32 ----
+  const long ld = (long)H * D;
+  float* dst = out + (long)b * Lq * ld + (long)h * D;
+#pragma unroll 1
   for (int src = 0; src < NSRC; ++src) {
     const int v = b % n_views;
     const int kb = NSRC == 1 ? b : b - v + __ldg(table + src * n_views + v);
     const long base = ((long)kb * H + h) * Lk * D;
-    float m[TM], l[TM], o[TM][TN];
-    attend<DP>(smem, kws + base, vws + base, Lk, Lk, D, m, l, o);
+    float m[TI], l[TI];
+    attend<DP, KU>(smem, kws + base, vws + base, Lk, Lk, D, m, l, o);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+    for (int i = 0; i < TI; ++i) {
+      const int r = q0 + arow + 4 * i;
+      if (r >= Lq) continue;
       const float inv = 1.0f / l[i];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) res[i][j] += o[i][j] * inv;
-    }
-  }
-
-  const long ld = (long)H * D;
-  float* dst = out + (long)b * Lq * ld + (long)h * D;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty() * TM + i;
-    if (r >= Lq) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int d = tx() + 16 * j;
-      if (d < D) dst[r * ld + d] = res[i][j];
+      for (int j = 0; j < TD; ++j) {
+        const int d = tx + 8 * j;
+        if (d >= D) continue;
+        float* y = dst + r * ld + d;
+        *y = src == 0 ? o[i][j] * inv : *y + o[i][j] * inv;
+      }
     }
   }
 }
 
+// The heads kernel's shared memory, opted in once per device.
 template <int DP, int NSRC>
-static cudaError_t launch_heads_dp(dim3 grid, const float* xq,
-                                   const float* wq, const float* k,
-                                   const float* v, float* out, int Lq, int C,
-                                   int Lk, int H, int D, float scale,
-                                   const int* table, int n_views,
+static cudaError_t heads_opt_in() {
+  static unsigned opted_in = 0;
+  return allow_smem_once(heads_f32_kernel<DP, NSRC>, AttendSmem<DP>::BYTES,
+                         opted_in);
+}
+
+template <int DP, int NSRC>
+static cudaError_t launch_heads_dp(const float* xq, const float* wq,
+                                   const float* k, const float* v, float* out,
+                                   int B, int Lq, int C, int Lk, int H, int D,
+                                   float scale, const int* table, int n_views,
                                    cudaStream_t stream) {
-  static_assert(KC * LDT + KC * DP <= DP * LDT + BM * DP,
-                "the projection chunks fit over the k^T and v tiles");
+  using G = AttendGeom<DP>;
   auto kern = heads_f32_kernel<DP, NSRC>;
   const size_t bytes = AttendSmem<DP>::BYTES;
-  const cudaError_t e = allow_smem(kern, bytes);
+  const cudaError_t e = heads_opt_in<DP, NSRC>();
   if (e != cudaSuccess) return e;
-  kern<<<grid, THREADS, bytes, stream>>>(xq, wq, k, v, out, Lq, C, Lk, H, D,
-                                         scale, table, n_views);
+  const dim3 grid((Lq + G::BR - 1) / G::BR, H, B);
+  kern<<<grid, G::NT, bytes, stream>>>(xq, wq, k, v, out, Lq, C, Lk, H, D,
+                                       scale, table, n_views);
   return cudaGetLastError();
 }
 
@@ -227,12 +248,11 @@ static cudaError_t launch_heads(const float* xq, const float* wq,
       B % n_views || (NSRC == 2 && table == nullptr) ||
       !aligned16({xq, wq, k, v, out}))
     return cudaErrorInvalidValue;
-  const dim3 grid((Lq + BM - 1) / BM, H, B);
-#define MDK_HEADS_CASE(DPV)                                                  \
-  case DPV:                                                                  \
-    return launch_heads_dp<DPV, NSRC>(grid, xq, wq, k, v, out, Lq, C, Lk, H, \
+#define MDK_HEADS_CASE(DPV)                                               \
+  case DPV:                                                               \
+    return launch_heads_dp<DPV, NSRC>(xq, wq, k, v, out, B, Lq, C, Lk, H, \
                                       D, scale, table, n_views, stream);
-  switch ((D + 15) / 16 * 16) {
+  switch (depth_instance(D)) {
     MDK_F32_DEPTHS(MDK_HEADS_CASE)
     default:
       return cudaErrorInvalidValue;
@@ -240,11 +260,53 @@ static cudaError_t launch_heads(const float* xq, const float* wq,
 #undef MDK_HEADS_CASE
 }
 
-// A GEMM of f32's 64 x 64 tiles over (M, N): rows of K floats are whole
-// 16-byte vectors.
-static bool gemm_shapes_ok(int M, int N, int K) {
-  return M > 0 && N > 0 && K > 0 && K % 8 == 0 &&
-         (N + BM - 1) / BM <= 65535;
+// The heads kernel's tile at depth instance DP: what 0 the q rows a block
+// owns, 1 the keys of a streamed tile, 2 the blocks an SM holds on the
+// current card (its registers and shared memory); -1 otherwise.
+template <int DP, int NSRC>
+static int heads_tile(int what) {
+  using G = AttendGeom<DP>;
+  if (what == 0) return G::BR;
+  if (what == 1) return G::KT;
+  int blocks = -1;
+  if (what != 2 || heads_opt_in<DP, NSRC>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, heads_f32_kernel<DP, NSRC>, G::NT,
+          AttendSmem<DP>::BYTES) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// A dual product's grid over M rows and N value columns on tile G, its
+// kernel's shared memory opted in once per device.
+template <class G, class Kernel, class... Args>
+static cudaError_t launch_dual(Kernel kern, unsigned& opted_in, int M, int N,
+                               cudaStream_t stream, Args... args) {
+  const cudaError_t e = allow_smem_once(kern, G::SMEM, opted_in);
+  if (e != cudaSuccess) return e;
+  if ((M + G::BM - 1) / G::BM > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
+  kern<<<grid, G::NT, G::SMEM, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <class G>
+static cudaError_t launch_kv_project(const float* x, const float* wk,
+                                     const float* wv, float* k, float* v,
+                                     int M, int Lk, int Ck, int H, int D,
+                                     cudaStream_t stream) {
+  static unsigned opted_in = 0;
+  return launch_dual<G>(kv_project_f32_kernel<G>, opted_in, M, H * D, stream,
+                        x, wk, wv, k, v, M, Lk, Ck, H, D);
+}
+
+template <class G>
+static cudaError_t launch_out_project(const float* o, const float* wout,
+                                      float* out, int M, int K, int N,
+                                      cudaStream_t stream) {
+  static unsigned opted_in = 0;
+  return launch_dual<G>(out_project_f32_kernel<G>, opted_in, M, N / 2,
+                        stream, o, wout, out, M, K, N);
 }
 
 }  // namespace f32
@@ -254,21 +316,30 @@ extern "C" {
 
 // x: (B, Lk, Ck) fp32; wk, wv: (H*D, Ck) nn.Linear layout; k, v: (B, H, Lk,
 // D) fp32 workspaces. Ck and D multiples of 8, pointers 16-byte aligned.
+// The tile is mdk_project_f32_tile's for (B*Lk, H*D).
 int mdk_kv_project_f32(const void* x, const void* wk, const void* wv,
                        void* k, void* v, int B, int Lk, int Ck, int H, int D,
                        void* stream) {
   using namespace mdk::f32;
-  if (B <= 0 || Lk <= 0 || H <= 0 || D <= 0 || D % 8 ||
-      !gemm_shapes_ok(B * Lk, H * D, Ck) || !mdk::aligned16({x, wk, wv, k, v}))
+  if (B <= 0 || Lk <= 0 || H <= 0 || D <= 0 || D % 8 || Ck <= 0 || Ck % 8 ||
+      !mdk::aligned16({x, wk, wv, k, v}))
     return (int)cudaErrorInvalidValue;
-  const int M = B * Lk, N = H * D;
-  const dim3 grid((M + BM - 1) / BM, (N + BM - 1) / BM, 2);
-  kv_project_f32_kernel<<<grid, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wk),
-      static_cast<const float*>(wv), static_cast<float*>(k),
-      static_cast<float*>(v), M, Lk, Ck, H, D);
-  return (int)cudaGetLastError();
+  const int M = B * Lk;
+  const auto X = static_cast<const float*>(x);
+  const auto WK = static_cast<const float*>(wk);
+  const auto WV = static_cast<const float*>(wv);
+  const auto K = static_cast<float*>(k);
+  const auto V = static_cast<float*>(v);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dual_tile(M, H * D)) {
+    case 0:
+      return (int)launch_kv_project<DualWide>(X, WK, WV, K, V, M, Lk, Ck, H,
+                                              D, s);
+    case 1:
+      return (int)launch_kv_project<DualTall>(X, WK, WV, K, V, M, Lk, Ck, H,
+                                              D, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // xq: (B, Lq, C); wq: (H*D, C); k, v: (B, H, Lk, D) from
@@ -301,18 +372,51 @@ int mdk_kvstat_attention_pair_f32(const void* x, const void* wq,
 }
 
 // o: (M, K); wout: (N, K) nn.Linear layout; out: (M, N), all fp32; K and N
-// multiples of 8, pointers 16-byte aligned.
+// multiples of 8, pointers 16-byte aligned. The tile is
+// mdk_project_f32_tile's for (M, N / 2).
 int mdk_out_project_f32(const void* o, const void* wout, void* out, int M,
                         int K, int N, void* stream) {
   using namespace mdk::f32;
-  if (!gemm_shapes_ok(M, N, K) || N % 8 || !mdk::aligned16({o, wout, out}))
+  if (M <= 0 || K <= 0 || K % 8 || N <= 0 || N % 8 ||
+      !mdk::aligned16({o, wout, out}))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BM - 1) / BM);
-  out_project_f32_kernel<<<grid, THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(wout),
-      static_cast<float*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  const auto O = static_cast<const float*>(o);
+  const auto W = static_cast<const float*>(wout);
+  const auto Y = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dual_tile(M, N / 2)) {
+    case 0:
+      return (int)launch_out_project<DualWide>(O, W, Y, M, K, N, s);
+    case 1:
+      return (int)launch_out_project<DualTall>(O, W, Y, M, K, N, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tile the fp32 kv projection (M = B*Lk rows, N = H*D value columns)
+// or out-projection (M rows, N = half its output columns) takes on the
+// current card: 0 the 128 x 32 tile, 1 the 112 x 64 one; -1 when M or N
+// is not positive or the card cannot be asked.
+int mdk_project_f32_tile(int M, int N) {
+  return M > 0 && N > 0 ? mdk::f32::dual_tile(M, N) : -1;
+}
+
+// The tile of K1's (nsrc 1) or K2's (nsrc 2) fp32 heads kernel at head
+// depth D (a multiple of 8, at most 128): what 0 the q rows a block owns,
+// 1 the keys of a streamed tile, 2 the blocks an SM holds on the current
+// card; -1 for anything else.
+int mdk_kvstat_f32_tile(int nsrc, int D, int what) {
+  using namespace mdk::f32;
+#define MDK_TILE_CASE(DPV)                                            \
+  case DPV:                                                           \
+    return nsrc == 1 ? heads_tile<DPV, 1>(what)                       \
+                     : nsrc == 2 ? heads_tile<DPV, 2>(what) : -1;
+  switch (D > 0 && D % 8 == 0 ? depth_instance(D) : 0) {
+    MDK_F32_DEPTHS(MDK_TILE_CASE)
+    default:
+      return -1;
+  }
+#undef MDK_TILE_CASE
 }
 
 }  // extern "C"

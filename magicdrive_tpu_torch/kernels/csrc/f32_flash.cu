@@ -19,16 +19,23 @@
 // flops a (batch, head) row and the backward 2.5 times that, against
 // O((Lq + Lk) D) bytes; at the 67 TFLOP/s fp32 rate the operations bind.
 //
-// Design, on f32_tile.cuh's FFMA tiles (256 threads, 64-row tiles):
-//  * forward: a block owns 64 q rows, q^T staged once; f32::attend streams
-//    the k/v tiles below kv_len;
-//  * dq: a block owns 64 q rows (q^T and dO^T resident, lse and delta per
-//    row) and streams k/v tiles: s = q k^T and dp = dO v^T from k-major
-//    tiles, ds^T through shared memory, dq += ds k on the tile's rows;
-//  * dk/dv: a block owns 64 keys (k^T and v^T resident) and streams q
-//    tiles with their lse and delta: s^T = k q^T and dp^T = v dO^T, p and
-//    ds staged in turn through one shared tile as the A operand of
-//    dv += p^T dO and dk += ds^T q.
+// Design, on f32_tile.cuh's FFMA tiles and attention core (4 warps a block,
+// a warp owning its rows for the whole walk; 32-row streamed tiles at
+// DP <= 48, 16-row tiles deeper):
+//  * forward: a block owns BR q rows, its q tile copied once; f32::attend
+//    streams the k/v tiles below kv_len;
+//  * dq: a block owns BR q rows (q and dO resident, lse and delta of its
+//    rows in registers) and streams k/v tiles through a two-stage cp.async
+//    ring: s = q k^T and dp = dO v^T against the stage's rows, ds through
+//    the warp's tile, k^T transposed from the stage, dq += ds k; two
+//    barriers a tile;
+//  * dk/dv: a block owns BR keys (k and v resident) and streams q/dO tiles
+//    with their lse and delta through the ring: s^T = k q^T and dp^T =
+//    v dO^T, p then ds through the warp's tile as the A operand of dv +=
+//    p^T dO and dk += ds^T q against the stage's transposed q and dO; two
+//    barriers a tile (the warp's tile changes hands within the warp).
+//    Deeper than 48 a thread owns 3 keys (two register blocks of 6 or 8
+//    keys x D / 8 columns would not fit its registers).
 #include "f32_tile.cuh"
 
 namespace mdk {
@@ -41,69 +48,95 @@ struct Args {
   int BH, Lq, Lk, D, kv_len;
 };
 
+// Blocks an SM the backward kernels are compiled for (their register
+// blocks: s, dp and dq; or s^T, dp^T, dk and dv), and the k steps their
+// products unroll (KU of fma_rows).
+constexpr int BWD_MIN_BLOCKS = 2, BWD_KU = 2;
+
+// Keys a thread of the dk/dv kernel owns (rows ty + 4 i, i < TI): two
+// register blocks of 8 keys x D / 8 columns (dk and dv) at the shallow
+// depths; deeper, blocks of 48 keys (3 a thread), which run three an SM up
+// to DP = 80: the path's L = 350 in one wave of 48 x 8 blocks.
+__host__ __device__ constexpr int dkv_ti(int DP) { return DP <= 48 ? 8 : 3; }
+__host__ __device__ constexpr int dkv_min_blocks(int DP) {
+  return DP > 48 && DP <= 80 ? 3 : BWD_MIN_BLOCKS;
+}
+
 template <int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(AttendGeom<DP>::NT, attend_min_blocks(DP))
 flash_fwd_f32_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  using S = AttendSmem<DP>;
-  constexpr int TN = DP / 16;
-  const int q0 = blockIdx.x * BM;
+  using G = AttendGeom<DP>;
+  constexpr int TI = G::TI;
+  const int q0 = blockIdx.x * G::BR;
   const long qb = (long)blockIdx.y * a.Lq * a.D;
   const long kb = (long)blockIdx.y * a.Lk * a.D;
-  load_rows<DP, true, false>(smem + S::QT, nullptr, a.q + qb, q0, a.Lq, a.D);
-  float m[TM], l[TM], o[TM][TN];
-  attend<DP>(smem, a.k + kb, a.v + kb, a.Lk, a.kv_len, a.D, m, l, o);
+  cp_rows<G::NT, G::BR, DP, G::LR>(smem + AttendSmem<DP>::Q, a.q + qb, q0,
+                                   a.Lq, a.D);
+  cp_commit();  // awaited with attend's first stage
+  float m[TI], l[TI], o[TI][G::TD];
+  attend<DP, attend_ku<DP>()>(smem, a.k + kb, a.v + kb, a.Lk, a.kv_len, a.D,
+                              m, l, o);
+  const int arow = warp() * 4 * TI + lane_ty(), tx = lane_tx();
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty() * TM + i;
+  for (int i = 0; i < TI; ++i) {
+    const int r = q0 + arow + 4 * i;
     if (r >= a.Lq) continue;
     const float inv = 1.0f / l[i];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int d = tx() + 16 * j;
+    for (int j = 0; j < G::TD; ++j) {
+      const int d = tx + 8 * j;
       if (d < a.D) a.o_out[qb + (long)r * a.D + d] = o[i][j] * inv;
     }
-    if (tx() == 0) a.lse_out[(long)blockIdx.y * a.Lq + r] = m[i] + logf(l[i]);
+    if (tx == 0) a.lse_out[(long)blockIdx.y * a.Lq + r] = m[i] + logf(l[i]);
   }
 }
 
-// Shared memory of the dq kernel (floats): q^T, dO^T, k^T, v^T [DP][LDT],
-// k [64][DP], ds^T [64][LDT], lse and delta [64].
+// Shared memory of the dq kernel (floats): q and dO [BR][LR], lse and delta
+// [BR], the ring of k/v stages (two of [KT][LR] k rows then v rows), k^T
+// [DP][LT] and the warps' ds tiles [W][4 TI][LP].
 template <int DP>
 struct DqSmem {
-  static constexpr int QT = 0, DOT = QT + DP * LDT, KT = DOT + DP * LDT,
-                       VT = KT + DP * LDT, K = VT + DP * LDT,
-                       DST = K + BM * DP, LSE = DST + BM * LDT,
-                       DELTA = LSE + BM, FLOATS = DELTA + BM;
+  using G = AttendGeom<DP>;
+  static constexpr int Q = 0, DO = Q + G::BR * G::LR, LSE = DO + G::BR * G::LR,
+                       DELTA = LSE + G::BR, RING = DELTA + G::BR,
+                       STAGE = 2 * G::KT * G::LR, KTT = RING + 2 * STAGE,
+                       DS = KTT + DP * G::LT,
+                       FLOATS = DS + G::W * 4 * G::TI * G::LP;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(AttendGeom<DP>::NT, BWD_MIN_BLOCKS)
 flash_dq_f32_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
+  using G = AttendGeom<DP>;
   using S = DqSmem<DP>;
-  constexpr int TN = DP / 16;
-  const int q0 = blockIdx.x * BM, D = a.D;
+  constexpr int NT = G::NT, BR = G::BR, KT = G::KT, TI = G::TI, TJ = G::TJ,
+                TD = G::TD;
+  const int q0 = blockIdx.x * BR, D = a.D;
   const long qb = (long)blockIdx.y * a.Lq * D;
   const long kb = (long)blockIdx.y * a.Lk * D;
   const long rb = (long)blockIdx.y * a.Lq;
-  float* qt = smem + S::QT;
-  float* dot = smem + S::DOT;
-  float* kt = smem + S::KT;
-  float* vt = smem + S::VT;
-  float* ks = smem + S::K;
-  float* dst = smem + S::DST;
-  load_rows<DP, true, false>(qt, nullptr, a.q + qb, q0, a.Lq, D);
-  load_rows<DP, true, false>(dot, nullptr, a.dout + qb, q0, a.Lq, D);
-  {  // delta = rowsum(dO * O): four threads a row, D/4 columns each
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int arow = warp() * 4 * TI + lane_ty(), tx = lane_tx();
+  cp_rows<NT, BR, DP, G::LR>(smem + S::Q, a.q + qb, q0, a.Lq, D);
+  cp_rows<NT, BR, DP, G::LR>(smem + S::DO, a.dout + qb, q0, a.Lq, D);
+  cp_kv_stage<DP>(smem + S::RING, a.k + kb, a.v + kb, 0, a.Lk, D);
+  cp_commit();
+  // delta = rowsum(dO * O): four threads a row, every fourth float4 each
+  for (int r = threadIdx.x >> 2; r < BR; r += NT / 4) {
+    const int part = threadIdx.x & 3;
     const bool in = q0 + r < a.Lq;
     float sum = 0.0f;
     if (in) {
-      const float* dor = a.dout + qb + (long)(q0 + r) * D;
-      const float* orow = a.o + qb + (long)(q0 + r) * D;
-      for (int d = part; d < D; d += 4) sum += __ldg(dor + d) * __ldg(orow + d);
+      const float4* dor =
+          reinterpret_cast<const float4*>(a.dout + qb + (long)(q0 + r) * D);
+      const float4* orow =
+          reinterpret_cast<const float4*>(a.o + qb + (long)(q0 + r) * D);
+      for (int c = part; c < D / 4; c += 4) {
+        const float4 x = __ldg(dor + c), y = __ldg(orow + c);
+        sum += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+      }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -113,130 +146,163 @@ flash_dq_f32_kernel(Args a) {
       if (in) a.delta_out[rb + q0 + r] = sum;
     }
   }
-  float dq[TM][TN];
+  __syncthreads();  // the statistics are in
+  float lse2[TI], delta[TI];
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    lse2[i] = smem[S::LSE + arow + 4 * i] * LOG2E;
+    delta[i] = smem[S::DELTA + arow + 4 * i];
+  }
+  const float* qa = smem + S::Q + arow * G::LR;
+  const float* da = smem + S::DO + arow * G::LR;
+  float* kt = smem + S::KTT;
+  float* ds = smem + S::DS + warp() * 4 * TI * G::LP;
+  float dq[TI][TD];
   zero(dq);
-  for (int t0 = 0; t0 < a.kv_len; t0 += BM) {
-    __syncthreads();  // the statistics are in; every thread is done with
-                      // the previous tile
-    load_rows<DP, true, true>(kt, ks, a.k + kb, t0, a.Lk, D);
-    load_rows<DP, true, false>(vt, nullptr, a.v + kb, t0, a.Lk, D);
-    __syncthreads();
-    float s[TM][4], dp[TM][4];
+  const int T = (a.kv_len + KT - 1) / KT;
+  for (int t = 0; t < T; ++t) {
+    cp_wait<0>();
+    __syncthreads();  // stage t is in; every thread is done with t - 1
+    if (t + 1 < T)
+      cp_kv_stage<DP>(smem + S::RING + ((t + 1) & 1) * S::STAGE, a.k + kb,
+                      a.v + kb, (t + 1) * KT, a.Lk, D);
+    cp_commit();
+    const float* ks = smem + S::RING + (t & 1) * S::STAGE;
+    transpose<NT, KT, DP, G::LR, G::LT>(kt, ks);
+    float s[TI][TJ], dp[TI][TJ];
     zero(s);
     zero(dp);
-    fma_tile<4, DP>(s, qt, LDT, kt, LDT);
-    fma_tile<4, DP>(dp, dot, LDT, vt, LDT);
+    fma_rows<TI, TJ, TJ, 0, G::LR, G::LR, DP, BWD_KU>(s, qa, ks + tx * G::LR);
+    fma_rows<TI, TJ, TJ, 0, G::LR, G::LR, DP, BWD_KU>(
+        dp, da, ks + (KT + tx) * G::LR);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty() * TM + i;
-      const float lse = smem[S::LSE + r], delta = smem[S::DELTA + r];
+    for (int j = 0; j < TJ; ++j) {
+      const bool key = t * KT + tx + 8 * j < a.kv_len;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p =
-            t0 + tx() + 16 * j < a.kv_len ? expf(s[i][j] - lse) : 0.0f;
-        s[i][j] = p * (dp[i][j] - delta);  // ds
+      for (int i = 0; i < TI; ++i) {
+        const float p = key ? exp2f(fmaf(s[i][j], LOG2E, -lse2[i])) : 0.0f;
+        s[i][j] = p * (dp[i][j] - delta[i]);  // ds
       }
     }
-    put_t(dst, s);
-    __syncthreads();
-    fma_tile<TN, BM>(dq, dst, LDT, ks, DP);
+    put_rows<TI, TJ, G::LP>(ds, s);
+    __syncthreads();  // k^T is in (and the warp's ds)
+    fma_rows<TI, TD, TD, 0, G::LP, G::LT, KT, BWD_KU>(
+        dq, ds + lane_ty() * G::LP, kt + tx * G::LT);
   }
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty() * TM + i;
+  for (int i = 0; i < TI; ++i) {
+    const int r = q0 + arow + 4 * i;
     if (r >= a.Lq) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int d = tx() + 16 * j;
+    for (int j = 0; j < TD; ++j) {
+      const int d = tx + 8 * j;
       if (d < D) a.d0[qb + (long)r * D + d] = dq[i][j];
     }
   }
 }
 
-// Shared memory of the dk/dv kernel (floats): k^T, v^T, q^T, dO^T
-// [DP][LDT], q and dO [64][DP], the p / ds tile [64][LDT], lse and delta
-// [64].
+// Shared memory of the dk/dv kernel (floats): k and v [BR][LR], the ring
+// of q/dO stages (two of [KT][LR] q rows, dO rows, then KT lse and KT
+// delta), q^T and dO^T [DP][LT] and the warps' p / ds tiles
+// [W][4 TI][LP].
 template <int DP>
 struct DkvSmem {
-  static constexpr int KT = 0, VT = KT + DP * LDT, QT = VT + DP * LDT,
-                       DOT = QT + DP * LDT, Q = DOT + DP * LDT,
-                       DO = Q + BM * DP, P = DO + BM * DP, LSE = P + BM * LDT,
-                       DELTA = LSE + BM, FLOATS = DELTA + BM;
+  using G = AttnGeom<DP, dkv_ti(DP)>;
+  static constexpr int K = 0, V = K + G::BR * G::LR, RING = V + G::BR * G::LR,
+                       STAGE = 2 * G::KT * G::LR + 2 * G::KT,
+                       QT = RING + 2 * STAGE, DOT = QT + DP * G::LT,
+                       PB = DOT + DP * G::LT,
+                       FLOATS = PB + G::W * 4 * G::TI * G::LP;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(AttnGeom<DP, dkv_ti(DP)>::NT,
+                                  dkv_min_blocks(DP))
 flash_dkv_f32_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
+  using G = AttnGeom<DP, dkv_ti(DP)>;
   using S = DkvSmem<DP>;
-  constexpr int TN = DP / 16;
-  const int j0 = blockIdx.x * BM, D = a.D;
+  constexpr int NT = G::NT, BR = G::BR, KT = G::KT, TI = G::TI, TJ = G::TJ,
+                TD = G::TD, LR = G::LR;
+  const int j0 = blockIdx.x * BR, D = a.D;
   const long qb = (long)blockIdx.y * a.Lq * D;
   const long kb = (long)blockIdx.y * a.Lk * D;
   const long rb = (long)blockIdx.y * a.Lq;
-  float* kt = smem + S::KT;
-  float* vt = smem + S::VT;
-  float* qt = smem + S::QT;
-  float* dot = smem + S::DOT;
-  float* qs = smem + S::Q;
-  float* dos = smem + S::DO;
-  float* ps = smem + S::P;
-  float dk[TM][TN], dv[TM][TN];
+  const int ty = lane_ty(), tx = lane_tx();
+  const int arow = warp() * 4 * TI + ty;  // the thread's first key
+  float dk[TI][TD], dv[TI][TD];
   zero(dk);
   zero(dv);
   if (j0 < a.kv_len) {  // a tile of masked keys only has zero gradients
-    load_rows<DP, true, false>(kt, nullptr, a.k + kb, j0, a.Lk, D);
-    load_rows<DP, true, false>(vt, nullptr, a.v + kb, j0, a.Lk, D);
-    for (int i0 = 0; i0 < a.Lq; i0 += BM) {
-      __syncthreads();  // every thread is done with the previous q tile
-      load_rows<DP, true, true>(qt, qs, a.q + qb, i0, a.Lq, D);
-      load_rows<DP, true, true>(dot, dos, a.dout + qb, i0, a.Lq, D);
-      if (threadIdx.x < BM) {
-        const int i = i0 + threadIdx.x;
-        smem[S::LSE + threadIdx.x] = i < a.Lq ? __ldg(a.lse_in + rb + i) : 0.0f;
-        smem[S::DELTA + threadIdx.x] =
-            i < a.Lq ? __ldg(a.delta_in + rb + i) : 0.0f;
-      }
-      __syncthreads();
+    auto load = [&](int t) {
+      float* st = smem + S::RING + (t & 1) * S::STAGE;
+      cp_rows<NT, KT, DP, LR>(st, a.q + qb, t * KT, a.Lq, D);
+      cp_rows<NT, KT, DP, LR>(st + KT * LR, a.dout + qb, t * KT, a.Lq, D);
+      cp_vec<KT>(st + 2 * KT * LR, a.lse_in + rb, t * KT, a.Lq);
+      cp_vec<KT>(st + 2 * KT * LR + KT, a.delta_in + rb, t * KT, a.Lq);
+    };
+    cp_rows<NT, BR, DP, LR>(smem + S::K, a.k + kb, j0, a.Lk, D);
+    cp_rows<NT, BR, DP, LR>(smem + S::V, a.v + kb, j0, a.Lk, D);
+    load(0);
+    cp_commit();
+    const float* ka = smem + S::K + arow * LR;
+    const float* va = smem + S::V + arow * LR;
+    float* qt = smem + S::QT;
+    float* dot = smem + S::DOT;
+    float* pb = smem + S::PB + warp() * 4 * TI * G::LP;
+    const int T = (a.Lq + KT - 1) / KT;
+    for (int t = 0; t < T; ++t) {
+      cp_wait<0>();
+      __syncthreads();  // stage t is in; every thread is done with t - 1
+      if (t + 1 < T) load(t + 1);
+      cp_commit();
+      const float* qs = smem + S::RING + (t & 1) * S::STAGE;
+      const float* dos = qs + KT * LR;
+      const float* lse = qs + 2 * KT * LR;
+      transpose<NT, KT, DP, LR, G::LT>(qt, qs);
+      transpose<NT, KT, DP, LR, G::LT>(dot, dos);
       // s^T and dp^T: rows are the block's keys, columns the tile's q rows
-      float st[TM][4], dpt[TM][4];
+      float st[TI][TJ], dpt[TI][TJ];
       zero(st);
       zero(dpt);
-      fma_tile<4, DP>(st, kt, LDT, qt, LDT);
-      fma_tile<4, DP>(dpt, vt, LDT, dot, LDT);
+      fma_rows<TI, TJ, TJ, 0, LR, LR, DP, BWD_KU>(st, ka, qs + tx * LR);
+      fma_rows<TI, TJ, TJ, 0, LR, LR, DP, BWD_KU>(dpt, va, dos + tx * LR);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = tx() + 16 * j;
-        const float lse = smem[S::LSE + i], delta = smem[S::DELTA + i];
-        const bool row = i0 + i < a.Lq;
+      for (int j = 0; j < TJ; ++j) {
+        const int c = tx + 8 * j;
+        const bool row = t * KT + c < a.Lq;
+        const float l2 = lse[c] * LOG2E, delta = lse[KT + c];
 #pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const bool key = j0 + ty() * TM + r < a.kv_len;
-          const float p = row && key ? expf(st[r][j] - lse) : 0.0f;
-          st[r][j] = p;
-          dpt[r][j] = p * (dpt[r][j] - delta);  // ds^T
+        for (int i = 0; i < TI; ++i) {
+          const bool key = j0 + arow + 4 * i < a.kv_len;
+          const float p =
+              row && key ? exp2f(fmaf(st[i][j], LOG2E, -l2)) : 0.0f;
+          st[i][j] = p;
+          dpt[i][j] = p * (dpt[i][j] - delta);  // ds^T
         }
       }
-      put_t(ps, st);  // ps[i][j] = p
-      __syncthreads();
-      fma_tile<TN, BM>(dv, ps, LDT, dos, DP);
-      __syncthreads();  // every thread is done with p
-      put_t(ps, dpt);   // ps[i][j] = ds
-      __syncthreads();
-      fma_tile<TN, BM>(dk, ps, LDT, qs, DP);
+      put_rows<TI, TJ, G::LP>(pb, st);
+      __syncthreads();  // q^T and dO^T are in (and the warp's p)
+      fma_rows<TI, TD, TD, 0, G::LP, G::LT, KT, BWD_KU>(dv, pb + ty * G::LP,
+                                                       dot + tx * G::LT);
+      __syncwarp();  // the warp is done with p
+      put_rows<TI, TJ, G::LP>(pb, dpt);
+      __syncwarp();
+      fma_rows<TI, TD, TD, 0, G::LP, G::LT, KT, BWD_KU>(dk, pb + ty * G::LP,
+                                                       qt + tx * G::LT);
     }
   }
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int j = j0 + ty() * TM + r;
+  for (int i = 0; i < TI; ++i) {
+    const int j = j0 + arow + 4 * i;
     if (j >= a.Lk) continue;
 #pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int d = tx() + 16 * c;
+    for (int c = 0; c < TD; ++c) {
+      const int d = tx + 8 * c;
       if (d < D) {
-        a.d0[kb + (long)j * D + d] = dk[r][c];
-        a.d1[kb + (long)j * D + d] = dv[r][c];
+        a.d0[kb + (long)j * D + d] = dk[i][c];
+        a.d1[kb + (long)j * D + d] = dv[i][c];
       }
     }
   }
@@ -244,30 +310,44 @@ flash_dkv_f32_kernel(Args a) {
 
 enum class Op { kFwd, kDq, kDkv };
 
+// A kernel of op at depth instance DP with its shared memory opted in once
+// per device: -> (kernel, threads, rows a block, dynamic bytes)
 template <int DP>
-cudaError_t launch_dp(Op op, const Args& a, cudaStream_t stream) {
-  const int rows = op == Op::kDkv ? a.Lk : a.Lq;
-  const dim3 grid((rows + BM - 1) / BM, a.BH);
-  cudaError_t e;
+struct Launch {
+  void (*kern)(Args);
+  int threads, rows;
+  size_t bytes;
+};
+
+template <int DP>
+Launch<DP> launch_of(Op op) {
   switch (op) {
     case Op::kFwd:
-      if ((e = allow_smem(flash_fwd_f32_kernel<DP>, AttendSmem<DP>::BYTES)))
-        return e;
-      flash_fwd_f32_kernel<DP><<<grid, THREADS, AttendSmem<DP>::BYTES,
-                                 stream>>>(a);
-      break;
+      return {flash_fwd_f32_kernel<DP>, AttendGeom<DP>::NT,
+              AttendGeom<DP>::BR, AttendSmem<DP>::BYTES};
     case Op::kDq:
-      if ((e = allow_smem(flash_dq_f32_kernel<DP>, DqSmem<DP>::BYTES)))
-        return e;
-      flash_dq_f32_kernel<DP><<<grid, THREADS, DqSmem<DP>::BYTES, stream>>>(a);
-      break;
-    case Op::kDkv:
-      if ((e = allow_smem(flash_dkv_f32_kernel<DP>, DkvSmem<DP>::BYTES)))
-        return e;
-      flash_dkv_f32_kernel<DP><<<grid, THREADS, DkvSmem<DP>::BYTES,
-                                 stream>>>(a);
-      break;
+      return {flash_dq_f32_kernel<DP>, AttendGeom<DP>::NT,
+              AttendGeom<DP>::BR, DqSmem<DP>::BYTES};
+    default:
+      return {flash_dkv_f32_kernel<DP>, DkvSmem<DP>::G::NT,
+              DkvSmem<DP>::G::BR, DkvSmem<DP>::BYTES};
   }
+}
+
+template <int DP>
+cudaError_t opt_in(Op op, const Launch<DP>& l) {
+  static unsigned opted_in[3] = {0, 0, 0};
+  return allow_smem_once(l.kern, l.bytes, opted_in[(int)op]);
+}
+
+template <int DP>
+cudaError_t launch_dp(Op op, const Args& a, cudaStream_t stream) {
+  const Launch<DP> l = launch_of<DP>(op);
+  const cudaError_t e = opt_in<DP>(op, l);
+  if (e != cudaSuccess) return e;
+  const int rows = op == Op::kDkv ? a.Lk : a.Lq;
+  const dim3 grid((rows + l.rows - 1) / l.rows, a.BH);
+  l.kern<<<grid, l.threads, l.bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -280,12 +360,42 @@ cudaError_t launch(Op op, const Args& a, cudaStream_t stream) {
 #define MDK_FLASH_CASE(DPV) \
   case DPV:                 \
     return launch_dp<DPV>(op, a, stream);
-  switch ((a.D + 15) / 16 * 16) {
+  switch (depth_instance(a.D)) {
     MDK_F32_DEPTHS(MDK_FLASH_CASE)
     default:
       return cudaErrorInvalidValue;
   }
 #undef MDK_FLASH_CASE
+}
+
+// The tile of op's kernel at depth D: what 0 the rows a block owns, 1 the
+// rows of a streamed tile, 2 the blocks an SM holds (the card's occupancy
+// for its registers and shared memory); -1 for what it does not take.
+template <int DP>
+int tile_of(Op op, int what) {
+  const Launch<DP> l = launch_of<DP>(op);
+  if (what == 0) return l.rows;
+  if (what == 1)
+    return op == Op::kDkv ? DkvSmem<DP>::G::KT : AttendGeom<DP>::KT;
+  int blocks = -1;
+  if (what != 2 || opt_in<DP>(op, l) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kern,
+                                                    l.threads, l.bytes) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int tile(Op op, int D, int what) {
+#define MDK_TILE_CASE(DPV) \
+  case DPV:                \
+    return tile_of<DPV>(op, what);
+  switch (D > 0 && D % 8 == 0 ? depth_instance(D) : 0) {
+    MDK_F32_DEPTHS(MDK_TILE_CASE)
+    default:
+      return -1;
+  }
+#undef MDK_TILE_CASE
 }
 
 }  // namespace
@@ -349,6 +459,15 @@ int mdk_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
   a.BH = BH, a.Lq = Lq, a.Lk = Lk, a.D = D, a.kv_len = kv_len;
   return (int)mdk::f32::launch(mdk::f32::Op::kDkv, a,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The tile of the fp32 flash kernels at head depth D (a multiple of 8, at
+// most 128): op 0 the forward, 1 dq, 2 dk/dv; what 0 the rows a block
+// owns (q rows, keys for dk/dv), 1 the rows of a streamed tile, 2 the
+// blocks an SM holds on the current card; -1 for anything else.
+int mdk_flash_f32_tile(int op, int D, int what) {
+  if (op < 0 || op > 2) return -1;
+  return mdk::f32::tile(static_cast<mdk::f32::Op>(op), D, what);
 }
 
 }  // extern "C"

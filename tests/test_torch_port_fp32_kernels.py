@@ -78,6 +78,124 @@ def test_fp32_ff_launcher_has_the_bf16_instances():
     assert {chip_smoke.ff_instance(C) for C in widths} == compiled
 
 
+def _f32_depths():
+    """The depth instances of csrc/f32_tile.cuh MDK_F32_DEPTHS."""
+    src = (build.CSRC / "f32_tile.cuh").read_text()
+    block = re.search(r"#define MDK_F32_DEPTHS\(CASE\)(.*?)\n\n", src,
+                      re.S).group(1)
+    return tuple(int(n) for n in re.findall(r"CASE\((\d+)\)", block))
+
+
+def test_fp32_attention_instances_match_the_spill_gate():
+    """Every depth instance of MDK_F32_DEPTHS (the one list that
+    ``chip_smoke.F32_DEPTH_INSTANCES`` mirrors) is compiled for K1/K2's
+    heads (NSRC 1 and 2) and for K5, K6's dq and its dk/dv, each
+    projection on its two dual tiles, and ``chip_smoke.SPILL_GATED``
+    counts exactly those entry functions, so a missing or spilling
+    instance fails the card's build."""
+    import chip_smoke
+
+    depths = _f32_depths()
+    assert depths == chip_smoke.F32_DEPTH_INSTANCES
+    att = (build.CSRC / "f32_attention.cu").read_text()
+    flash = (build.CSRC / "f32_flash.cu").read_text()
+    assert "MDK_F32_DEPTHS(MDK_HEADS_CASE)" in att
+    assert "MDK_F32_DEPTHS(MDK_FLASH_CASE)" in flash
+    assert set(re.findall(r"launch_heads<(\d)>\(", att)) == {"1", "2"}
+    tiles = {k: set(re.findall(rf"launch_{k}<(Dual\w+)>\(", att))
+             for k in ("kv_project", "out_project")}
+    assert tiles == dict.fromkeys(tiles, {"DualWide", "DualTall"})
+    kernels = re.findall(r"^(flash_\w+_f32_kernel)\(Args a\)", flash, re.M)
+    assert kernels == ["flash_fwd_f32_kernel", "flash_dq_f32_kernel",
+                       "flash_dkv_f32_kernel"]
+    assert chip_smoke.SPILL_GATED["f32_attention.cu"] == 2 * len(depths) + 4
+    assert chip_smoke.SPILL_GATED["f32_flash.cu"] == 3 * len(depths)
+    assert [chip_smoke.f32_depth_instance(d) for d in range(8, 129, 8)] == [
+        next(i for i in depths if i >= d) for d in range(8, 129, 8)]
+
+
+def test_fp32_attention_tile_mirrors_the_geometry():
+    """``chip_smoke.f32_attention_tile`` restates csrc/f32_tile.cuh
+    AttnGeom (4 warps, 4 TI rows a warp; 32-row streamed tiles up to the
+    instance 48, 16-row tiles deeper) with the rows a thread of the heads,
+    K5 and dq (``attend_ti``) and of dk/dv (``dkv_ti``); the card holds the
+    two to the library's ``mdk_*_f32_tile`` entries in
+    ``check_f32_tiles``."""
+    import chip_smoke
+
+    src = (build.CSRC / "f32_tile.cuh").read_text()
+    assert "SHALLOW = DP <= 48" in src
+    assert "W = 4, TI = TI_" in src
+    assert "KT = SHALLOW ? 32 : 16" in src
+    assert "BR = 4 * TI * W" in src
+    assert "return DP <= 48 ? 8 : 6;" in src
+    assert "return DP <= 48 ? 8 : 3;" in (build.CSRC / "f32_flash.cu"
+                                          ).read_text()
+    for kernel in chip_smoke.F32_ATTENTION_KERNELS:
+        for dp in _f32_depths():
+            ti = 8 if dp <= 48 else 3 if kernel == "dkv" else 6
+            assert chip_smoke.f32_attention_tile(kernel, dp) == (
+                16 * ti, 32 if dp <= 48 else 16)
+
+
+@pytest.mark.parametrize("kernel", ["heads", "fwd", "dq", "dkv"])
+def test_depth_checks_reach_every_fp32_tile_raggedly(kernel):
+    """The fp32 depth checks (``check_attention_depths`` for the heads,
+    ``check_flash_depths`` for K5 and K6) run every depth instance, so
+    every tile ``f32_attention_tile`` returns, those of the 224x400 path's
+    attentions and of FLASH_SHAPES among them, and their q rows, keys and
+    (for dk/dv) key blocks end ragged against each tile's block and
+    streamed tile, with keys masked past kv_len < Lk for K6."""
+    import chip_smoke
+
+    depths = (chip_smoke.ATTENTION_DEPTHS if kernel == "heads"
+              else chip_smoke.FLASH_DEPTHS)
+    assert {chip_smoke.f32_depth_instance(d) for d in depths} == set(
+        chip_smoke.F32_DEPTH_INSTANCES)
+    reached = {chip_smoke.f32_attention_tile(kernel, d) for d in depths}
+    path = {D for *_, D in chip_smoke._path_attentions()} | {
+        D for *_, D, _ in chip_smoke.FLASH_SHAPES}
+    assert path == {40, 80}
+    assert {chip_smoke.f32_attention_tile(kernel, d) for d in path} <= \
+        reached
+    BH, Lq, Lk, kv_len = chip_smoke.FLASH_DEPTH_SHAPE
+    assert kv_len < Lk
+    for rows, tile in reached:
+        if kernel == "heads":  # K1 at Lq=200, Lk=150; the pair at L=150
+            assert 200 % rows and 150 % rows and 150 % tile
+        elif kernel == "dkv":  # key blocks, q tiles
+            assert Lk % rows and kv_len % rows and Lq % tile
+        else:  # q blocks, key tiles
+            assert Lq % rows and kv_len % tile
+
+
+def test_dual_tile_mirror_and_projection_checks_reach_both_tiles():
+    """``chip_smoke.dual_tile`` restates csrc/f32_tile.cuh's DualWide and
+    DualTall (rows, value columns, blocks an SM, rate); the fp32 kv
+    projection takes both at the 224x400 path's shapes (DualTall at
+    attn1 L=1400 over 12 views, where DualWide's grid would take a fourth
+    wave), and ``check_projection_tiles`` gates each projection on each
+    tile."""
+    import chip_smoke
+
+    src = (build.CSRC / "f32_tile.cuh").read_text()
+    got = []
+    for name in ("DualWide", "DualTall"):
+        ti, wm, tv, wn, _, blocks, _, eff = map(int, re.search(
+            rf"using {name} = DualTile<([^>]*)>;", src).group(1).split(","))
+        got.append((4 * ti * wm, 8 * tv * wn, blocks, eff))
+    assert tuple(got) == chip_smoke.DUAL_TILES
+    kv = {chip_smoke.dual_tile(12 * Lk, C)
+          for _, _, Lk, C, _, _ in chip_smoke._path_attentions()}
+    assert kv == {0, 1}
+    assert [chip_smoke.dual_tile(B * Lk, H * D) for B, Lk, _, H, D in
+            chip_smoke.KV_PROJECTION_TILES] == [0, 1]
+    assert [chip_smoke.dual_tile(M, N // 2) for M, _, N in
+            chip_smoke.OUT_PROJECTION_TILES] == [0, 1]
+    assert all(N % 8 == 0 and K % 8 == 0
+               for _, K, N in chip_smoke.OUT_PROJECTION_TILES)
+
+
 def test_ff_training_shapes_are_the_fp32_steps():
     """``chip_smoke.FF_SHAPES``, where K3's and K4's fp32 instances are
     also gated and timed over TRAIN_VIEWS (and beside their parent by
