@@ -194,8 +194,10 @@ prints no result line. Each phase logs its wall seconds as it ends
      training step's shapes, timed over FF_F32_ITERS calls beside their
      composition, and both K4 tiles gated, check_geglu_tiles; the
      attention kernels' and projections' tiles against their mirrors,
-     each path shape's tile and waves printed, both projection tiles
-     gated, check_f32_tiles), the same gate held once to
+     each path grid's tile and waves printed for the 12-view request and
+     the B=3 step, every projection tile and K5 geometry gated and one
+     input bitwise equal on each, each one's rate measured beside the
+     rate its choice assumes, check_f32_tiles), the same gate held once to
      F.linear with TF32 on (tf32_line: it must fail), the fp32 gradients of
      K1-K4, K8 and the pair against the plain fp32 backward (GRAD_TOL_F32);
      ``cli.train`` in fp32 (``runner.mixed_precision=no``, F32_CLI_ARGS:
@@ -215,8 +217,11 @@ prints no result line. Each phase logs its wall seconds as it ends
      s/step and K1/K2 launches printed;
  10. multi-GPU (run_multi_gpu), across processes on the one card, each
      child under a time limit (RANK_TIMEOUT) and any child's failure the
-     phase's: ``python -m magicdrive_tpu_torch.cli.train`` as an NCCL job
-     of one rank (the backend and the all-reduces from its train.log, its
+     phase's, every model but the evaluation's run at full width with
+     MGPU_LAYERS_PER_BLOCK layers a block in its UNet and ControlNet (the
+     presets' 2; mgpu_preset): ``python -m magicdrive_tpu_torch.cli.train``
+     as an NCCL job of one rank (the backend and the all-reduces from its
+     train.log, its
      losses against the same run without a process group); then two gloo
      ranks (``python chip_smoke.py --rank ...``, loading the library the
      build phase made): dp=2 training in both fused modes against one
@@ -272,6 +277,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -362,11 +368,12 @@ def spills(compiler_log: str, source: str) -> dict:
 # the sources whose every entry function must not spill, with the entry
 # functions' count: the wgmma kernels (K3's five instances and K4,
 # geglu.cu; the out-projection of K8 and its pair) and the fp32 instances
-# (the kv and out projections on two tiles each and K1/K2's heads at the 9
-# depth instances of F32_DEPTH_INSTANCES, K4's two tiles and K3's five
-# instances, and K5 and K6's two launches at the 9 depths)
+# (the kv and out projections on the four DUAL_TILES each and K1/K2's heads
+# at the 9 depth instances of F32_DEPTH_INSTANCES, K4's two tiles and K3's
+# five instances, and K5 in its two geometries and K6's two launches at
+# the 9 depths)
 SPILL_GATED = {"geglu.cu": 6, "fused_out_attention.cu": 1,
-               "f32_attention.cu": 22, "f32_geglu.cu": 7, "f32_flash.cu": 27}
+               "f32_attention.cu": 26, "f32_geglu.cu": 7, "f32_flash.cu": 36}
 
 
 def build_kernels(spill_gate: bool = True) -> None:
@@ -1004,6 +1011,10 @@ def check_kernels(dtype=torch.bfloat16, cases=None):
     return rows
 
 
+# an H100's SMs, on which the fp32 kernels' tile choices are mirrored
+H100_SMS = 132
+
+
 # (BH, Lq, Lk, D, kv_len) of the flash kernels: on the training path the
 # backward of K1/K8 at attn1 on levels 0 and 1 and at attn2 on level 0, and
 # of each K2/K8-pair branch (6 views of 8 heads); then one shape that is on
@@ -1013,6 +1024,11 @@ def check_kernels(dtype=torch.bfloat16, cases=None):
 FLASH_SHAPES = ((48, 1400, 1400, 40, 1400), (48, 350, 350, 80, 350),
                 (48, 1400, 238, 40, 238), (48, 1400, 256, 40, 238),
                 (16, 8000, 8000, 40, 8000))
+# (BH, Lq, Lk, D, kv_len) of K5 in the fp32 CLI's B=3 training step (18
+# views of 8 heads) at attn1 on levels 0 and 1, whose grids take another
+# K5 geometry than BH=48's (``fwd_geometry``): gated and timed at fp32
+FLASH_TRAIN_SHAPES = ((144, 1400, 1400, 40, 1400),
+                      (144, 350, 350, 80, 350))
 
 
 def _sdpa_calls(q, k, v, do):
@@ -1096,6 +1112,23 @@ def check_flash_kernels(dtype=torch.bfloat16):
         if not same:
             raise AssertionError(f"K6 {label}: two calls on the same inputs "
                                  "differ")
+    for BH, Lq, Lk, D, kv_len in FLASH_TRAIN_SHAPES if dtype == \
+            torch.float32 else ():
+        label = f"BH={BH} Lq={Lq} Lk={Lk} D={D}"
+        q = rnd(BH, Lq, D, scale=D ** -0.5)
+        k, v = rnd(BH, Lk, D), rnd(BH, Lk, D)
+        args = (q, k, v, kv_len)
+        kern = functools.partial(dispatch.flash_attention_fwd, *args)
+        got = kern()
+        err, scale = _worst(got, reference.flash_attention_fwd(*args))
+        row = _row(rows, "flash_attention_fwd", label, args, got, err, kern,
+                   functools.partial(reference.flash_attention_fwd, *args),
+                   _sdpa_calls(q, k, v, q)[0], iters)
+        if not all(torch.equal(a, b) for a, b in zip(kern(), got)):
+            raise AssertionError(f"K5 {label}: two calls on the same inputs "
+                                 "differ")
+        _gate(_key("flash_attention_fwd", dtype), label, err, scale,
+              _tol(dtype), row, "two calls bitwise equal")
     return rows
 
 
@@ -1110,19 +1143,34 @@ FLASH_DEPTHS = (8, 32, 40, 48, 64, 80, 88, 104, 128)
 
 # (BH, Lq, Lk, kv_len) of check_flash_depths: q and key tails ragged
 # against every block and streamed tile (``f32_attention_tile``; 200 = 128
-# + 72 = 2 x 96 + 8 = 4 x 48 + 8, 150 keys below kv_len)
+# + 72 = 3 x 64 + 8 = 2 x 96 + 8 = 4 x 48 + 8, 150 keys below kv_len)
 FLASH_DEPTH_SHAPE = (4, 200, 200, 150)
+
+
+def flash_depth_grids(D: int, sms: int = H100_SMS) -> dict:
+    """{geometry: BH} of the fp32 K5's depth checks at depth D: for each of
+    its geometries (``f32_fwd_geometries``) the least BH >=
+    FLASH_DEPTH_SHAPE's at which ``fwd_geometry`` takes it at that shape's
+    Lq."""
+    out = {}
+    for BH in range(FLASH_DEPTH_SHAPE[0], 400):
+        out.setdefault(fwd_geometry(BH, FLASH_DEPTH_SHAPE[1], D, sms), BH)
+    return out
 
 
 def check_flash_depths(dtype=torch.bfloat16) -> None:
     """K5 and the whole K6 at every depth of FLASH_DEPTHS, at a small shape
     with ragged q and key tails, against their plain versions in fp32;
-    ``dtype``: as ``check_kernels``."""
+    ``dtype``: as ``check_kernels``. At fp32 K5 also on each of its
+    geometries (``flash_depth_grids``: the same heads first in grids of
+    more heads), two calls bitwise equal, and the first heads bitwise equal
+    on every geometry (a q row's output depends on its own row alone)."""
     from magicdrive_tpu_torch.kernels import dispatch, reference
 
     rnd = _rnd(torch.Generator(device="cuda").manual_seed(3), dtype)
     tol, key = _tol(dtype), functools.partial(_key, dtype=dtype)
     BH, Lq, Lk, kv_len = FLASH_DEPTH_SHAPE
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for D in FLASH_DEPTHS:
         label = f"BH={BH} Lq={Lq} Lk={Lk} D={D} kv_len={kv_len}"
         q = rnd(BH, Lq, D, scale=D ** -0.5)
@@ -1136,6 +1184,34 @@ def check_flash_depths(dtype=torch.bfloat16) -> None:
         err, scale = _worst(dispatch.flash_attention_bwd(*bwd_args),
                             reference.flash_attention_bwd(*map(_f32, bwd_args)))
         _gate(key("flash_attention_bwd"), label, err, scale, tol)
+        if dtype != torch.float32:
+            continue
+        grids = flash_depth_grids(D, sms)
+        big = max(grids.values())
+        qs = rnd(big, Lq, D, scale=D ** -0.5)
+        ks, vs = rnd(big, Lk, D), rnd(big, Lk, D)
+        first = {}
+        for g, bh in sorted(grids.items()):
+            args = (qs[:bh], ks[:bh], vs[:bh], kv_len)
+            got = dispatch.flash_attention_fwd(*args)
+            label = (f"BH={bh} Lq={Lq} Lk={Lk} D={D} kv_len={kv_len} "
+                     f"geometry {g}")
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, dispatch.flash_attention_fwd(*args))):
+                raise AssertionError(f"K5 {label}: two calls on the same "
+                                     "inputs differ")
+            err, scale = _worst(got, reference.flash_attention_fwd(*args))
+            _gate(key("flash_attention_fwd"), label, err, scale, tol,
+                  note="two calls bitwise equal")
+            first[g] = tuple(t[:BH] for t in got)
+        outs = list(first.values())
+        same = all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0]))
+        log(f"  {key('flash_attention_fwd')} D={D}: the first {BH} heads on "
+            f"geometries {sorted(first)} "
+            f"{'bitwise equal ok' if same else 'DIFFERENT FAIL'}")
+        if not same:
+            raise AssertionError(f"K5 D={D}: the geometries' outputs differ")
 
 
 # one head depth for each instance of K1's and K2's launcher (the depth
@@ -1287,42 +1363,133 @@ def f32_depth_instance(D: int) -> int:
     return next(d for d in F32_DEPTH_INSTANCES if d >= D)
 
 
-def f32_attention_tile(kernel: str, D: int) -> tuple:
+# shared memory an SM holds for its blocks (bytes), and what each block
+# takes beyond its own (csrc/f32_tile.cuh ``smem_blocks``)
+SM_SMEM, BLOCK_SMEM_RESERVE = 233472, 1024
+# K5's geometry 1 rate in percent of its geometry 0's, at the shallow
+# (instance <= 48) and the deeper depths (csrc/f32_flash.cu FwdGeom EFF;
+# measured by ``fwd_rates``)
+F32_FWD_EFF = {True: 89, False: 81}
+# the rate of a lone block on an SM in percent of a full SM's
+# (csrc/f32_tile.cuh LONE_RATE)
+LONE_RATE = 70
+
+
+def sm_rounds(blocks: int, sms: int, per_sm: int) -> float:
+    """The time the busiest SM takes for a grid of ``blocks`` blocks,
+    holding ``per_sm`` at once, in blocks at the full rate: ceil(blocks /
+    sms) of them in rounds of per_sm, a round of two or more at the full
+    rate, a lone block at LONE_RATE percent of it (csrc/f32_tile.cuh
+    ``sm_rounds``)."""
+    n = -(-blocks // sms)
+    r = n % per_sm
+    return n - r + (r if r >= 2 else 100.0 / LONE_RATE if r == 1 else 0.0)
+
+
+def _attend_floats(dp: int, ti: int) -> int:
+    """The floats of csrc/f32_tile.cuh AttendSmem<dp, ti>: the q tile, two
+    k/v stages, v^T and the warps' p tiles."""
+    kt = 32 if dp <= 48 else 16
+    return 16 * ti * (dp + 4) + 4 * kt * (dp + 4) + dp * (kt + 4) + \
+        16 * ti * (kt + 8)
+
+
+def f32_fwd_geometries(D: int) -> tuple:
+    """(q rows a block, blocks an SM, rate) of K5's two geometries at head
+    depth D (csrc/f32_flash.cu FwdGeom): 0 the attention core's (8 rows a
+    thread up to the instance 48, else 6; three blocks an SM up to 80,
+    else two), 1 half its rows a block, four blocks an SM; each held to what
+    the shared memory holds."""
+    dp = f32_depth_instance(D)
+    out = []
+    for g, ti in enumerate((8, 4) if dp <= 48 else (6, 3)):
+        fit = SM_SMEM // (4 * _attend_floats(dp, ti) + BLOCK_SMEM_RESERVE)
+        blocks = min((3 if dp <= 80 else 2) if g == 0 else 4, fit)
+        out.append((16 * ti, blocks, 100 if g == 0 else F32_FWD_EFF[dp <= 48]))
+    return tuple(out)
+
+
+def fwd_geometry(BH: int, Lq: int, D: int, sms: int = H100_SMS) -> int:
+    """K5's geometry for its grid over (BH, Lq) at depth D: the one whose
+    grid costs less on the busiest of ``sms`` SMs (``sm_rounds``), at its
+    rate (csrc/f32_flash.cu ``fwd_geometry``, reported by
+    ``mdk_flash_f32_tile``; 0 at a tie)."""
+    def cost(rows, blocks_sm, eff):
+        return sm_rounds(BH * -(-Lq // rows), sms, blocks_sm) * rows * \
+            100.0 / eff
+    g0, g1 = (cost(*g) for g in f32_fwd_geometries(D))
+    return 1 if g1 < g0 else 0
+
+
+def f32_attention_tile(kernel: str, D: int, grid: tuple = None,
+                       sms: int = H100_SMS) -> tuple:
     """(rows a block owns, rows of a streamed tile) of the fp32 attention
     kernel ``kernel`` at head depth D, as csrc/f32_tile.cuh AttnGeom sets
     them (4 warps, each owning 4 rows a thread's register block): up to the
     instance 48, 8 rows a thread and 32-row tiles; deeper, 6 rows a thread
-    (3 keys in the dk/dv kernel) and 16-row tiles."""
-    if f32_depth_instance(D) <= 48:
-        return 128, 32
-    return (48 if kernel == "dkv" else 96), 16
+    (3 keys in the dk/dv kernel) and 16-row tiles. K5 ("fwd") takes its
+    rows from its launch's ``grid`` (BH, Lq): ``fwd_geometry``."""
+    keys = 32 if f32_depth_instance(D) <= 48 else 16
+    if kernel == "fwd":
+        if grid is None:
+            raise ValueError("K5's tile depends on its grid (BH, Lq)")
+        return f32_fwd_geometries(D)[fwd_geometry(*grid, D, sms)][0], keys
+    if keys == 32:
+        return 128, keys
+    return (48 if kernel == "dkv" else 96), keys
 
 
 # The dual-product tiles of the fp32 kv and out projections
-# (csrc/f32_tile.cuh DualWide, DualTall; the fp32 K4's two tiles): (rows,
-# value columns, blocks an SM, FFMA rate in percent of DualWide's)
-DUAL_TILES = ((128, 32, 3, 100), (112, 64, 2, 95))
-H100_SMS = 132
+# (csrc/f32_tile.cuh DualWide, DualTall, DualShort, DualBroad, numbered as
+# ``on_dual_tile`` numbers them): (rows, value columns, blocks an SM, FFMA
+# rate in percent of DualWide's, measured by ``dual_rates``)
+DUAL_TILES = ((128, 32, 3, 100), (112, 64, 2, 96), (112, 32, 3, 98),
+              (128, 40, 2, 97))
 
 
 def dual_tile(M: int, N: int, sms: int = H100_SMS) -> int:
-    """The tile (0 DualWide, 1 DualTall) of a dual product over M rows and
-    N value columns: the one whose grid costs less in whole waves of the
-    blocks ``sms`` SMs hold (csrc/f32_tile.cuh ``dual_tile``, reported by
-    ``mdk_project_f32_tile``; DualWide at a tie)."""
+    """The tile (the index of DUAL_TILES) of a dual product over M rows and
+    N value columns: the one whose grid costs the least on the busiest of
+    ``sms`` SMs (``sm_rounds``), at its rate (csrc/f32_tile.cuh
+    ``dual_tile``, reported by ``mdk_project_f32_tile``; the lowest index
+    at a tie)."""
     def cost(bm, bn, blocks_sm, eff):
-        waves = -(-(-(-M // bm) * -(-N // bn)) // (sms * blocks_sm))
-        return waves * blocks_sm * bm * bn * 100.0 / eff
-    wide, tall = (cost(*t) for t in DUAL_TILES)
-    return 1 if tall < wide else 0
+        return sm_rounds(-(-M // bm) * -(-N // bn), sms, blocks_sm) * bm * \
+            bn * 100.0 / eff
+    costs = [cost(*t) for t in DUAL_TILES]
+    return costs.index(min(costs))
 
 
 # The fp32 kv projection (B, Lk, Ck, H, D) and out-projection (M, K, N) of
-# ``check_projection_tiles``: one grid of each dual tile, rows ragged
-# against both (200 = 128 + 72 = 112 + 88; 330 = 2 x 128 + 74 = 3 x 112 -
-# 6), value columns past a tile's edge
-KV_PROJECTION_TILES = ((2, 100, 40, 2, 40), (2, 165, 40, 45, 96))
-OUT_PROJECTION_TILES = ((200, 80, 72), (330, 80, 8640))
+# ``check_projection_tiles``: one grid of each of DUAL_TILES in its order,
+# where ``dual_tile`` takes it by a tenth of the cost or more; rows ragged
+# against every tile's (neither a multiple of 128 nor of 112), value
+# columns past the tile's edge, the kv rows' batch ending inside a block
+KV_PROJECTION_TILES = ((2, 281, 40, 53, 40), (2, 129, 40, 45, 96),
+                       (2, 257, 40, 53, 40), (2, 113, 40, 46, 96))
+OUT_PROJECTION_TILES = ((8850, 80, 264), (258, 80, 8456), (258, 80, 7048),
+                        (226, 80, 8456))
+# the out-projection (rows, K, N) that ``check_projection_tiles`` runs on
+# every tile, its rows first in grids of more rows that take each tile
+# (``tile_rows``), the outputs bitwise equal: the request's level 1
+PROJECTION_BITWISE = (350, 640, 640)
+# (M, N value columns) of an out-projection grid (K = 640) of three or four
+# whole rounds of each of DUAL_TILES on every SM of an H100, at which
+# ``dual_tile`` takes it: ``dual_rates``
+DUAL_RATE_GRIDS = ((12672, 384), (14784, 512), (16128, 352), (22528, 240))
+# {D: (BH, Lq = Lk) of each K5 geometry}: grids of whole rounds of the
+# geometry on every SM of an H100 at which ``fwd_geometry`` takes it:
+# ``fwd_rates``
+FWD_RATE_GRIDS = {40: ((72, 1408), (96, 704)), 80: ((198, 384), (96, 528))}
+
+
+def tile_rows(M0: int, N: int, sms: int = H100_SMS) -> dict:
+    """{tile: the least M >= M0 at which ``dual_tile`` takes it for N value
+    columns}."""
+    out = {}
+    for M in range(M0, M0 + 40000):
+        out.setdefault(dual_tile(M, N, sms), M)
+    return out
 
 
 def _path_attentions(views: int = 12):
@@ -1341,11 +1508,12 @@ def _path_attentions(views: int = 12):
     return list(seen)
 
 
-def check_projection_tiles(rnd) -> None:
+def check_projection_tiles(rnd, sms: int) -> None:
     """The fp32 kv projection and out-projection alone on each of their
-    two tiles (KV_PROJECTION_TILES, OUT_PROJECTION_TILES; the tile from
+    tiles (KV_PROJECTION_TILES, OUT_PROJECTION_TILES; the tile from
     ``mdk_project_f32_tile``, which must be ``dual_tile``'s) against their
-    products in fp32, two calls bitwise equal."""
+    products in fp32, two calls bitwise equal; then one out-projection
+    input (PROJECTION_BITWISE) on every tile, bitwise equal."""
     from magicdrive_tpu_torch.kernels import build, dispatch, reference
 
     lib = build.load()
@@ -1353,10 +1521,10 @@ def check_projection_tiles(rnd) -> None:
     for tile, (B, Lk, Ck, H, D) in enumerate(KV_PROJECTION_TILES):
         M, N = B * Lk, H * D
         got_tile = lib.mdk_project_f32_tile(M, N)
-        if got_tile != tile or dual_tile(M, N) != tile:
+        if got_tile != tile or dual_tile(M, N, sms) != tile:
             raise AssertionError(f"kv projection M={M} N={N}: tile "
-                                 f"{got_tile}, mirror {dual_tile(M, N)}, "
-                                 f"expected {tile}")
+                                 f"{got_tile}, mirror "
+                                 f"{dual_tile(M, N, sms)}, expected {tile}")
         x = rnd(B, Lk, Ck)
         wk, wv = (rnd(N, Ck, scale=Ck ** -0.5) for _ in range(2))
         got = dispatch._project_kv(lib, x, wk, wv, H)
@@ -1371,7 +1539,7 @@ def check_projection_tiles(rnd) -> None:
               note="two calls bitwise equal")
     for tile, (M, K, N) in enumerate(OUT_PROJECTION_TILES):
         got_tile = lib.mdk_project_f32_tile(M, N // 2)
-        if got_tile != tile or dual_tile(M, N // 2) != tile:
+        if got_tile != tile or dual_tile(M, N // 2, sms) != tile:
             raise AssertionError(f"out-projection M={M} N={N}: tile "
                                  f"{got_tile}, expected {tile}")
         o, wout = rnd(1, M, K), rnd(N, K, scale=K ** -0.5)
@@ -1383,25 +1551,124 @@ def check_projection_tiles(rnd) -> None:
                                  "the same inputs differ")
         _gate(_key("out_project", f32), label, err, scale, KERNEL_TOL_F32,
               note="two calls bitwise equal")
+    M0, K, N = PROJECTION_BITWISE
+    rows = tile_rows(M0, N // 2, sms)
+    o, wout = rnd(1, max(rows.values()), K), rnd(N, K, scale=K ** -0.5)
+    outs = {}
+    for tile, M in sorted(rows.items()):
+        if lib.mdk_project_f32_tile(M, N // 2) != tile:
+            raise AssertionError(f"out-projection M={M} N={N}: tile "
+                                 f"{lib.mdk_project_f32_tile(M, N // 2)}, "
+                                 f"expected {tile}")
+        outs[tile] = dispatch._out_project(lib, o[:, :M], wout)[:, :M0]
+    same = all(torch.equal(y, outs[0]) for y in outs.values())
+    log(f"  out_project[f32] M={M0} K={K} N={N} as the first rows of M = "
+        f"{rows} (tile: rows): every tile's output "
+        f"{'bitwise equal ok' if same else 'DIFFERENT FAIL'}")
+    if not same or len(outs) != len(DUAL_TILES):
+        raise AssertionError(f"out-projection: the tiles {sorted(outs)} "
+                             "give different outputs or are not all reached")
+
+
+def dual_rates(rnd, sms: int) -> None:
+    """The FFMA rate of each dual tile, the out-projection (K = 640) on a
+    grid of whole rounds of it (DUAL_RATE_GRIDS), over FF_F32_ITERS calls in
+    two turns: TFLOP/s and percent of DualWide's, beside the rate
+    ``dual_tile`` assumes (DUAL_TILES)."""
+    from magicdrive_tpu_torch.kernels import build, dispatch
+
+    if sms != H100_SMS:
+        log(f"  dual tile rates: not measured ({sms} SMs, the grids are "
+            f"whole rounds on {H100_SMS})")
+        return
+    lib, K = build.load(), 640
+    calls = []
+    for tile, (M, N2) in enumerate(DUAL_RATE_GRIDS):
+        if lib.mdk_project_f32_tile(M, N2) != tile:
+            raise AssertionError(f"dual rate grid M={M} N={N2}: tile "
+                                 f"{lib.mdk_project_f32_tile(M, N2)}, "
+                                 f"expected {tile}")
+        o, w = rnd(1, M, K), rnd(2 * N2, K, scale=K ** -0.5)
+        calls.append((2 * M * 2 * N2 * K,
+                      functools.partial(dispatch._out_project, lib, o, w)))
+    rates = [[flops / cuda_ms(fn, FF_F32_ITERS) / 1e9 for flops, fn in calls]
+             for _ in range(2)]
+    for tile, (M, N2) in enumerate(DUAL_RATE_GRIDS):
+        got = [r[tile] for r in rates]
+        rel = [100 * r[tile] / r[0] for r in rates]
+        bm, bn, blocks, eff = DUAL_TILES[tile]
+        log(f"  dual tile {tile} ({bm} x {bn}, {blocks}/SM) at M={M} N={N2} "
+            f"K={K}: {got[0]:.2f}, {got[1]:.2f} TFLOP/s "
+            f"({100 * got[0] / 67:.1f} % of 67), {rel[0]:.1f}, {rel[1]:.1f} "
+            f"% of tile 0's; dual_tile assumes {eff}")
+
+
+def fwd_rates(rnd, sms: int) -> None:
+    """The rate of each K5 geometry at D = 40 and 80 on a grid of whole
+    rounds of it (FWD_RATE_GRIDS), over FF_F32_ITERS calls in two turns:
+    TFLOP/s and percent of geometry 0's, beside the rate ``fwd_geometry``
+    assumes (``f32_fwd_geometries``)."""
+    from magicdrive_tpu_torch.kernels import build, dispatch
+
+    if sms != H100_SMS:
+        log(f"  K5 geometry rates: not measured ({sms} SMs, the grids are "
+            f"whole rounds on {H100_SMS})")
+        return
+    lib = build.load()
+    for D, grids in FWD_RATE_GRIDS.items():
+        calls = []
+        for g, (BH, L) in enumerate(grids):
+            if lib.mdk_flash_f32_tile(0, BH, L, D, 0) != \
+                    f32_fwd_geometries(D)[g][0]:
+                raise AssertionError(f"K5 rate grid BH={BH} L={L} D={D}: "
+                                     f"not geometry {g}")
+            q = rnd(BH, L, D, scale=D ** -0.5)
+            k, v = rnd(BH, L, D), rnd(BH, L, D)
+            calls.append((4 * BH * L * L * D, functools.partial(
+                dispatch.flash_attention_fwd, q, k, v, L)))
+        rates = [[flops / cuda_ms(fn, FF_F32_ITERS) / 1e9
+                  for flops, fn in calls] for _ in range(2)]
+        for g, (BH, L) in enumerate(grids):
+            rows, blocks, eff = f32_fwd_geometries(D)[g]
+            got = [r[g] for r in rates]
+            rel = [100 * r[g] / r[0] for r in rates]
+            log(f"  K5 geometry {g} ({rows} q rows, {blocks}/SM) at BH={BH} "
+                f"L={L} D={D}: {got[0]:.2f}, {got[1]:.2f} TFLOP/s "
+                f"({100 * got[0] / 67:.1f} % of 67), {rel[0]:.1f}, "
+                f"{rel[1]:.1f} % of geometry 0's; fwd_geometry assumes {eff}")
 
 
 def check_f32_tiles(rnd) -> None:
     """The fp32 attention kernels' tiles from the library (``mdk_kvstat_
     f32_tile``, ``mdk_flash_f32_tile``) against ``f32_attention_tile`` at
-    every depth of the depth checks, with the blocks an SM the card holds;
-    the tile, grid and waves each attention of the 224x400 path and each
-    FLASH_SHAPES row takes, and the tiles of the path's kv and out
-    projections against ``dual_tile``; then ``check_projection_tiles``."""
+    every depth of the depth checks (K5 at each geometry's grid of
+    ``flash_depth_grids``), with the blocks an SM the card holds; for the
+    12-view request and the B=3 step (TRAIN_VIEWS) the tile, grid and
+    waves each attention of the 224x400 path takes in the heads, the kv
+    and out projections and K5, every choice held to its mirror
+    (``dual_tile``, ``fwd_geometry``); the same for each FLASH_SHAPES and
+    FLASH_TRAIN_SHAPES row; then ``check_projection_tiles`` and the tiles'
+    and geometries' rates (``dual_rates``, ``fwd_rates``)."""
     from magicdrive_tpu_torch.kernels import build
 
     lib = build.load()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     entries = {"heads": lambda D, w: lib.mdk_kvstat_f32_tile(1, D, w),
                "heads pair": lambda D, w: lib.mdk_kvstat_f32_tile(2, D, w),
-               "fwd": lambda D, w: lib.mdk_flash_f32_tile(0, D, w),
-               "dq": lambda D, w: lib.mdk_flash_f32_tile(1, D, w),
-               "dkv": lambda D, w: lib.mdk_flash_f32_tile(2, D, w)}
+               "dq": lambda D, w: lib.mdk_flash_f32_tile(1, 1, 1, D, w),
+               "dkv": lambda D, w: lib.mdk_flash_f32_tile(2, 1, 1, D, w)}
     blocks_sm = {}
+
+    def fwd_tile(BH, Lq, D):
+        got = tuple(lib.mdk_flash_f32_tile(0, BH, Lq, D, w) for w in range(3))
+        want = f32_attention_tile("fwd", D, (BH, Lq), sms)
+        blocks = f32_fwd_geometries(D)[fwd_geometry(BH, Lq, D, sms)][1]
+        if got[:2] != want or got[2] < blocks:
+            raise AssertionError(f"fp32 fwd tile at BH={BH} Lq={Lq} D={D}: "
+                                 f"{got}; expected {want}, {blocks} or more "
+                                 f"blocks an SM")
+        return got
+
     for D in sorted(set(ATTENTION_DEPTHS) | set(FLASH_DEPTHS)):
         line = []
         for name, entry in entries.items():
@@ -1413,31 +1680,51 @@ def check_f32_tiles(rnd) -> None:
                                      f"{blocks_sm[name, D]} blocks an SM; "
                                      f"expected {want}")
             line.append(f"{name} {got[0]}x{got[1]} ({blocks_sm[name, D]}/SM)")
+        for g, BH in sorted(flash_depth_grids(D, sms).items()):
+            rows, keys, blocks = fwd_tile(BH, FLASH_DEPTH_SHAPE[1], D)
+            line.append(f"fwd geometry {g} (BH={BH}) {rows}x{keys} "
+                        f"({blocks}/SM)")
         log(f"  fp32 attention tiles D={D} (rows a block x rows a streamed "
             f"tile, blocks an SM): " + ", ".join(line))
 
-    def waves(name, D, blocks):
-        slots = sms * blocks_sm[name, D]
+    def waves(blocks, per_sm):
+        slots = sms * per_sm
         return f"{blocks} blocks, {blocks / slots:.2f} waves of {slots}"
 
-    for what, Lq, Lk, C, Ck, D in _path_attentions():
-        rows, keys = f32_attention_tile("heads", D)
-        grid = -(-Lq // rows) * 12 * (C // D)
-        kv = (12 * Lk, C)
-        tiles = {"kv projection": (lib.mdk_project_f32_tile(*kv),
-                                   dual_tile(*kv, sms)),
-                 "out-projection": (lib.mdk_project_f32_tile(12 * Lq, C // 2),
-                                    dual_tile(12 * Lq, C // 2, sms))}
-        if any(a != b for a, b in tiles.values()):
-            raise AssertionError(f"{what} L={Lq}: dual tiles {tiles}")
-        log(f"  fp32 {what} 12 views Lq={Lq} Lk={Lk} C={C} D={D}: heads "
-            f"{rows} q rows x {keys} keys, {waves('heads', D, grid)}; " +
-            ", ".join(f"{k} tile {a}" for k, (a, _) in tiles.items()))
-    for BH, Lq, Lk, D, kv_len in FLASH_SHAPES:
-        log(f"  fp32 flash BH={BH} Lq={Lq} Lk={Lk} D={D}: " + "; ".join(
-            f"{op} {waves(op, D, BH * -(-L // f32_attention_tile(op, D)[0]))}"
-            for op, L in (("fwd", Lq), ("dq", Lq), ("dkv", Lk))))
-    check_projection_tiles(rnd)
+    def fwd_waves(BH, Lq, D):
+        rows, _, blocks = fwd_tile(BH, Lq, D)
+        g = fwd_geometry(BH, Lq, D, sms)
+        return f"K5 geometry {g} ({rows} rows) " + waves(
+            BH * -(-Lq // rows), blocks)
+
+    def dual(M, N):
+        tile = lib.mdk_project_f32_tile(M, N)
+        if tile != dual_tile(M, N, sms):
+            raise AssertionError(f"dual tile M={M} N={N}: {tile}, mirror "
+                                 f"{dual_tile(M, N, sms)}")
+        bm, bn, per_sm, _ = DUAL_TILES[tile]
+        return f"tile {tile} ({bm} x {bn}) " + waves(
+            -(-M // bm) * -(-N // bn), per_sm)
+
+    for views in (12, TRAIN_VIEWS):
+        for what, Lq, Lk, C, Ck, D in _path_attentions():
+            rows, keys = f32_attention_tile("heads", D)
+            grid = -(-Lq // rows) * views * (C // D)
+            log(f"  fp32 {what} {views} views Lq={Lq} Lk={Lk} C={C} D={D}: "
+                f"heads {rows} q rows x {keys} keys, "
+                f"{waves(grid, blocks_sm['heads', D])}; kv projection "
+                f"{dual(views * Lk, C)}; out-projection "
+                f"{dual(views * Lq, C // 2)}; "
+                f"{fwd_waves(views * (C // D), Lq, D)}")
+    for BH, Lq, Lk, D, kv_len in FLASH_SHAPES + FLASH_TRAIN_SHAPES:
+        log(f"  fp32 flash BH={BH} Lq={Lq} Lk={Lk} D={D}: "
+            f"{fwd_waves(BH, Lq, D)}; " + "; ".join(
+                f"{op} " + waves(BH * -(-L // f32_attention_tile(op, D)[0]),
+                                 blocks_sm[op, D])
+                for op, L in (("dq", Lq), ("dkv", Lk))))
+    check_projection_tiles(rnd, sms)
+    dual_rates(rnd, sms)
+    fwd_rates(rnd, sms)
 
 
 # K3 and K4 on the 224x400 paths: (kernel, L, C), M = views * L, at 12
@@ -2792,13 +3079,41 @@ def write_inception_weights(path: str, seed: int = 0) -> None:
     torch.save(sd, path)
 
 
+_DISCARDS = []  # the threads of discard(), joined by wait_discards()
+
+
+def discard(path: str) -> None:
+    """Remove the tree ``path`` on a thread of its own: unlinking a run's
+    GiB-sized weights and checkpoints takes seconds of the host, which
+    the next phase's work hides. ``main`` waits for every removal."""
+    t = threading.Thread(target=shutil.rmtree, args=(path,),
+                         kwargs={"ignore_errors": True})
+    t.start()
+    _DISCARDS.append(t)
+
+
+def wait_discards() -> None:
+    while _DISCARDS:
+        _DISCARDS.pop().join()
+
+
+@contextlib.contextmanager
+def scratch_dir():
+    """A temporary directory, discarded after the block."""
+    tmp = tempfile.mkdtemp()
+    try:
+        yield tmp
+    finally:
+        discard(tmp)
+
+
 @contextlib.contextmanager
 def _scratch(path=None):
-    """``path``, or a temporary directory removed after the block."""
+    """``path``, or a temporary directory discarded after the block."""
     if path is not None:
         yield path
         return
-    with tempfile.TemporaryDirectory() as tmp:
+    with scratch_dir() as tmp:
         yield tmp
 
 
@@ -2985,7 +3300,7 @@ def run_evaluation(by_path, timing, card: str, keep: str = None) -> dict:
             f"files' decode and resize included ({card})")
         timing["s FID tokens"] = [tokens_s]
         for d in ("released", "sd15"):
-            shutil.rmtree(os.path.join(tmp, d))
+            discard(os.path.join(tmp, d))
         kept = {"run_dir": run_dir, "root": root, "version": version,
                 "out": out}
     run_map_drop_step(by_path)
@@ -3181,16 +3496,17 @@ def run_video(by_path, timing) -> None:
 # ---------------------------------------------------------------------------
 
 
-def train_set_up(batch_size: int):
-    """The full-width model in bf16 over fp32 masters of its trainable
-    partition, the recipe's optimizer with a one-step warm-up, and one
-    fixture batch with images."""
+def train_set_up(batch_size: int, preset=None):
+    """The full-width model (``preset``, by default the 224x400 one) in
+    bf16 over fp32 masters of its trainable partition, the recipe's
+    optimizer with a one-step warm-up, and one fixture batch with
+    images."""
     from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_sample)
     from magicdrive_tpu_torch.train import TrainConfig, create_train_state
 
-    preset = sd15mv_rawbox_224x400()
+    preset = preset or sd15mv_rawbox_224x400()
     t0 = time.perf_counter()
     modules = _new_modules(preset)
     cfg = TrainConfig(lr_warmup_steps=1)
@@ -3654,7 +3970,7 @@ def run_cli_training(by_path, timing, card: str, tmp: str, root: str,
         raise AssertionError("steps 5-6 did not train")
     _check_cli_run("training CLI resume", run2, preset, frozen, card,
                    seconds, logged=[])
-    shutil.rmtree(run2.run_dir)
+    discard(run2.run_dir)
     del run2
     torch.cuda.empty_cache()
 
@@ -3684,7 +4000,7 @@ def run_cli_training(by_path, timing, card: str, tmp: str, root: str,
         raise AssertionError("cli.generate on the trained run differs from "
                              "a pipeline on its masters")
     del made, direct, modules, sds
-    shutil.rmtree(run_dir)
+    discard(run_dir)
     torch.cuda.empty_cache()
 
 
@@ -3983,7 +4299,7 @@ def run_train_cli(by_path, timing, card: str) -> None:
       6. The cache (``run_cache``)."""
     from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with scratch_dir() as tmp:
         root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
         run_cli_training(by_path, timing, card, tmp, root, version)
         run_train_options(by_path, timing, card)
@@ -4094,7 +4410,7 @@ def run_fp32_cli(by_path, timing, card: str, tmp: str, root: str,
         check_path_calls(preset, validator.pipe, validator.batch()[0], mode,
                          what="the fp32 training CLI's Validator",
                          tol=KERNEL_TOL_F32, esize=4)
-    shutil.rmtree(run.run_dir)
+    discard(run.run_dir)
     del run, modules, batches, validator
     torch.cuda.empty_cache()
 
@@ -4208,7 +4524,7 @@ def run_fp32_and_remat(by_path, by_path_f32, timing, card: str) -> dict:
     from magicdrive_tpu_torch.kernels import dispatch
 
     rows = check_fp32_kernels()
-    with tempfile.TemporaryDirectory() as tmp:
+    with scratch_dir() as tmp:
         root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
         for mode in dispatch.FUSED_MODES:
             run_fp32_cli(by_path_f32, timing, card, tmp, root, version, mode)
@@ -4222,24 +4538,50 @@ def run_fp32_and_remat(by_path, by_path_f32, timing, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 RANK_TIMEOUT = 420      # seconds a job of ranks may take
+# Layers a block of the UNet and the ControlNet in the multi-GPU phase's
+# models: the presets' 2 cut to 1, at full width, so every kernel runs at
+# its path shapes over half the blocks. The phase is host-bound (the ranks
+# share the card and sum their gradients and activations through gloo on
+# the host), and the cut keeps the script inside its time.
+MGPU_LAYERS_PER_BLOCK = 1
 DP_STEPS = 3            # dp=2 training steps a mode, then one checked step
 # dp=2 against one process at B=2 after DP_STEPS: the logged gradient
 # norms' relative error, and the relative L2 of the update (the masters
 # minus those before the steps) and of Adam's first moment, which keeps the
-# gradient's scale where AdamW's update does not. Read on an H100:
-# 6.7e-05, 2.7e-03, 1.2e-03; with rank 0's half-batch gradient applied on
-# both ranks 4.4e-02, 1.6e-01, 7.2e-02.
+# gradient's scale where AdamW's update does not. Read on an H100 at the
+# presets' 2 layers a block: 6.7e-05, 2.7e-03, 1.2e-03; with rank 0's
+# half-batch gradient applied on both ranks 4.4e-02, 1.6e-01, 7.2e-02; at
+# MGPU_LAYERS_PER_BLOCK 7.3e-05, 2.7e-03, 1.2e-03.
 DP_NORM_TOL, DP_UPDATE_TOL, DP_MOMENT_TOL = 5e-3, 2e-2, 1e-2
 # the dp=2 ranks' Runner: the recipe's optimizer with a one-step warm-up
 # (train_set_up's), B=1 a rank, no checkpoint in the steps
 DP_ARGS = ("exp=224x400", "runner.lr_warmup_steps=1",
            "runner.checkpointing_steps=100000", "runner.train_batch_size=1",
-           "parallel.mesh_shape=[2,1]")
+           "parallel.mesh_shape=[2,1]",
+           f"model.unet.layers_per_block={MGPU_LAYERS_PER_BLOCK}")
 # the NCCL run of the training CLI: B=1, 2 steps (the first at lr 0) on the
 # fixture scenes, its checkpoint and weights at the end
 NCCL_ARGS = ("exp=224x400", "runner.train_batch_size=1",
              "runner.lr_warmup_steps=1", "runner.max_train_steps=2",
-             "runner.num_workers=1")
+             "runner.num_workers=1",
+             f"model.unet.layers_per_block={MGPU_LAYERS_PER_BLOCK}")
+
+
+def mgpu_preset(preset, **pipeline):
+    """``preset`` with MGPU_LAYERS_PER_BLOCK layers a block in its UNet and
+    ControlNet (their widths and attention shapes unchanged) and the
+    ``pipeline`` fields replaced."""
+    import dataclasses
+
+    unet = dataclasses.replace(preset.unet,
+                               layers_per_block=MGPU_LAYERS_PER_BLOCK)
+    return dataclasses.replace(
+        preset, unet=unet,
+        controlnet=dataclasses.replace(preset.controlnet, unet=dataclasses.
+                                       replace(preset.controlnet.unet,
+                                               layers_per_block=unet.
+                                               layers_per_block)),
+        pipeline=dataclasses.replace(preset.pipeline, **pipeline))
 
 
 def _checksums(tensors) -> list:
@@ -4295,22 +4637,28 @@ def first_moments(state) -> dict:
 
 
 def rel_l2(got: dict, want: dict) -> float:
-    """||got - want|| / ||want|| over every tensor of the dicts."""
-    num = sum(float((got[k].double() - w.double()).square().sum())
-              for k, w in want.items())
-    den = sum(float(w.double().square().sum()) for w in want.values())
+    """||got - want|| / ||want|| over every tensor of the dicts, summed on
+    the card, where a host tensor goes one at a time (on the host the sums
+    over a video model's masters take seconds)."""
+    num = den = 0.0
+    for k, w in want.items():
+        w = w.to("cuda", torch.float64)
+        num += float((got[k].to("cuda", torch.float64) - w).square().sum())
+        den += float(w.square().sum())
     return (num / den) ** 0.5
 
 
 def _rank_train(out: str) -> dict:
-    """(2a) on one rank, per fused mode: DP_STEPS dp=2 steps through the
-    Runner (``parallel.mesh_shape=[2,1]``) at B=1, this rank's row of a
+    """(2a) on one rank, per fused mode: DP_STEPS dp=2 steps of the
+    224x400 model (mgpu_preset) through the Runner
+    (``parallel.mesh_shape=[2,1]``) at B=1, this rank's row of a
     global fixture batch of 2, the masters' checksums of both ranks after
     each step; the launch counts; one more dp step with every kernel call
     of rank 0's against its plain version (KERNEL_TOL); the frozen weights
     bitwise unchanged. Rank 0 then takes DP_STEPS steps of one process at
     B=2 from the same masters and draws and holds the dp run to them."""
     from magicdrive_tpu_torch.cli.train import CONFIG_DIR
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
     from magicdrive_tpu_torch.config_loader import compose
     from magicdrive_tpu_torch.data import (CollateConfig, collate_fn,
                                            make_dataset, make_sample)
@@ -4319,7 +4667,8 @@ def _rank_train(out: str) -> dict:
     from magicdrive_tpu_torch.train import Runner
 
     rank = multihost.process_index()
-    preset, modules, cfg, state0, _ = train_set_up(1)
+    preset, modules, cfg, state0, _ = train_set_up(1, mgpu_preset(
+        sd15mv_rawbox_224x400()))
     masters0 = {k: t.clone() for k, t in state0.masters.items()}
     del state0
     frozen = _frozen(modules)
@@ -4410,8 +4759,9 @@ def mgpu_latents(preset) -> torch.Tensor:
 
 
 def _rank_sample(out: str) -> dict:
-    """(2b) on one rank: the full-width pipeline (this script's seeded
-    weights) on a (dp=1, view=2) mesh, one request of set_up's first
+    """(2b) on one rank: the full-width pipeline cut in depth (mgpu_preset,
+    SHARDED_SAMPLER_STEPS UniPC steps; this script's seeded weights) on a
+    (dp=1, view=2) mesh, one request of set_up's first
     fixture batch under "kvstat" from mgpu_latents, this rank's 3 cameras;
     its launch counts equal to those derived for view-sharded attn4 and
     one gather a cross-view block and step; then every kernel call of one
@@ -4428,7 +4778,8 @@ def _rank_sample(out: str) -> dict:
     from magicdrive_tpu_torch.parallel.multihost import reset_collectives
     from magicdrive_tpu_torch.pipeline.pipeline import MagicDrivePipeline
 
-    preset = config.sd15mv_rawbox_224x400()
+    preset = mgpu_preset(config.sd15mv_rawbox_224x400(),
+                         num_inference_steps=SHARDED_SAMPLER_STEPS)
     modules = _new_modules(preset).to("cuda", preset.pipeline.dtype)
     mesh = make_mesh((1, 2))
     pipe = MagicDrivePipeline(modules, preset.pipeline, mesh=mesh)
@@ -4586,21 +4937,21 @@ def _state_gib(modules, state) -> float:
 
 
 def _video_modules():
-    """The 16-frame video model at full width on seeded weights, bf16,
+    """The 16-frame video model at full width, cut in depth (mgpu_preset,
+    SHARDED_SAMPLER_STEPS UniPC steps), on seeded weights, bf16,
     with remat "dots" in its UNet and ControlNet (its one-process training
     step's, run_train_options)."""
     import dataclasses
 
     from magicdrive_tpu_torch.config import sd15mv_rawbox_video_16f
 
-    vp = sd15mv_rawbox_video_16f()
+    vp = mgpu_preset(sd15mv_rawbox_video_16f(),
+                     num_inference_steps=SHARDED_SAMPLER_STEPS)
     remat = dict(gradient_checkpointing=True, remat_policy="dots")
     vp = dataclasses.replace(
         vp, unet=dataclasses.replace(vp.unet, **remat),
         controlnet=dataclasses.replace(vp.controlnet, unet=dataclasses.replace(
-            vp.controlnet.unet, **remat)),
-        pipeline=dataclasses.replace(
-            vp.pipeline, num_inference_steps=SHARDED_SAMPLER_STEPS))
+            vp.controlnet.unet, **remat)))
     return vp, _new_modules(vp).to("cuda", vp.pipeline.dtype)
 
 
@@ -4773,14 +5124,17 @@ def rank_tv_main(out: str) -> None:
 
 def _rank_image_view(out: str) -> dict:
     """(2f) on one rank of a (dp=1, view=2) mesh: SHARDED_STEPS train steps
-    of the 224x400 model at B=1 on this rank's 3 cameras (_sharded_steps;
-    attn4 "add" takes K1 once a neighbour list over the gathered cameras,
-    in the forward and the backward, by the derived launches), then, the
-    other rank idle, the same steps in one process at all 6 cameras."""
+    of the 224x400 model (mgpu_preset) at B=1 on this rank's 3 cameras
+    (_sharded_steps; attn4 "add" takes K1 once a neighbour list over the
+    gathered cameras, in the forward and the backward, by the derived
+    launches), then, the other rank idle, the same steps in one process at
+    all 6 cameras."""
+    from magicdrive_tpu_torch.config import sd15mv_rawbox_224x400
     from magicdrive_tpu_torch.parallel import (make_mesh, multihost,
                                                shard_batch)
 
-    preset, modules, cfg, state, batch = train_set_up(1)
+    preset, modules, cfg, state, batch = train_set_up(1, mgpu_preset(
+        sd15mv_rawbox_224x400()))
     mesh = make_mesh((1, 2))
     masters0 = {k: t.clone() for k, t in state.masters.items()}
     r, masters, moments = _sharded_steps(
@@ -4891,8 +5245,10 @@ def _log_rank(rank: int, output: str) -> None:
 
 
 def run_nccl_cli(card: str, tmp: str) -> None:
-    """(1) ``python -m magicdrive_tpu_torch.cli.train`` at B=1, 2 steps,
-    as a torchrun job of one rank with ``parallel.multihost=true``: train.log names the nccl backend and
+    """(1) ``python -m magicdrive_tpu_torch.cli.train`` at B=1, 2 steps
+    (NCCL_ARGS: the model cut to MGPU_LAYERS_PER_BLOCK layers a block), as
+    a torchrun job of one rank with ``parallel.multihost=true``: train.log
+    names the nccl backend and
     counts one all-reduce a bucket and step; its losses against the same
     run in this process without a process group, made while the child
     runs (its checkpoint and export left out), bitwise or within EPS_TOL
@@ -5015,9 +5371,10 @@ def _first_pngs(evaluation: dict) -> list:
 
 def run_multi_gpu(by_path, timing, card: str,
                   evaluation: dict = None) -> None:
-    """The port across processes on the one card:
+    """The port across processes on the one card, each model at full width
+    and cut in depth (MGPU_LAYERS_PER_BLOCK, mgpu_preset) but (c)'s run:
       1. NCCL at world size 1 through the training CLI (run_nccl_cli);
-      2. a gloo job of two ranks on the card (rank_main), full width:
+      2. a gloo job of two ranks on the card (rank_main):
          (a) dp=2 training in both fused modes (_rank_train): the ranks'
              masters bitwise equal after every step, the launch counts,
              every kernel call of a rank-0 step within KERNEL_TOL, the
@@ -5064,7 +5421,7 @@ def run_multi_gpu(by_path, timing, card: str,
                                            make_dataset)
     from magicdrive_tpu_torch.kernels import dispatch
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with scratch_dir() as tmp:
         run_nccl_cli(card, tmp)
         if evaluation is None:
             evaluation = _val_set_for_mgpu(tmp)
@@ -5363,10 +5720,99 @@ def _f32_attention_times(ring) -> list:
             if lib is not None:
                 row["library_ms"] = cuda_ms(lib, it)
             rows.append(row)
+    for BH, Lq, Lk, D, kv_len in FLASH_TRAIN_SHAPES:
+        q = rnd(BH, Lq, D, scale=D ** -0.5)
+        k, v = rnd(BH, Lk, D), rnd(BH, Lk, D)
+        args = (q, k, v, kv_len)
+        kern = functools.partial(dispatch.flash_attention_fwd, *args)
+        rows.append({"name": _key("flash_attention_fwd", f32),
+                     "shape": f"BH={BH} Lq={Lq} Lk={Lk} D={D}",
+                     "ms": cuda_ms(kern, it),
+                     "bound_ms": bound("flash_attention_fwd", args,
+                                       kern())[0],
+                     "library_ms": cuda_ms(_sdpa_calls(q, k, v, q)[0], it)})
+    return rows + _f32_projection_times(rnd)
+
+
+def _f32_projection_times(rnd) -> list:
+    """``time_kernels``' rows of the fp32 kv and out projections alone over
+    FF_F32_ITERS calls each, beside F.linear on the same inputs (the kv
+    projection's two), with their bound and tile: the out-projection at
+    the 224x400 path's levels 0 and 1 and the 272x736 path's L=782, the kv
+    projection at each attention of ``_path_attentions``, each over the
+    12-view request and the B=3 step (TRAIN_VIEWS)."""
+    import torch.nn.functional as F
+
+    from magicdrive_tpu_torch.kernels import build, dispatch
+
+    lib, it, f32 = build.load(), FF_F32_ITERS, torch.float32
+    outs = sorted({(L, C) for _, L, _, C, _, _ in _path_attentions()} |
+                  {(782, 640)})
+    rows = []
+    for views in (12, TRAIN_VIEWS):
+        for L, C in outs:
+            o, w = rnd(1, views * L, C), rnd(C, C, scale=C ** -0.5)
+            run = functools.partial(dispatch._out_project, lib, o, w)
+            rows.append({
+                "name": _key("out_project", f32),
+                "shape": f"M={views}x{L} K={C} N={C}",
+                "tile": lib.mdk_project_f32_tile(views * L, C // 2),
+                "ms": cuda_ms(run, it),
+                "bound_ms": bound("out_project", (o, w), run())[0],
+                "library_ms": cuda_ms(lambda: F.linear(o, w), it)})
+        for _, _, Lk, C, Ck, D in _path_attentions():
+            x = rnd(views, Lk, Ck)
+            wk, wv = (rnd(C, Ck, scale=Ck ** -0.5) for _ in range(2))
+            run = functools.partial(dispatch._project_kv, lib, x, wk, wv,
+                                    C // D)
+            rows.append({
+                "name": _key("kv_project", f32),
+                "shape": f"M={views}x{Lk} K={Ck} N={C}",
+                "tile": lib.mdk_project_f32_tile(views * Lk, C),
+                "ms": cuda_ms(run, it),
+                "bound_ms": bound("kv_project", (x, wk, wv), run())[0],
+                "library_ms": cuda_ms(
+                    lambda: (F.linear(x, wk), F.linear(x, wv)), it)})
     return rows
 
 
-def time_kernels(requests: int = 2) -> dict:
+# the steps of ``_f32_cli_steps``' runs: the first is cold
+F32_CLI_TIMED_STEPS = 6
+
+
+def _f32_cli_steps() -> dict:
+    """{fused mode: the warm seconds of steps 2 to F32_CLI_TIMED_STEPS} of
+    the fp32 training CLI (F32_CLI_ARGS, B=3) on this script's seeded
+    weights and a synthetic nuScenes tree, its validation, checkpoint and
+    export left out."""
+    from magicdrive_tpu_torch.data.synth import make_mini_nuscenes
+    from magicdrive_tpu_torch.kernels import dispatch
+    from magicdrive_tpu_torch.train import runner as runner_mod
+
+    out = {}
+    saved = runner_mod.Runner.save, runner_mod.Runner.save_deployable
+    runner_mod.Runner.save = runner_mod.Runner.save_deployable = \
+        lambda self, state: None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root, version = make_mini_nuscenes(os.path.join(tmp, "nuscenes"))
+            for mode in dispatch.FUSED_MODES:
+                with dispatch.fused_mode(mode):
+                    run, seconds = _train_cli(
+                        [*F32_CLI_ARGS, f"dataset.dataset_root={root}",
+                         f"dataset.version={version}",
+                         "runner.validation_steps=1000",
+                         f"runner.max_train_steps={F32_CLI_TIMED_STEPS}",
+                         f"log_root_prefix={tmp}/f32_{mode}"], {})
+                out[mode] = seconds["step"][1:]
+                del run
+                torch.cuda.empty_cache()
+    finally:
+        runner_mod.Runner.save, runner_mod.Runner.save_deployable = saved
+    return out
+
+
+def time_kernels(requests: int = 2, f32_cli: bool = False) -> dict:
     """The CUDA-event ms of the REDESIGNED kernels (K1-K4, K7, K8 and the
     K8 pair) at their path shapes (as in ``check_kernels``, K1 with its kv
     projection alone, K8 and its pair with their out-projection alone where
@@ -5374,10 +5820,11 @@ def time_kernels(requests: int = 2) -> dict:
     and its F.linear calls alone (``_linears``) at ``ff_cases``' shapes,
     of the fp32 attention instances (``_f32_attention_times``), and the
     host-clock seconds of ``requests`` warm requests in each fused mode
-    after one warm-up request (none when 0), through the port this
-    interpreter imports; printed as one JSON line. ``compare_trees`` runs
-    it in another checkout (one whose pair entries take the ring's shifts
-    times the pairs on the ring alone)."""
+    after one warm-up request (none when 0) and, with ``f32_cli``, of the
+    fp32 training CLI's warm steps in each mode (``_f32_cli_steps``),
+    through the port this interpreter imports; printed as one JSON line.
+    ``compare_trees`` runs it in another checkout (one whose pair entries
+    take the ring's shifts times the pairs on the ring alone)."""
     import inspect
 
     from magicdrive_tpu_torch.kernels import dispatch
@@ -5428,17 +5875,21 @@ def time_kernels(requests: int = 2) -> dict:
                 torch.cuda.synchronize()
                 runs.append(time.perf_counter() - t0)
             seconds[mode] = runs[1:]
-    result = {"kernels": rows, "warm_s_per_request": seconds}
+    result = {"kernels": rows, "warm_s_per_request": seconds,
+              "warm_s_per_f32_cli_step": _f32_cli_steps() if f32_cli else {}}
     print(json.dumps(result), flush=True)
     return result
 
 
-def compare_trees(other: str, requests: int = 2) -> None:
-    """The REDESIGNED kernels' times, the fp32 instances of K3, K4 and the
-    attention kernels beside their composition or SDPA call
-    (``time_kernels``), and warm request times in both fused modes (none
-    with ``requests`` 0) of another checkout (say a ``git archive`` of the
-    parent unpacked into runs/parent) and of this one, in turns: other,
+def compare_trees(other: str, requests: int = 2,
+                  f32_cli: bool = False) -> None:
+    """The REDESIGNED kernels' times, the fp32 instances of K3, K4, the
+    attention kernels and the projections beside their composition, SDPA
+    or F.linear call (``time_kernels``), and warm request times in both
+    fused modes (none with ``requests`` 0) and, with ``f32_cli``, the fp32
+    training CLI's warm steps in both, of another checkout (say a ``git
+    archive`` of the parent unpacked into runs/parent) and of this one, in
+    turns: other,
     this, this, other. Each turn is a process of its own that imports that
     tree's port and builds its kernels there; the timing code is this file's
     (``time_kernels``). Prints each turn's line, then each row's mean over
@@ -5452,13 +5903,14 @@ def compare_trees(other: str, requests: int = 2) -> None:
             "m = importlib.util.module_from_spec(spec); "
             "spec.loader.exec_module(m); m.environment(); "
             "m.build_kernels(spill_gate=False); "
-            "m.time_kernels({n})")
+            "m.time_kernels({n}, f32_cli={f32_cli})")
     turns = []
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         proc = subprocess.run(
             [sys.executable, "-c", code.format(
-                tree=tree, me=os.path.abspath(__file__), n=requests)],
+                tree=tree, me=os.path.abspath(__file__), n=requests,
+                f32_cli=f32_cli)],
             cwd=tree, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"turn in {tree} failed ({proc.returncode}):\n"
@@ -5484,11 +5936,12 @@ def compare_trees(other: str, requests: int = 2) -> None:
             f"{k} " + " ".join(f"{side} {means[side][k]:.4f}"
                                for side in means if k in means[side])
             for k in keys))
-    for mode in turns[1][1]["warm_s_per_request"]:
-        for side in ("other", "this"):
-            log(f"warm {mode} s/request, {side}: " + ", ".join(
-                f"{s:.4f}" for lab, r in turns if lab == side
-                for s in r["warm_s_per_request"][mode]))
+    for what in ("warm_s_per_request", "warm_s_per_f32_cli_step"):
+        for mode in turns[1][1][what]:
+            for side in ("other", "this"):
+                log(f"{what} {mode}, {side}: " + ", ".join(
+                    f"{s:.4f}" for lab, r in turns if lab == side
+                    for s in r[what][mode]))
 
 
 @contextlib.contextmanager
@@ -5577,11 +6030,11 @@ def main() -> None:
     del pipe
     torch.cuda.empty_cache()
     # the evaluation's run, tree and val set, kept for the multi-GPU phase
-    kept = tempfile.TemporaryDirectory()
+    kept = tempfile.mkdtemp()
     with phase("evaluation"):
         log("the evaluation chain: conversion, the generation CLI, val-set "
             "generation, FID; the map drop:")
-        evaluation = run_evaluation(by_path, timing, card, keep=kept.name)
+        evaluation = run_evaluation(by_path, timing, card, keep=kept)
     with phase("hi-res"):
         run_hires(by_path, timing)
     with phase("video"):
@@ -5612,7 +6065,8 @@ def main() -> None:
             "step, a view-sharded step; four gloo ranks: the (dp, t, view) "
             "video step:")
         run_multi_gpu(by_path, timing, card, evaluation)
-    kept.cleanup()
+        discard(kept)
+        wait_discards()  # the scratch trees' removal, behind the phases
     with phase("kernels line"):
         log(f"path times (the first of each includes one-time setup): "
             f"{timing}")

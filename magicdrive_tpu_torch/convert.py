@@ -120,9 +120,19 @@ def module_state_dict(variables: Mapping[str, Any], clip: bool = False
         key = clip_torch_key(spath) if clip else torch_key(spath)
         if key in out:
             raise ValueError(f"two leaves map to {key}")
-        out[key] = np.array(_transform(value, spath), dtype=np.float32,
-                            order="C")  # a writable copy
+        out[key] = _float32_copy(_transform(value, spath))
     return out
+
+
+def _float32_copy(value: np.ndarray) -> np.ndarray:
+    """``np.array(value, np.float32, order="C")``, a writable copy. A
+    transposed float32 kernel is copied by torch, on every core, where
+    numpy copies a transposed array on one."""
+    if value.dtype == np.float32 and value.ndim >= 2 and \
+            not value.flags.c_contiguous and value.flags.writeable and \
+            min(value.strides) >= 0:
+        return torch.from_numpy(value).contiguous().numpy()
+    return np.array(value, dtype=np.float32, order="C")
 
 
 def trainable_keys(params_np: Mapping[str, Any]) -> Dict[str, set]:
@@ -205,14 +215,15 @@ def flax_path(module: str, key: str) -> Tuple[str, ...]:
     return (*mods, leaf)
 
 
-def _jax_value(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
-    """The inverse of ``_transform``."""
+def _jax_value(value: torch.Tensor, path: Tuple[str, ...]) -> torch.Tensor:
+    """The inverse of ``_transform``, on a tensor."""
     if path[-1] == "kernel":
-        return value.transpose(2, 3, 1, 0) if value.ndim == 4 else value.T
+        return value.permute(2, 3, 1, 0) if value.ndim == 4 else \
+            value.permute(tuple(range(value.ndim - 1, -1, -1)))
     if path == ("uncond_cam",):
         return value.reshape(-1)
     if path == ("uncond_map",):
-        return value.transpose(1, 2, 0)
+        return value.permute(1, 2, 0)
     return value
 
 
@@ -238,8 +249,8 @@ def modules_to_jax_params(modules, values: Optional[Mapping[
                 node = node.setdefault(p, {})
             if path[-1] in node:
                 raise ValueError(f"two state_dict keys map to {path}")
-            node[path[-1]] = np.ascontiguousarray(
-                _jax_value(as_numpy(value).astype(np.float32, copy=False),
-                           path))
+            # cast and transpose where the tensor is, then one copy out
+            node[path[-1]] = _jax_value(value.detach().float(), path
+                                        ).contiguous().cpu().numpy()
         out[name] = tree
     return out

@@ -51,13 +51,14 @@ KERNEL_ENTRIES = ("mdk_kv_project", "mdk_kvstat_attention",
                   "mdk_flash_fwd", "mdk_flash_bwd_dq", "mdk_flash_bwd_dkv",
                   "mdk_out_project")
 _SIGNATURES.update({f"{n}_f32": _SIGNATURES[n] for n in KERNEL_ENTRIES})
-# the tile the fp32 K4, or the fp32 kv and out projections, take for (M, N)
-# on the current card (0 or 1); the fp32 attention kernels' tiles (rows a
-# block, rows a streamed tile, blocks an SM) by kernel and depth
+# the tile the fp32 K4 (0 or 1), or the fp32 kv and out projections (0 to
+# 3), take for (M, N) on the current card; the fp32 attention kernels'
+# tiles (rows a block, rows a streamed tile, blocks an SM) by kernel and
+# depth, the flash kernels' also by grid (op, BH, Lq, D, what)
 _SIGNATURES["mdk_geglu_f32_tile"] = (_I, [_I, _I])
 _SIGNATURES["mdk_project_f32_tile"] = (_I, [_I, _I])
 _SIGNATURES["mdk_kvstat_f32_tile"] = (_I, [_I, _I, _I])
-_SIGNATURES["mdk_flash_f32_tile"] = (_I, [_I, _I, _I])
+_SIGNATURES["mdk_flash_f32_tile"] = (_I, [_I] * 5)
 
 
 def sources():

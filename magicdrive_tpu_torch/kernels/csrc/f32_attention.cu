@@ -30,8 +30,10 @@
 //
 // Design: f32_tile.cuh's FFMA tiles ([row][k] operands read as float4, a
 // cp.async ring, 8 x 8 register blocks). The projections run K4's dual
-// product and take the tile of the two (DualWide, DualTall) whose grid
-// fills whole waves best (dual_tile, reported by mdk_project_f32_tile).
+// product and take the tile of the four (DualWide, DualTall, DualShort,
+// DualBroad) whose grid costs the least on the busiest SM at its measured
+// rate (dual_tile, reported by mdk_project_f32_tile): a tile is a blocking
+// only, and every output sums its k in order in one thread on each.
 // The heads kernel projects its q tile over QK-deep chunks of C through
 // its own ring, then attends: the logits, p and the statistics never reach
 // device memory, p goes once through its warp's shared tile as the A
@@ -331,15 +333,10 @@ int mdk_kv_project_f32(const void* x, const void* wk, const void* wv,
   const auto K = static_cast<float*>(k);
   const auto V = static_cast<float*>(v);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dual_tile(M, H * D)) {
-    case 0:
-      return (int)launch_kv_project<DualWide>(X, WK, WV, K, V, M, Lk, Ck, H,
-                                              D, s);
-    case 1:
-      return (int)launch_kv_project<DualTall>(X, WK, WV, K, V, M, Lk, Ck, H,
-                                              D, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)on_dual_tile(dual_tile(M, H * D), [&](auto g) {
+    return launch_kv_project<decltype(g)>(X, WK, WV, K, V, M, Lk, Ck, H, D,
+                                          s);
+  });
 }
 
 // xq: (B, Lq, C); wq: (H*D, C); k, v: (B, H, Lk, D) from
@@ -384,19 +381,16 @@ int mdk_out_project_f32(const void* o, const void* wout, void* out, int M,
   const auto W = static_cast<const float*>(wout);
   const auto Y = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dual_tile(M, N / 2)) {
-    case 0:
-      return (int)launch_out_project<DualWide>(O, W, Y, M, K, N, s);
-    case 1:
-      return (int)launch_out_project<DualTall>(O, W, Y, M, K, N, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)on_dual_tile(dual_tile(M, N / 2), [&](auto g) {
+    return launch_out_project<decltype(g)>(O, W, Y, M, K, N, s);
+  });
 }
 
 // The tile the fp32 kv projection (M = B*Lk rows, N = H*D value columns)
 // or out-projection (M rows, N = half its output columns) takes on the
-// current card: 0 the 128 x 32 tile, 1 the 112 x 64 one; -1 when M or N
-// is not positive or the card cannot be asked.
+// current card: 0 the 128 x 32 tile, 1 the 112 x 64 one, 2 the 112 x 32
+// one, 3 the 128 x 40 one; -1 when M or N is not positive or the card
+// cannot be asked.
 int mdk_project_f32_tile(int M, int N) {
   return M > 0 && N > 0 ? mdk::f32::dual_tile(M, N) : -1;
 }

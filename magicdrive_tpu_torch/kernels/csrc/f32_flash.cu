@@ -23,7 +23,12 @@
 // a warp owning its rows for the whole walk; 32-row streamed tiles at
 // DP <= 48, 16-row tiles deeper):
 //  * forward: a block owns BR q rows, its q tile copied once; f32::attend
-//    streams the k/v tiles below kv_len;
+//    streams the k/v tiles below kv_len. BR comes from the grid: of the two
+//    geometries of FwdGeom (attend_ti rows a thread, or half as many in
+//    more blocks an SM), the one whose grid over (BH, Lq) costs the least
+//    on the card's busiest SM at its measured rate (fwd_geometry, on
+//    f32_tile.cuh's sm_rounds); a row's arithmetic is the same in both, so
+//    the output is too;
 //  * dq: a block owns BR q rows (q and dO resident, lse and delta of its
 //    rows in registers) and streams k/v tiles through a two-stage cp.async
 //    ring: s = q k^T and dp = dO v^T against the stage's rows, ds through
@@ -62,21 +67,47 @@ __host__ __device__ constexpr int dkv_min_blocks(int DP) {
   return DP > 48 && DP <= 80 ? 3 : BWD_MIN_BLOCKS;
 }
 
-template <int DP>
-__global__ void __launch_bounds__(AttendGeom<DP>::NT, attend_min_blocks(DP))
+// K5's geometry GI at depth instance DP: 0 the attention core's (attend_ti
+// rows a thread, attend_min_blocks blocks an SM), 1 half as many rows a
+// block, four blocks an SM where the shared memory holds them (else
+// three), for grids that leave geometry 0's slots empty (the path's
+// BH = 48, L = 350: 192 blocks of 96 rows on 396 slots; 384 of 48 rows).
+// BLOCKS: the blocks an SM holds (launch bound and shared memory); EFF:
+// the rate a full SM reaches, in percent of geometry 0's (chip_smoke.py
+// ``fwd_rates``, NVIDIA H100 80GB HBM3 at 700 W: 89.4-89.5 at D = 40 for
+// DP <= 48, 80.5-80.6 at D = 80 deeper).
+constexpr int FWD_GEOMETRIES = 2;
+
+template <int DP, int GI>
+struct FwdGeom {
+  static constexpr int TI = GI == 0 ? attend_ti(DP) : attend_ti(DP) / 2;
+  static constexpr int BR = AttendGeom<DP, TI>::BR;
+  static constexpr size_t BYTES = AttendSmem<DP, TI>::BYTES;
+  static constexpr int MIN_BLOCKS =
+      GI == 0 ? attend_min_blocks(DP)
+              : smem_blocks(BYTES) < 4 ? smem_blocks(BYTES) : 4;
+  static constexpr int BLOCKS =
+      smem_blocks(BYTES) < MIN_BLOCKS ? smem_blocks(BYTES) : MIN_BLOCKS;
+  static constexpr int EFF = GI == 0 ? 100 : DP <= 48 ? 89 : 81;
+  static_assert(BLOCKS >= 1 && MIN_BLOCKS >= 1, "a block fits an SM");
+};
+
+template <int DP, int GI>
+__global__ void __launch_bounds__(AttendGeom<DP>::NT,
+                                  FwdGeom<DP, GI>::MIN_BLOCKS)
 flash_fwd_f32_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  using G = AttendGeom<DP>;
-  constexpr int TI = G::TI;
+  constexpr int TI = FwdGeom<DP, GI>::TI;
+  using G = AttendGeom<DP, TI>;
   const int q0 = blockIdx.x * G::BR;
   const long qb = (long)blockIdx.y * a.Lq * a.D;
   const long kb = (long)blockIdx.y * a.Lk * a.D;
-  cp_rows<G::NT, G::BR, DP, G::LR>(smem + AttendSmem<DP>::Q, a.q + qb, q0,
-                                   a.Lq, a.D);
+  cp_rows<G::NT, G::BR, DP, G::LR>(smem + AttendSmem<DP, TI>::Q, a.q + qb,
+                                   q0, a.Lq, a.D);
   cp_commit();  // awaited with attend's first stage
   float m[TI], l[TI], o[TI][G::TD];
-  attend<DP, attend_ku<DP>()>(smem, a.k + kb, a.v + kb, a.Lk, a.kv_len, a.D,
-                              m, l, o);
+  attend<DP, attend_ku<DP, TI>()>(smem, a.k + kb, a.v + kb, a.Lk, a.kv_len,
+                                  a.D, m, l, o);
   const int arow = warp() * 4 * TI + lane_ty(), tx = lane_tx();
 #pragma unroll
   for (int i = 0; i < TI; ++i) {
@@ -310,40 +341,74 @@ flash_dkv_f32_kernel(Args a) {
 
 enum class Op { kFwd, kDq, kDkv };
 
-// A kernel of op at depth instance DP with its shared memory opted in once
-// per device: -> (kernel, threads, rows a block, dynamic bytes)
+// The cost of K5's grid over (BH, Lq) in geometry GI: sm_rounds of its
+// blocks, BLOCKS at once, each BR q rows, at the geometry's rate.
+template <int DP, int GI>
+double fwd_cost(int BH, int Lq, int sms) {
+  using F = FwdGeom<DP, GI>;
+  const long blocks = (long)BH * ((Lq + F::BR - 1) / F::BR);
+  return sm_rounds(blocks, sms, F::BLOCKS) * F::BR * 100.0 / F::EFF;
+}
+
+// K5's geometry for the grid over (BH, Lq) on the current card: the
+// cheaper by fwd_cost (0 at a tie); -1 when the card cannot be asked.
 template <int DP>
+int fwd_geometry(int BH, int Lq) {
+  const int sms = card_sms();
+  if (sms <= 0) return -1;
+  return fwd_cost<DP, 1>(BH, Lq, sms) < fwd_cost<DP, 0>(BH, Lq, sms) ? 1 : 0;
+}
+
+// A kernel with its threads, rows a block and dynamic bytes; ``slot``
+// numbers it among the depth's kernels (K5's geometries, then dq, dk/dv)
+// for its shared memory's opt-in, once per device.
 struct Launch {
   void (*kern)(Args);
   int threads, rows;
   size_t bytes;
+  int slot;
 };
 
+// op's kernel at depth instance DP, K5's in geometry gi.
 template <int DP>
-Launch<DP> launch_of(Op op) {
+Launch launch_of(Op op, int gi) {
   switch (op) {
     case Op::kFwd:
-      return {flash_fwd_f32_kernel<DP>, AttendGeom<DP>::NT,
-              AttendGeom<DP>::BR, AttendSmem<DP>::BYTES};
+      if (gi == 1)
+        return {flash_fwd_f32_kernel<DP, 1>, AttendGeom<DP>::NT,
+                FwdGeom<DP, 1>::BR, FwdGeom<DP, 1>::BYTES, 1};
+      return {flash_fwd_f32_kernel<DP, 0>, AttendGeom<DP>::NT,
+              FwdGeom<DP, 0>::BR, FwdGeom<DP, 0>::BYTES, 0};
     case Op::kDq:
       return {flash_dq_f32_kernel<DP>, AttendGeom<DP>::NT,
-              AttendGeom<DP>::BR, DqSmem<DP>::BYTES};
+              AttendGeom<DP>::BR, DqSmem<DP>::BYTES, FWD_GEOMETRIES};
     default:
       return {flash_dkv_f32_kernel<DP>, DkvSmem<DP>::G::NT,
-              DkvSmem<DP>::G::BR, DkvSmem<DP>::BYTES};
+              DkvSmem<DP>::G::BR, DkvSmem<DP>::BYTES, FWD_GEOMETRIES + 1};
   }
 }
 
 template <int DP>
-cudaError_t opt_in(Op op, const Launch<DP>& l) {
-  static unsigned opted_in[3] = {0, 0, 0};
-  return allow_smem_once(l.kern, l.bytes, opted_in[(int)op]);
+cudaError_t opt_in(const Launch& l) {
+  static unsigned opted_in[FWD_GEOMETRIES + 2] = {};
+  return allow_smem_once(l.kern, l.bytes, opted_in[l.slot]);
+}
+
+// op's kernel at depth instance DP for the grid over (BH, Lq): K5's
+// geometry from fwd_geometry; -1 in ``ok`` when the card cannot be asked.
+template <int DP>
+Launch launch_for(Op op, int BH, int Lq, bool& ok) {
+  const int gi = op == Op::kFwd ? fwd_geometry<DP>(BH, Lq) : 0;
+  ok = gi >= 0;
+  return launch_of<DP>(op, gi < 0 ? 0 : gi);
 }
 
 template <int DP>
 cudaError_t launch_dp(Op op, const Args& a, cudaStream_t stream) {
-  const Launch<DP> l = launch_of<DP>(op);
-  const cudaError_t e = opt_in<DP>(op, l);
+  bool ok = false;
+  const Launch l = launch_for<DP>(op, a.BH, a.Lq, ok);
+  if (!ok) return cudaErrorInvalidDevice;
+  const cudaError_t e = opt_in<DP>(l);
   if (e != cudaSuccess) return e;
   const int rows = op == Op::kDkv ? a.Lk : a.Lq;
   const dim3 grid((rows + l.rows - 1) / l.rows, a.BH);
@@ -368,17 +433,20 @@ cudaError_t launch(Op op, const Args& a, cudaStream_t stream) {
 #undef MDK_FLASH_CASE
 }
 
-// The tile of op's kernel at depth D: what 0 the rows a block owns, 1 the
-// rows of a streamed tile, 2 the blocks an SM holds (the card's occupancy
-// for its registers and shared memory); -1 for what it does not take.
+// The tile of op's kernel at depth D for the grid over (BH, Lq) (K5's
+// choice; dq and dk/dv have one): what 0 the rows a block owns, 1 the rows
+// of a streamed tile, 2 the blocks an SM holds (the card's occupancy for
+// its registers and shared memory); -1 for what it does not take.
 template <int DP>
-int tile_of(Op op, int what) {
-  const Launch<DP> l = launch_of<DP>(op);
+int tile_of(Op op, int BH, int Lq, int what) {
+  bool ok = false;
+  const Launch l = launch_for<DP>(op, BH, Lq, ok);
+  if (!ok) return -1;
   if (what == 0) return l.rows;
   if (what == 1)
     return op == Op::kDkv ? DkvSmem<DP>::G::KT : AttendGeom<DP>::KT;
   int blocks = -1;
-  if (what != 2 || opt_in<DP>(op, l) != cudaSuccess ||
+  if (what != 2 || opt_in<DP>(l) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, l.kern,
                                                     l.threads, l.bytes) !=
           cudaSuccess)
@@ -386,10 +454,11 @@ int tile_of(Op op, int what) {
   return blocks;
 }
 
-int tile(Op op, int D, int what) {
+int tile(Op op, int BH, int Lq, int D, int what) {
+  if (BH <= 0 || Lq <= 0) return -1;
 #define MDK_TILE_CASE(DPV) \
   case DPV:                \
-    return tile_of<DPV>(op, what);
+    return tile_of<DPV>(op, BH, Lq, what);
   switch (D > 0 && D % 8 == 0 ? depth_instance(D) : 0) {
     MDK_F32_DEPTHS(MDK_TILE_CASE)
     default:
@@ -462,12 +531,14 @@ int mdk_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
 }
 
 // The tile of the fp32 flash kernels at head depth D (a multiple of 8, at
-// most 128): op 0 the forward, 1 dq, 2 dk/dv; what 0 the rows a block
-// owns (q rows, keys for dk/dv), 1 the rows of a streamed tile, 2 the
-// blocks an SM holds on the current card; -1 for anything else.
-int mdk_flash_f32_tile(int op, int D, int what) {
+// most 128) for a launch over BH (batch, head) rows of Lq q rows (the
+// forward's geometry comes from that grid): op 0 the forward, 1 dq, 2
+// dk/dv; what 0 the rows a block owns (q rows, keys for dk/dv), 1 the rows
+// of a streamed tile, 2 the blocks an SM holds on the current card; -1 for
+// anything else.
+int mdk_flash_f32_tile(int op, int BH, int Lq, int D, int what) {
   if (op < 0 || op > 2) return -1;
-  return mdk::f32::tile(static_cast<mdk::f32::Op>(op), D, what);
+  return mdk::f32::tile(static_cast<mdk::f32::Op>(op), BH, Lq, D, what);
 }
 
 }  // extern "C"

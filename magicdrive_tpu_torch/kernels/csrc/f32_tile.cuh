@@ -133,16 +133,18 @@ __device__ __forceinline__ Stage1Src stage1_src(const float* x,
 // Start copying the stage tile at k0 into dst: rows [0, BM) of x, then the
 // BN value rows and the BN gate rows (SPLIT: from s.wg; else the value
 // matrix's rows N on); zeros for rows past M or N and columns past K (K a
-// multiple of 4). ``zero_src`` is any mapped address (read by no copy).
+// multiple of 4). BN need not be whole bands: the last pass copies only the
+// rows below BN. ``zero_src`` is any mapped address (read by no copy).
 template <int NT, int BM, int BN, bool SPLIT>
 __device__ __forceinline__ void load_stage1(float* dst, const Stage1Src& s,
                                             const float* zero_src, int M,
                                             int K, int N, int k0) {
   constexpr int B = BAND<NT>;
-  static_assert(BM % B == 0 && BN % B == 0, "whole bands");
+  static_assert(BM % B == 0 && BN % 8 == 0, "whole bands of x rows");
+  const int r = threadIdx.x / (BK / 4);  // the thread's row in a band
   const bool k_in = s.c + k0 < K;
   const long rows = (long)B * K;  // a band of rows in device memory
-  float* d = dst + (threadIdx.x / (BK / 4)) * P + s.c;
+  float* d = dst + r * P + s.c;
 #pragma unroll
   for (int p = 0; p < BM / B; ++p) {
     const bool ok = k_in && s.xr + B * p < M;
@@ -151,7 +153,8 @@ __device__ __forceinline__ void load_stage1(float* dst, const Stage1Src& s,
 #pragma unroll
   for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int p = 0; p < BN / B; ++p) {
+    for (int p = 0; p < (BN + B - 1) / B; ++p) {
+      if (BN % B && p == BN / B && r >= BN % B) continue;  // past row BN
       const bool ok = k_in && s.nr + B * p < N;
       const float* w = SPLIT ? (half ? s.wg : s.wv) + p * rows + k0
                              : s.wv + half * (long)N * K + p * rows + k0;
@@ -162,10 +165,16 @@ __device__ __forceinline__ void load_stage1(float* dst, const Stage1Src& s,
 // A dual-product tile: TI rows and TV value columns (and the same TV gate
 // columns) a thread, so 4 TI rows x 8 TV value columns a warp; WM x WN warps
 // a block, BM x BN; STAGES ring stages; MIN_BLOCKS blocks an SM (the
-// register budget); KU as fma_rows'; EFF the FFMA rate it reaches, in
-// percent of DualWide's (K4's GegluWide and GegluTall, timed on an NVIDIA
-// H100 80GB HBM3 at 700 W at M = 12*350, K = 640, N = 2560, where the
-// cost counts the same work for both).
+// register budget); KU as fma_rows'; EFF the FFMA rate a full SM reaches on
+// it over several rounds of blocks, in percent of DualWide's (chip_smoke.py
+// ``dual_rates``: the out-projection at K = 640 on a grid of three or four
+// whole rounds of each tile on every SM of an NVIDIA H100 80GB HBM3 at
+// 700 W). The two-block tiles lose on long grids, where a three-block
+// tile keeps two blocks running while a third starts: DualTall reaches 101
+// % in one round and 102 % in four, but 96 % over the 91 rounds of the
+// video's kv projection; DualBroad 99 % in four rounds, 97 % over the 18
+// of the 272x736 kv projection. EFF is the long grids' rate, so that they
+// keep DualWide where it is the faster.
 template <int TI_, int WM_, int TV_, int WN_, int STAGES_, int MIN_BLOCKS_,
           int KU_, int EFF_>
 struct DualTile {
@@ -181,7 +190,15 @@ using DualWide = DualTile<8, 4, 4, 1, 2, 3, 4, 100>;
 // 112 rows x 64 value columns, two 4-warp blocks an SM: a grid of few row
 // blocks that DualWide would spread over a second, nearly empty wave (the
 // 12*28 rows of a request's level 3 are 3 x 112)
-using DualTall = DualTile<7, 4, 8, 1, 2, 2, 4, 95>;
+using DualTall = DualTile<7, 4, 8, 1, 2, 2, 4, 96>;
+// 112 rows x 32 value columns, three an SM: DualWide's grid an eighth finer
+// in rows, which fills the slots that DualWide's leaves empty (the
+// out-projection at 12 x 350 rows: 380 blocks on 396 slots, not 330)
+using DualShort = DualTile<7, 4, 4, 1, 2, 3, 4, 98>;
+// 128 rows x 40 value columns, two an SM: 18 float4 loads for 320 FFMAs a
+// k step (DualWide: 16 for 256), in grids of two-block waves (the
+// out-projection at 12 x 350 rows: 33 x 8 blocks, one wave of 264)
+using DualBroad = DualTile<8, 4, 5, 1, 2, 2, 4, 97>;
 
 // The block's products h[i][j] = x[arow + 4 i] . Wv[bcol + 8 j] (j < TV)
 // and x[arow + 4 i] . Wg[bcol + 8 (j - TV)] (j >= TV) over all K, through
@@ -220,30 +237,72 @@ __device__ __forceinline__ void dual_product(float (&h)[G::TI][2 * G::TV],
   }
 }
 
-// The work of tile G's grid over (M, N) as the card runs it: whole waves of
-// the blocks its SMs hold at once, each wave MIN_BLOCKS x BM x BN outputs an
-// SM, at G's rate.
+// The time the busiest SM takes for a grid of ``blocks`` blocks, holding
+// ``per_sm`` at once, in blocks at the kernel's full rate: it runs
+// ceil(blocks / sms) of them in rounds of per_sm; a round of two or more
+// blocks runs at the full rate, a lone block at LONE_RATE percent of it
+// (one 4-warp block leaves each scheduler a single warp, which hides
+// neither the FFMA nor the shared loads' latency). Fitted to the fp32
+// projections' and K5's times on every tile and geometry at the paths'
+// grids on an H100 (PERF.md section 6), where counting whole waves
+// instead took a slower tile at some of them.
+constexpr int LONE_RATE = 70;
+
+static double sm_rounds(long blocks, int sms, int per_sm) {
+  const long n = (blocks + sms - 1) / sms, r = n % per_sm;
+  return (double)(n - r) +
+         (r >= 2 ? (double)r : r == 1 ? 100.0 / LONE_RATE : 0.0);
+}
+
+// The cost of tile G's grid over (M, N): sm_rounds of its blocks, each
+// BM x BN outputs, at G's rate.
 template <class G>
 static double dual_cost(int M, int N, int sms) {
   const long blocks =
       (long)((M + G::BM - 1) / G::BM) * ((N + G::BN - 1) / G::BN);
-  const long slots = (long)sms * G::MIN_BLOCKS;
-  const long waves = (blocks + slots - 1) / slots;
-  return (double)waves * G::MIN_BLOCKS * G::BM * G::BN * 100.0 / G::EFF;
+  return sm_rounds(blocks, sms, G::MIN_BLOCKS) * G::BM * G::BN * 100.0 /
+         G::EFF;
 }
 
-// The tile a dual product over (M, N value columns) takes on the current
-// card: 0 DualWide, 1 DualTall (the cheaper by dual_cost; DualWide at a
-// tie), -1 when the card cannot be asked.
-static int dual_tile(int M, int N) {
+// The current card's SM count, 0 when it cannot be asked.
+static int card_sms() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
-    return -1;
-  return dual_cost<DualTall>(M, N, sms) < dual_cost<DualWide>(M, N, sms)
-             ? 1
-             : 0;
+    return 0;
+  return sms;
+}
+
+// The tile a dual product over (M, N value columns) takes on the current
+// card: 0 DualWide, 1 DualTall, 2 DualShort, 3 DualBroad, the cheapest by
+// dual_cost (the lowest number at a tie); -1 when the card cannot be asked.
+static int dual_tile(int M, int N) {
+  const int sms = card_sms();
+  if (sms <= 0) return -1;
+  const double cost[] = {
+      dual_cost<DualWide>(M, N, sms), dual_cost<DualTall>(M, N, sms),
+      dual_cost<DualShort>(M, N, sms), dual_cost<DualBroad>(M, N, sms)};
+  int best = 0;
+  for (int i = 1; i < 4; ++i)
+    if (cost[i] < cost[best]) best = i;
+  return best;
+}
+
+// f(G{}) for the dual tile G numbered ``tile`` as dual_tile numbers them.
+template <class F>
+static cudaError_t on_dual_tile(int tile, F&& f) {
+  switch (tile) {
+    case 0:
+      return f(DualWide{});
+    case 1:
+      return f(DualTall{});
+    case 2:
+      return f(DualShort{});
+    case 3:
+      return f(DualBroad{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---- the attention tiles: K1/K2's heads, K5, K6 -------------------------
@@ -303,16 +362,24 @@ __host__ __device__ constexpr int attend_min_blocks(int DP) {
   return DP <= 80 ? 3 : 2;
 }
 
-template <int DP>
-using AttendGeom = AttnGeom<DP, attend_ti(DP)>;
+// The attention core's geometry at depth DP with TI rows a thread: the
+// heads' and dq's attend_ti; K5 also takes fewer (f32_flash.cu FwdGeom).
+template <int DP, int TI = attend_ti(DP)>
+using AttendGeom = AttnGeom<DP, TI>;
 
 // The k steps the attention core's products unroll together (fma_rows'
 // KU): two where a thread's register blocks (o and s) hold at most 72
 // floats, which leaves room under 168 registers to load ahead; else one.
-template <int DP>
+template <int DP, int TI = attend_ti(DP)>
 __host__ __device__ constexpr int attend_ku() {
-  using G = AttendGeom<DP>;
+  using G = AttendGeom<DP, TI>;
   return G::TI * (G::TD + G::TJ) <= 72 ? 2 : 1;
+}
+
+// The blocks of ``bytes`` of dynamic shared memory an SM holds: 228 KB, of
+// which each block takes 1 KB more for the system.
+__host__ __device__ constexpr int smem_blocks(size_t bytes) {
+  return (int)(233472 / (bytes + 1024));
 }
 
 // Start copying rows [r0, r0 + ROWS) of src (n_rows x D, row-major, D a
@@ -374,9 +441,9 @@ __device__ __forceinline__ float row_sum(float x) {
 // v rows), v^T [DP][LT] and the warps' p tiles [W][4 TI][LP] share; K1's q
 // projection runs its own ring of QK-deep chunks of x and Wq rows
 // ([BR + DP][QK + 4], two stages) in that region before the keys.
-template <int DP>
+template <int DP, int TI = attend_ti(DP)>
 struct AttendSmem {
-  using G = AttendGeom<DP>;
+  using G = AttendGeom<DP, TI>;
   static constexpr int Q = 0, RING = Q + G::BR * G::LR,
                        STAGE = 2 * G::KT * G::LR, VT = RING + 2 * STAGE,
                        PB = VT + DP * G::LT,
@@ -407,18 +474,18 @@ __device__ __forceinline__ void cp_kv_stage(float* dst, const float* k,
 // and o += p v over v^T; keys at positions >= kv_len take no part. o is
 // the unnormalised sum, l the row sums (summed over the row's threads).
 // KU: the products' k steps unrolled together (fma_rows), 1 where the
-// register blocks leave no room to load ahead.
-template <int DP, int KU>
+// register blocks leave no room to load ahead; TI: the rows a thread owns
+// (AttendGeom<DP, TI>, the layout of AttendSmem<DP, TI>).
+template <int DP, int KU, int TI = attend_ti(DP)>
 __device__ __forceinline__ void attend(float* smem,
                                        const float* __restrict__ k,
                                        const float* __restrict__ v, int Lk,
-                                       int kv_len, int D,
-                                       float (&m)[attend_ti(DP)],
-                                       float (&l)[attend_ti(DP)],
-                                       float (&o)[attend_ti(DP)][DP / 8]) {
-  using G = AttendGeom<DP>;
-  using S = AttendSmem<DP>;
-  constexpr int KT = G::KT, TJ = G::TJ, TI = G::TI;
+                                       int kv_len, int D, float (&m)[TI],
+                                       float (&l)[TI],
+                                       float (&o)[TI][DP / 8]) {
+  using G = AttendGeom<DP, TI>;
+  using S = AttendSmem<DP, TI>;
+  constexpr int KT = G::KT, TJ = G::TJ;
   const int ty = lane_ty(), tx = lane_tx();
   const float* qa = smem + S::Q + (warp() * 4 * TI + ty) * G::LR;
   float* vt = smem + S::VT;

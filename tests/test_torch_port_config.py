@@ -329,3 +329,33 @@ def test_serialization_matches_jax(tmp_path):
     with open(tmp_path / "port" / "manifest.json") as f, \
             open(tmp_path / "jax" / "manifest.json") as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_read_npz_matches_np_load(tmp_path, compressed):
+    """``load_params``' reader gives ``np.load``'s arrays, dtypes and
+    memory orders, writable, for the members ``np.savez`` stores (read
+    straight from the file) and those ``np.savez_compressed`` deflates
+    (read through zipfile)."""
+    from magicdrive_tpu_torch.utils.serialization import read_npz
+
+    rs = np.random.RandomState(3)
+    arrays = {"unet/conv_in/kernel": rs.randn(3, 3, 4, 8).astype(np.float32),
+              "fortran": np.asfortranarray(rs.randn(5, 7)),
+              "empty": np.zeros((0, 3), np.float32),
+              "scalar": np.float32(2.5), "ids": np.arange(77)[None],
+              "mask": np.array([True, False]),
+              "big_endian": np.arange(6, dtype=">f4"),
+              "record": np.zeros(2, dtype=[("x", "<f4"), ("y", "<i8")])}
+    path = str(tmp_path / "params.npz")
+    (np.savez_compressed if compressed else np.savez)(path, **arrays)
+    got = read_npz(path)
+    with np.load(path) as z:
+        want = {k: z[k] for k in z.files}
+    assert got.keys() == want.keys() == arrays.keys()
+    for k, w in want.items():
+        g = got[k]
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), k
+        assert (g.flags.c_contiguous, g.flags.f_contiguous) == \
+            (w.flags.c_contiguous, w.flags.f_contiguous), k
+        assert g.flags.writeable and np.array_equal(g, w), k

@@ -89,10 +89,10 @@ def _f32_depths():
 def test_fp32_attention_instances_match_the_spill_gate():
     """Every depth instance of MDK_F32_DEPTHS (the one list that
     ``chip_smoke.F32_DEPTH_INSTANCES`` mirrors) is compiled for K1/K2's
-    heads (NSRC 1 and 2) and for K5, K6's dq and its dk/dv, each
-    projection on its two dual tiles, and ``chip_smoke.SPILL_GATED``
-    counts exactly those entry functions, so a missing or spilling
-    instance fails the card's build."""
+    heads (NSRC 1 and 2), for K5 in each of its FWD_GEOMETRIES, K6's dq and
+    its dk/dv, each projection on every dual tile that ``on_dual_tile``
+    dispatches, and ``chip_smoke.SPILL_GATED`` counts exactly those entry
+    functions, so a missing or spilling instance fails the card's build."""
     import chip_smoke
 
     depths = _f32_depths()
@@ -102,25 +102,53 @@ def test_fp32_attention_instances_match_the_spill_gate():
     assert "MDK_F32_DEPTHS(MDK_HEADS_CASE)" in att
     assert "MDK_F32_DEPTHS(MDK_FLASH_CASE)" in flash
     assert set(re.findall(r"launch_heads<(\d)>\(", att)) == {"1", "2"}
-    tiles = {k: set(re.findall(rf"launch_{k}<(Dual\w+)>\(", att))
-             for k in ("kv_project", "out_project")}
-    assert tiles == dict.fromkeys(tiles, {"DualWide", "DualTall"})
+    assert re.findall(r"on_dual_tile\(dual_tile\(([^,]+), ", att) == [
+        "M", "M"]
+    for k in ("kv_project", "out_project"):
+        assert f"return launch_{k}<decltype(g)>(" in att
+    assert len(_dual_tiles()) == len(chip_smoke.DUAL_TILES) == 4
     kernels = re.findall(r"^(flash_\w+_f32_kernel)\(Args a\)", flash, re.M)
     assert kernels == ["flash_fwd_f32_kernel", "flash_dq_f32_kernel",
                        "flash_dkv_f32_kernel"]
-    assert chip_smoke.SPILL_GATED["f32_attention.cu"] == 2 * len(depths) + 4
-    assert chip_smoke.SPILL_GATED["f32_flash.cu"] == 3 * len(depths)
+    geometries = int(re.search(r"constexpr int FWD_GEOMETRIES = (\d+);",
+                               flash).group(1))
+    assert geometries == len(chip_smoke.f32_fwd_geometries(40)) == 2
+    assert "flash_fwd_f32_kernel<DP, 1>" in flash
+    assert "flash_fwd_f32_kernel<DP, 0>" in flash
+    assert chip_smoke.SPILL_GATED["f32_attention.cu"] == \
+        2 * len(depths) + 2 * len(chip_smoke.DUAL_TILES)
+    assert chip_smoke.SPILL_GATED["f32_flash.cu"] == \
+        (geometries + 2) * len(depths)
     assert [chip_smoke.f32_depth_instance(d) for d in range(8, 129, 8)] == [
         next(i for i in depths if i >= d) for d in range(8, 129, 8)]
+
+
+def _fwd_geometry_source():
+    """K5's geometries as csrc/f32_flash.cu FwdGeom and csrc/f32_tile.cuh
+    set them: (rows a thread of geometry 1 against 0, its blocks-an-SM
+    rule, the rates {shallow: eff, deep: eff}, the shared-memory rule)."""
+    flash = (build.CSRC / "f32_flash.cu").read_text()
+    tile = (build.CSRC / "f32_tile.cuh").read_text()
+    eff = re.search(r"EFF = GI == 0 \? 100 : DP <= 48 \? (\d+) : (\d+);",
+                    flash)
+    return (
+        "TI = GI == 0 ? attend_ti(DP) : attend_ti(DP) / 2;" in flash,
+        "GI == 0 ? attend_min_blocks(DP)\n              : smem_blocks(BYTES)"
+        " < 4 ? smem_blocks(BYTES) : 4;" in flash,
+        {True: int(eff.group(1)), False: int(eff.group(2))},
+        "return (int)(233472 / (bytes + 1024));" in tile and
+        "FLOATS = PB + G::W * 4 * G::TI * G::LP;" in tile)
 
 
 def test_fp32_attention_tile_mirrors_the_geometry():
     """``chip_smoke.f32_attention_tile`` restates csrc/f32_tile.cuh
     AttnGeom (4 warps, 4 TI rows a warp; 32-row streamed tiles up to the
-    instance 48, 16-row tiles deeper) with the rows a thread of the heads,
-    K5 and dq (``attend_ti``) and of dk/dv (``dkv_ti``); the card holds the
-    two to the library's ``mdk_*_f32_tile`` entries in
-    ``check_f32_tiles``."""
+    instance 48, 16-row tiles deeper) with the rows a thread of the heads
+    and dq (``attend_ti``) and of dk/dv (``dkv_ti``), and K5's two
+    geometries (csrc/f32_flash.cu FwdGeom: attend_ti's rows or half,
+    blocks an SM from the launch bound and the shared memory, the rates)
+    with ``fwd_geometry``'s choice by whole waves; the card holds them to
+    the library's ``mdk_*_f32_tile`` entries in ``check_f32_tiles``."""
     import chip_smoke
 
     src = (build.CSRC / "f32_tile.cuh").read_text()
@@ -129,13 +157,49 @@ def test_fp32_attention_tile_mirrors_the_geometry():
     assert "KT = SHALLOW ? 32 : 16" in src
     assert "BR = 4 * TI * W" in src
     assert "return DP <= 48 ? 8 : 6;" in src
+    assert "return DP <= 80 ? 3 : 2;" in src
     assert "return DP <= 48 ? 8 : 3;" in (build.CSRC / "f32_flash.cu"
                                           ).read_text()
+    halves, blocks_rule, eff, smem_rule = _fwd_geometry_source()
+    assert halves and blocks_rule and smem_rule
+    assert eff == chip_smoke.F32_FWD_EFF
     for kernel in chip_smoke.F32_ATTENTION_KERNELS:
         for dp in _f32_depths():
             ti = 8 if dp <= 48 else 3 if kernel == "dkv" else 6
-            assert chip_smoke.f32_attention_tile(kernel, dp) == (
-                16 * ti, 32 if dp <= 48 else 16)
+            keys = 32 if dp <= 48 else 16
+            if kernel != "fwd":
+                assert chip_smoke.f32_attention_tile(kernel, dp) == (
+                    16 * ti, keys)
+                continue
+            geometries = chip_smoke.f32_fwd_geometries(dp)
+            for g, ti_g in enumerate((ti, ti // 2)):
+                floats = chip_smoke._attend_floats(dp, ti_g)
+                fit = 233472 // (4 * floats + 1024)
+                bound = (3 if dp <= 80 else 2) if g == 0 else 4
+                assert geometries[g] == (16 * ti_g, min(bound, fit),
+                                         100 if g == 0 else eff[dp <= 48])
+                assert min(bound, fit) >= 1
+            with pytest.raises(ValueError):
+                chip_smoke.f32_attention_tile("fwd", dp)
+    # AttendSmem's floats, by hand at the path's depths: q, stages, v^T, p
+    assert chip_smoke._attend_floats(40, 8) == 128 * 44 + 4 * 32 * 44 + \
+        40 * 36 + 128 * 40
+    assert chip_smoke._attend_floats(80, 3) == 48 * 84 + 4 * 16 * 84 + \
+        80 * 20 + 48 * 24
+    # the choice: the busiest SM's rounds of each geometry's blocks, 0 at a
+    # tie
+    for BH, Lq, D in ((48, 350, 80), (144, 350, 80), (48, 1400, 40),
+                      (144, 1400, 40), (16, 8000, 40), (4, 200, 48)):
+        costs = []
+        for rows, blocks, e in chip_smoke.f32_fwd_geometries(D):
+            n = -(-BH * -(-Lq // rows) // 132)
+            r = n % blocks
+            t = n - r + (r if r >= 2 else 100 / 70 if r else 0)
+            costs.append(t * rows * 100.0 / e)
+        want = 1 if costs[1] < costs[0] else 0
+        assert chip_smoke.fwd_geometry(BH, Lq, D) == want
+        assert chip_smoke.f32_attention_tile("fwd", D, (BH, Lq))[0] == \
+            chip_smoke.f32_fwd_geometries(D)[want][0]
 
 
 @pytest.mark.parametrize("kernel", ["heads", "fwd", "dq", "dkv"])
@@ -143,7 +207,8 @@ def test_depth_checks_reach_every_fp32_tile_raggedly(kernel):
     """The fp32 depth checks (``check_attention_depths`` for the heads,
     ``check_flash_depths`` for K5 and K6) run every depth instance, so
     every tile ``f32_attention_tile`` returns, those of the 224x400 path's
-    attentions and of FLASH_SHAPES among them, and their q rows, keys and
+    attentions and of FLASH_SHAPES among them, and K5 at each depth in each
+    of its geometries (``flash_depth_grids``), and their q rows, keys and
     (for dk/dv) key blocks end ragged against each tile's block and
     streamed tile, with keys masked past kv_len < Lk for K6."""
     import chip_smoke
@@ -152,14 +217,29 @@ def test_depth_checks_reach_every_fp32_tile_raggedly(kernel):
               else chip_smoke.FLASH_DEPTHS)
     assert {chip_smoke.f32_depth_instance(d) for d in depths} == set(
         chip_smoke.F32_DEPTH_INSTANCES)
+    BH, Lq, Lk, kv_len = chip_smoke.FLASH_DEPTH_SHAPE
+    assert kv_len < Lk
+    if kernel == "fwd":
+        path = {(BH_, Lq_, D) for BH_, Lq_, _, D, _ in
+                chip_smoke.FLASH_SHAPES + chip_smoke.FLASH_TRAIN_SHAPES}
+        reached = set()
+        for d in depths:
+            grids = chip_smoke.flash_depth_grids(d)
+            assert sorted(grids) == [0, 1]
+            for g, bh in grids.items():
+                tile = chip_smoke.f32_attention_tile("fwd", d, (bh, Lq))
+                assert tile[0] == chip_smoke.f32_fwd_geometries(d)[g][0]
+                assert Lq % tile[0] and kv_len % tile[1] and bh >= BH
+                reached.add(tile)
+        assert {chip_smoke.f32_attention_tile("fwd", D, (b, q))
+                for b, q, D in path} <= reached
+        return
     reached = {chip_smoke.f32_attention_tile(kernel, d) for d in depths}
     path = {D for *_, D in chip_smoke._path_attentions()} | {
         D for *_, D, _ in chip_smoke.FLASH_SHAPES}
     assert path == {40, 80}
     assert {chip_smoke.f32_attention_tile(kernel, d) for d in path} <= \
         reached
-    BH, Lq, Lk, kv_len = chip_smoke.FLASH_DEPTH_SHAPE
-    assert kv_len < Lk
     for rows, tile in reached:
         if kernel == "heads":  # K1 at Lq=200, Lk=150; the pair at L=150
             assert 200 % rows and 150 % rows and 150 % tile
@@ -169,31 +249,114 @@ def test_depth_checks_reach_every_fp32_tile_raggedly(kernel):
             assert Lq % rows and kv_len % tile
 
 
-def test_dual_tile_mirror_and_projection_checks_reach_both_tiles():
-    """``chip_smoke.dual_tile`` restates csrc/f32_tile.cuh's DualWide and
-    DualTall (rows, value columns, blocks an SM, rate); the fp32 kv
-    projection takes both at the 224x400 path's shapes (DualTall at
-    attn1 L=1400 over 12 views, where DualWide's grid would take a fourth
-    wave), and ``check_projection_tiles`` gates each projection on each
-    tile."""
+def test_k5_geometries_take_the_path_grids():
+    """K5's grid-chosen geometry at the training path's grids (H100's 132
+    SMs): half-size blocks where geometry 0 leaves most SMs one or two of
+    their three blocks (BH=48, L=350: 192 blocks; 384 of 48 rows give
+    every SM two or three), geometry 0 where its rounds are whole or the
+    smaller blocks would take more of them (BH=48, L=1400; BH=144;
+    L=8000); ``fwd_rates``' grids are whole rounds of the geometry they
+    time on every SM, which ``fwd_geometry`` takes there; the cost is
+    csrc/f32_tile.cuh's ``sm_rounds``."""
     import chip_smoke
 
     src = (build.CSRC / "f32_tile.cuh").read_text()
+    assert f"constexpr int LONE_RATE = {chip_smoke.LONE_RATE};" in src
+    assert "(r >= 2 ? (double)r : r == 1 ? 100.0 / LONE_RATE : 0.0)" in src
+    assert "return sm_rounds(blocks, sms, F::BLOCKS) * F::BR * 100.0 / " \
+        "F::EFF;" in (build.CSRC / "f32_flash.cu").read_text()
+    assert [chip_smoke.sm_rounds(b, 132, 3) for b in (132, 264, 396, 528,
+                                                      660)] == [
+        100 / 70, 2, 3, 3 + 100 / 70, 5]
+    assert chip_smoke.fwd_geometry(48, 350, 80) == 1
+    assert chip_smoke.fwd_geometry(48, 1400, 40) == 0
+    assert chip_smoke.fwd_geometry(144, 1400, 40) == 0
+    assert chip_smoke.fwd_geometry(144, 350, 80) == 0
+    assert chip_smoke.fwd_geometry(16, 8000, 40) == 0
+    assert chip_smoke.FLASH_TRAIN_SHAPES == (
+        (144, 1400, 1400, 40, 1400), (144, 350, 350, 80, 350))
+    assert chip_smoke.TRAIN_VIEWS * 8 == 144
+    for D, grids in chip_smoke.FWD_RATE_GRIDS.items():
+        for g, (BH, L) in enumerate(grids):
+            rows, blocks, _ = chip_smoke.f32_fwd_geometries(D)[g]
+            assert chip_smoke.fwd_geometry(BH, L, D) == g
+            assert L % rows == 0 and BH * (L // rows) % (132 * blocks) == 0
+
+
+def _dual_tiles():
+    """(rows, value columns, blocks an SM, rate) of each dual tile in the
+    order of csrc/f32_tile.cuh ``on_dual_tile``, read from its
+    ``using ... = DualTile<...>`` lines."""
+    src = (build.CSRC / "f32_tile.cuh").read_text()
+    order = re.findall(r"case (\d):\s*return f\((Dual\w+)\{\}\);", src)
+    assert [int(i) for i, _ in order] == list(range(len(order)))
     got = []
-    for name in ("DualWide", "DualTall"):
+    for _, name in order:
         ti, wm, tv, wn, _, blocks, _, eff = map(int, re.search(
             rf"using {name} = DualTile<([^>]*)>;", src).group(1).split(","))
         got.append((4 * ti * wm, 8 * tv * wn, blocks, eff))
-    assert tuple(got) == chip_smoke.DUAL_TILES
-    kv = {chip_smoke.dual_tile(12 * Lk, C)
-          for _, _, Lk, C, _, _ in chip_smoke._path_attentions()}
-    assert kv == {0, 1}
+    return tuple(got)
+
+
+@pytest.mark.parametrize("views", [12, 18])
+def test_dual_tile_mirror_and_projection_checks_reach_both_tiles(views):
+    """``chip_smoke.dual_tile`` restates csrc/f32_tile.cuh's dual tiles
+    (rows, value columns, blocks an SM, rate; the cheapest by whole waves,
+    the lowest number at a tie); the fp32 kv and out projections at the
+    224x400 and 272x736 paths' grids over ``views`` (the request's 12, the
+    B=3 step's 18) reach the tiles as the busiest SM's rounds say
+    (``sm_rounds``; DualBroad where DualWide's leave SMs a block short: the
+    out-projection at 12 x 350 rows takes 33 x 8 blocks, two on every SM),
+    and every tile on one of them; ``check_projection_tiles`` gates each
+    projection on every tile (KV_PROJECTION_TILES, OUT_PROJECTION_TILES,
+    rows ragged against every tile) and one input bitwise on every tile
+    (PROJECTION_BITWISE, ``tile_rows``); ``dual_rates``' grids are whole
+    rounds of the tile they time on every SM, which ``dual_tile`` takes
+    there."""
+    import chip_smoke
+
+    tiles = chip_smoke.DUAL_TILES
+    assert _dual_tiles() == tiles
+    assert "return sm_rounds(blocks, sms, G::MIN_BLOCKS) * G::BM * G::BN " \
+        "* 100.0 /" in (build.CSRC / "f32_tile.cuh").read_text()
+    for M, N in ((4200, 320), (16800, 160), (6300, 320), (9384, 320),
+                 (100, 5), (25200, 320)):
+        costs = [chip_smoke.sm_rounds(-(-M // bm) * -(-N // bn), 132, b) *
+                 bm * bn * 100.0 / e for bm, bn, b, e in tiles]
+        assert chip_smoke.dual_tile(M, N) == costs.index(min(costs))
+    outs = {(L, C) for _, L, _, C, _, _ in chip_smoke._path_attentions()}
+    got_out = {(L, C): chip_smoke.dual_tile(views * L, C // 2)
+               for L, C in outs | {(782, 640)}}
+    got_kv = {chip_smoke.dual_tile(views * Lk, C)
+              for _, _, Lk, C, _, _ in chip_smoke._path_attentions()}
+    if views == 12:
+        assert got_out == {(1400, 320): 0, (350, 640): 3, (782, 640): 0}
+        assert got_kv == {0, 1, 2, 3}
+    else:
+        assert got_out == {(1400, 320): 3, (350, 640): 0, (782, 640): 0}
+        assert got_kv == {0, 2}
     assert [chip_smoke.dual_tile(B * Lk, H * D) for B, Lk, _, H, D in
-            chip_smoke.KV_PROJECTION_TILES] == [0, 1]
+            chip_smoke.KV_PROJECTION_TILES] == list(range(len(tiles)))
     assert [chip_smoke.dual_tile(M, N // 2) for M, _, N in
-            chip_smoke.OUT_PROJECTION_TILES] == [0, 1]
+            chip_smoke.OUT_PROJECTION_TILES] == list(range(len(tiles)))
+    for t, M, N in [(t, B * Lk, H * D) for t, (B, Lk, _, H, D) in
+                    enumerate(chip_smoke.KV_PROJECTION_TILES)] + \
+            [(t, M, N // 2) for t, (M, _, N) in
+             enumerate(chip_smoke.OUT_PROJECTION_TILES)]:
+        assert all(M % bm for bm, *_ in tiles) and N % tiles[t][1]
     assert all(N % 8 == 0 and K % 8 == 0
                for _, K, N in chip_smoke.OUT_PROJECTION_TILES)
+    assert all(B == 2 and Lk % tiles[t][0] for t, (B, Lk, *_) in
+               enumerate(chip_smoke.KV_PROJECTION_TILES))
+    M0, K, N = chip_smoke.PROJECTION_BITWISE
+    rows = chip_smoke.tile_rows(M0, N // 2)
+    assert sorted(rows) == list(range(len(tiles)))
+    assert min(rows.values()) == M0
+    for t, (M, N2) in enumerate(chip_smoke.DUAL_RATE_GRIDS):
+        bm, bn, b, _ = tiles[t]
+        assert chip_smoke.dual_tile(M, N2) == t
+        assert M % bm == 0 and N2 % bn == 0
+        assert (M // bm) * (N2 // bn) % (132 * b) == 0
 
 
 def test_ff_training_shapes_are_the_fp32_steps():
