@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from magicdrive_tpu_torch.utils import trace
+
 
 class GroupNorm(nn.GroupNorm):
     """GroupNorm with float32 statistics; output in the input's dtype."""
@@ -36,6 +38,7 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
+    @trace.spanned("md.resnet")
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.conv1(F.silu(self.norm1(x)))

@@ -26,6 +26,7 @@ from magicdrive_tpu_torch.kernels.reference import take_views
 from magicdrive_tpu_torch.parallel.mesh import (exchange_frames, frame_mesh,
                                                gather_views, local_views,
                                                return_frames, view_mesh)
+from magicdrive_tpu_torch.utils import trace
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -187,13 +188,14 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context) + x
+        x = trace.call("md.attn", self.attn1, self.norm1(x)) + x
+        x = trace.call("md.attn", self.attn2, self.norm2(x), context) + x
         if self.cross_view:
-            x = self.connector(self._cross_view(self.norm4(x))) + x
+            x = self.connector(trace.call("md.attn", self._cross_view,
+                                          self.norm4(x))) + x
         if self.frames is not None:
             x = self.connector_temp(self._temporal(self.norm_temp(x))) + x
-        return self.ff(self.norm3(x)) + x
+        return trace.call("md.ff", self.ff, self.norm3(x)) + x
 
     def _temporal(self, h: torch.Tensor) -> torch.Tensor:
         """Self-attention over the frames at each view and position:
@@ -314,6 +316,7 @@ class Transformer2DModel(nn.Module):
             temporal_frames, neighboring_attn_type, zero_module_type)])
         self.proj_out = nn.Conv2d(c, c, 1)
 
+    @trace.spanned("md.transformer")
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, hgt, wdt = x.shape
         h = self.proj_in(self.norm(x))

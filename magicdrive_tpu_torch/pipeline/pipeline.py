@@ -35,6 +35,7 @@ from magicdrive_tpu_torch.models.unet import UNet2DConditionModel
 from magicdrive_tpu_torch.models.vae import AutoencoderKL
 from magicdrive_tpu_torch.parallel.mesh import (Mesh, sharded_frames,
                                                sharded_views)
+from magicdrive_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -194,6 +195,7 @@ class MagicDrivePipeline:
                             False)
 
     @torch.no_grad()
+    @trace.spanned("md.pipeline.conditioning")
     def conditioning(self, batch: Mapping[str, object]) -> Conditioning:
         """The loop-invariant conditioning of ``batch`` under the config."""
         text, uncond_text = self.encode_text(batch)
@@ -246,6 +248,7 @@ class MagicDrivePipeline:
         return eps_u + cfg.guidance_scale * (eps_c - eps_u)
 
     @torch.no_grad()
+    @trace.spanned("md.pipeline.decode")
     def decode(self, x: torch.Tensor) -> torch.Tensor:
         """Latents (B, N, 4, h, w) -> images (B, N, H, W, 3) float32 in
         [0, 1], DECODE_CHUNK images per VAE call."""
@@ -267,6 +270,7 @@ class MagicDrivePipeline:
         return self._tensor(latents, torch.float32).permute(0, 1, 4, 2, 3)
 
     @torch.no_grad()
+    @trace.spanned("md.pipeline.request", unit=True)
     def __call__(self, batch: Mapping[str, object],
                  generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -282,5 +286,6 @@ class MagicDrivePipeline:
         cond = self.conditioning(batch)
         state = co.init_state(x)
         for i, t in enumerate(co.timesteps):
-            x, state = co.step(i, x, self.guided_eps(x, t, cond), state)
+            with trace.span("md.pipeline.step"):
+                x, state = co.step(i, x, self.guided_eps(x, t, cond), state)
         return self.decode(x)

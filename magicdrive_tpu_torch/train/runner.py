@@ -20,8 +20,18 @@ device:
     ``checkpoints/``, or this run's own) and ``resume_reset_scheduler``;
   * ``Validator`` grids every ``validation_steps`` (and first, with
     ``validation_before_run``) into ``<run_dir>/val_images``;
-  * ``profile_steps`` [a, b]: steps a+1..b under ``torch.profiler``, its
-    trace under ``<run_dir>/profile``;
+  * ``profile_steps`` [a, b]: steps a+1..b under ``torch.profiler`` with
+    the port's spans on (``utils.trace``), its trace under
+    ``<run_dir>/profile``: each step's phases ``md.train.step``,
+    ``md.train.masters``, ``md.train.encode``, ``md.train.forward``,
+    ``md.train.backward`` and ``md.train.optimizer``, and inside them the
+    blocks' ``md.transformer``, ``md.attn``, ``md.ff`` and ``md.resnet``,
+    are ranges on the clock of the kernels they launch. A validation after
+    a step a+1..b-1 runs inside the window, with the pipeline's ranges
+    ``md.pipeline.request``, ``.conditioning``, ``.step`` (each denoising
+    step) and ``.decode``. Where training ends or raises inside the
+    window, the trace is written up to the last step finished, and spans
+    are off again;
   * metrics as JSON lines in ``<run_dir>/metrics.jsonl`` (steps 1-3, then
     every 10th), and to tensorboard where ``torch.utils.tensorboard``
     imports;
@@ -67,6 +77,7 @@ from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from magicdrive_tpu_torch.diffusion import NoiseSchedule
 from magicdrive_tpu_torch.parallel import multihost
 from magicdrive_tpu_torch.parallel.mesh import make_mesh
+from magicdrive_tpu_torch.utils import trace
 from .state import (TrainConfig, TrainState, create_train_state,
                     reset_lr_schedule)
 from .train_step import train_step
@@ -369,13 +380,18 @@ class Runner:
 
         acts = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        trace.enable()
         self._profiler = profile(activities=acts)
         self._profiler.start()
 
     def _stop_profile(self, window) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._profiler.stop()
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+        finally:
+            trace.disable()
+            trace.drain()  # the exported trace holds them
         out = os.path.join(self.run_dir, "profile")
         os.makedirs(out, exist_ok=True)
         self._profiler.export_chrome_trace(os.path.join(
@@ -407,34 +423,38 @@ class Runner:
                     "epoch": epoch})
                 t_last = time.perf_counter()
 
-        for batch in batches:
-            if state.step >= self.tcfg.max_train_steps:
-                break
-            if window and state.step == window[0] and self.main:
-                self._start_profile()
-            batch = dict(batch, bev_map=np.asarray(
-                batch["bev_map"])[..., :self.map_channels])
-            gen = torch.Generator(self.device).manual_seed(
-                self.seed * 1_000_003 + state.step)
-            metrics = train_step(self.modules, state, batch, self.tcfg,
-                                 generator=gen, schedule=self.schedule,
-                                 mesh=self.mesh.dp_only())
-            if window and state.step == window[1] and self._profiler:
-                self._stop_profile(window)
-            if pending is not None:
-                check(pending)
-            pending = (state.step, metrics,
-                       len(batch["input_ids"]) * self.mesh.dp)
-            at_ckpt = state.step % rc["checkpointing_steps"] == 0
-            at_val = self.validator is not None and \
-                state.step % rc["validation_steps"] == 0
-            if at_ckpt or at_val:
-                check(pending)
-                pending = None
-            if at_ckpt:
-                self.save(state)
-            if at_val:
-                self.validate(state)
+        try:
+            for batch in batches:
+                if state.step >= self.tcfg.max_train_steps:
+                    break
+                if window and state.step == window[0] and self.main:
+                    self._start_profile()
+                batch = dict(batch, bev_map=np.asarray(
+                    batch["bev_map"])[..., :self.map_channels])
+                gen = torch.Generator(self.device).manual_seed(
+                    self.seed * 1_000_003 + state.step)
+                metrics = train_step(self.modules, state, batch, self.tcfg,
+                                     generator=gen, schedule=self.schedule,
+                                     mesh=self.mesh.dp_only())
+                if window and state.step == window[1] and self._profiler:
+                    self._stop_profile(window)
+                if pending is not None:
+                    check(pending)
+                pending = (state.step, metrics,
+                           len(batch["input_ids"]) * self.mesh.dp)
+                at_ckpt = state.step % rc["checkpointing_steps"] == 0
+                at_val = self.validator is not None and \
+                    state.step % rc["validation_steps"] == 0
+                if at_ckpt or at_val:
+                    check(pending)
+                    pending = None
+                if at_ckpt:
+                    self.save(state)
+                if at_val:
+                    self.validate(state)
+        finally:
+            if self._profiler is not None:  # the window did not close
+                self._stop_profile((window[0], state.step))
         if pending is not None:
             check(pending)
         return state

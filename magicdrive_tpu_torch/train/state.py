@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from magicdrive_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from magicdrive_tpu_torch.utils import trace
 
 UNET_TRAINABLE_SUBMODULES = ("norm4", "attn4", "connector",
                              "norm_temp", "attn_temp", "connector_temp")
@@ -278,6 +279,7 @@ class TrainState:
     masters: Dict[str, torch.Tensor]
     opt: Union[AdamW, MultiSteps]
 
+    @trace.spanned("md.train.masters")
     def copy_into(self, modules) -> Dict[str, torch.nn.Parameter]:
         """Write the masters into the modules' working copies; returns the
         trainable parameters of ``modules``."""
@@ -287,6 +289,7 @@ class TrainState:
                                  list(self.masters.values()))
         return params
 
+    @trace.spanned("md.train.optimizer")
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]
                         ) -> torch.Tensor:
         norm = self.opt.step(self.masters, grads)

@@ -35,6 +35,7 @@ from magicdrive_tpu_torch.diffusion import NoiseSchedule, ddpm
 from magicdrive_tpu_torch.parallel.mesh import (frame_rows, local_views,
                                                sharded_frames, sharded_views,
                                                take_rows)
+from magicdrive_tpu_torch.utils import trace
 from .state import TrainConfig, TrainState
 
 _INT_KEYS = ("input_ids", "uncond_ids", "classes")
@@ -145,29 +146,32 @@ def loss_fn(modules, batch: Mapping[str, torch.Tensor], draws: StepDraws,
     m = modules
     px = batch["pixel_values"]
     B, N = px.shape[:2]
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("md.train.encode"):
         text, _ = m.clip(batch["input_ids"])
         uncond_text, _ = m.clip(batch["uncond_ids"])
         latents = m.vae.encode(px.reshape(B * N, *px.shape[2:]).permute(
             0, 3, 1, 2), draws.vae_noise)
-    latents = latents.reshape(B, N, *latents.shape[1:])
-    t = draws.timesteps
-    t_full = t[:, None].expand(B, N)
-    noise = draws.noise.expand(latents.shape)
-    noisy = ddpm.add_noise(schedule, latents, noise, t_full)
-    down, mid, tokens = m.controlnet(
-        noisy, t, batch["camera_param"], text,
-        batch["bev_map"].permute(0, 3, 1, 2), batch["bboxes"],
-        batch["classes"], batch["masks"],
-        encoder_hidden_states_uncond=uncond_text, drop_mask=draws.drop_mask,
-        map_drop_mask=draws.map_drop_mask)
-    eps = m.unet(noisy.reshape(B * N, *noisy.shape[2:]), t_full.reshape(-1),
-                 tokens.reshape(B * N, *tokens.shape[2:]),
-                 down_block_additional_residuals=down,
-                 mid_block_additional_residual=mid)
-    target = ddpm.prediction_target(schedule, latents, noise, t_full,
-                                    cfg.prediction_type)
-    return ((eps.float().reshape(target.shape) - target.float()) ** 2).mean()
+    with trace.span("md.train.forward"):
+        latents = latents.reshape(B, N, *latents.shape[1:])
+        t = draws.timesteps
+        t_full = t[:, None].expand(B, N)
+        noise = draws.noise.expand(latents.shape)
+        noisy = ddpm.add_noise(schedule, latents, noise, t_full)
+        down, mid, tokens = m.controlnet(
+            noisy, t, batch["camera_param"], text,
+            batch["bev_map"].permute(0, 3, 1, 2), batch["bboxes"],
+            batch["classes"], batch["masks"],
+            encoder_hidden_states_uncond=uncond_text,
+            drop_mask=draws.drop_mask, map_drop_mask=draws.map_drop_mask)
+        eps = m.unet(noisy.reshape(B * N, *noisy.shape[2:]),
+                     t_full.reshape(-1),
+                     tokens.reshape(B * N, *tokens.shape[2:]),
+                     down_block_additional_residuals=down,
+                     mid_block_additional_residual=mid)
+        target = ddpm.prediction_target(schedule, latents, noise, t_full,
+                                        cfg.prediction_type)
+        return ((eps.float().reshape(target.shape) - target.float())
+                ** 2).mean()
 
 
 def loss_and_grads(modules, state: TrainState,
@@ -178,8 +182,9 @@ def loss_and_grads(modules, state: TrainState,
     state's masters (zeros for a weight the loss does not reach)."""
     params = state.copy_into(modules)
     loss = loss_fn(modules, batch, draws, cfg, schedule)
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
+    with trace.span("md.train.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
     return loss.detach(), {
         k: torch.zeros_like(state.masters[k]) if g is None else g.float()
         for (k, _), g in zip(params.items(), grads)}
@@ -225,6 +230,7 @@ def all_reduce_mean(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
     return tensors[-1].reshape(())
 
 
+@trace.spanned("md.train.step", unit=True)
 def train_step(modules, state: TrainState, batch: Mapping[str, Any],
                cfg: TrainConfig, draws: Optional[StepDraws] = None,
                generator: Optional[torch.Generator] = None,
